@@ -1,0 +1,181 @@
+"""Serving entry point: continuous-batching decode over the paged slot scheduler.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --slots 8 --requests 16 --prompt-len 64 --prompt-len-max 192 \
+        --shared-prefix 64 --max-new 32 --max-len 512 --block-size 16
+
+Port of ``repro/launch/serve.py`` in paged mode.  It runs on the card unless
+``--device cpu`` is given, and raises when CUDA is absent.  Its defaults
+differ from the JAX package's serve CLI on purpose: the kernel backend defaults to
+``auto`` (int8 on CUDA, off on the CPU) and ``--attn-impl`` to ``kernel``,
+because on the card the kernels are the serving path (the JAX CLI kept
+them opt-in, as on the CPU they only ran in interpret mode).  Weights are
+random f32 masters from a seeded generator; prompts are random tokens, of
+lengths drawn in [--prompt-len, --prompt-len-max], and every other request
+starts with one common --shared-prefix tokens so that prefix sharing and
+copy-on-write run.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.models import lm
+from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
+                                 ServeConfig, paged_supported)
+
+
+def _reduce(cfg):
+    """Small same-family twin for CPU runs (--reduced), as the JAX package's
+    ``launch/train.py::_reduce``."""
+    changes = dict(num_layers=min(cfg.num_layers, 4), d_model=128,
+                   vocab_size=512, compute_dtype="float32")
+    if cfg.num_heads:
+        kv = cfg.num_kv_heads if cfg.num_kv_heads == cfg.num_heads else 2
+        changes.update(num_heads=4, num_kv_heads=min(kv, 4), head_dim=32)
+    if cfg.d_ff:
+        changes.update(d_ff=256)
+    if cfg.family == "moe":
+        changes.update(num_experts=4, experts_per_token=2, moe_d_ff=64)
+    if cfg.use_mla:
+        changes.update(kv_lora_rank=32, qk_nope_dim=32, qk_rope_dim=16,
+                       v_head_dim=32)
+    if cfg.family in ("ssm", "hybrid"):
+        changes.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=32)
+    if cfg.family == "hybrid":
+        changes.update(num_layers=4, attn_every=2)
+    if cfg.family == "encdec":
+        changes.update(num_encoder_layers=2, encoder_seq=32)
+    if cfg.family == "vlm":
+        changes.update(num_patches=8)
+    return dataclasses.replace(cfg, **changes)
+
+
+def make_prompts(rng: np.random.Generator, n: int, vocab: int, lo: int,
+                 hi: int, shared_prefix: int) -> list:
+    """n random prompts with lengths in [lo, hi]; every other one starts
+    with the same ``shared_prefix`` tokens."""
+    prefix = rng.integers(0, vocab, size=(shared_prefix,)).astype(np.int32)
+    prompts = []
+    for i in range(n):
+        p = rng.integers(0, vocab, size=(int(rng.integers(lo, hi + 1)),))
+        p = p.astype(np.int32)
+        if shared_prefix and i % 2 == 0:
+            p[:shared_prefix] = prefix[:len(p)]
+        prompts.append(p)
+    return prompts
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen1.5-0.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "PyTorch versions of the kernels)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=12)
+    ap.add_argument("--prompt-len-max", type=int, default=None,
+                    help="longest prompt (default: --prompt-len)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens every other prompt shares at its start")
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=64)
+    ap.add_argument("--block-size", type=int, default=8)
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prefill token budget per tick (default: block size)")
+    ap.add_argument("--cache-dtype", default=None,
+                    choices=["bfloat16", "float32", "int8"],
+                    help="KV storage dtype (default: the compute dtype)")
+    ap.add_argument("--eos-id", type=int, default=None,
+                    help="stop at this token id (default: run to max-new)")
+    ap.add_argument("--kernel-backend", default="auto",
+                    choices=["auto", "off", "emulate", "int8"],
+                    help="decode-hook kernel backend (auto: int8 on CUDA, "
+                         "off on the CPU)")
+    ap.add_argument("--attn-impl", default="kernel", choices=["ref", "kernel"],
+                    help="paged decode attention: the paged_attention kernel "
+                         "or the plain gather path")
+    return ap
+
+
+def main(argv=None) -> dict:
+    """Serve random prompts to completion.  Returns a report: the finished
+    requests, the scheduler's stats, tokens, decode steps and times."""
+    args = _parser().parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = _reduce(cfg)
+    if not paged_supported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves the paged families only")
+    params = lm.init_params(cfg, seed=args.seed, device=device)
+
+    cache_dtype = args.cache_dtype or (
+        "bfloat16" if cfg.compute_dtype == "bfloat16" else "float32")
+    serve = ServeConfig(num_slots=args.slots, eos_id=args.eos_id,
+                        max_len=args.max_len, mode="paged",
+                        block_size=args.block_size,
+                        prefill_chunk=args.prefill_chunk,
+                        cache_dtype=cache_dtype,
+                        attn_impl=args.attn_impl,
+                        kernel_backend=args.kernel_backend)
+    print(f"[serve] {cfg.name} ({cfg.family}) on {device} slots={args.slots} "
+          f"cache={cache_dtype} kernel_backend={args.kernel_backend} "
+          f"attn_impl={args.attn_impl}", flush=True)
+
+    hooks = EngineHooks.for_model(params, cfg, serve)
+    decode_s = [0.0]
+    inner = hooks.decode
+
+    def timed_decode(*a):
+        t = time.perf_counter()
+        out = inner(*a)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        decode_s[0] += time.perf_counter() - t
+        return out
+    hooks.decode = timed_decode
+    sched = BatchScheduler(serve, hooks)
+
+    rng = np.random.default_rng(args.seed)
+    hi = args.prompt_len_max or args.prompt_len
+    prompts = make_prompts(rng, args.requests, cfg.vocab_size,
+                           args.prompt_len, hi, args.shared_prefix)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=args.max_new)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run_until_drained()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    finished = [r for r in reqs if r.done]
+    tok = sum(len(r.generated) for r in finished)
+    steps = sched.steps_run
+    print(f"[serve] {len(finished)}/{args.requests} requests, {tok} tokens "
+          f"in {dt:.2f}s ({tok / dt:.1f} tok/s), {steps} decode steps "
+          f"({1e3 * decode_s[0] / max(steps, 1):.2f} ms/step), "
+          f"{sched.stats['prefix_hits']} prefix hits, "
+          f"{sched.stats['cow_copies']} COW copies", flush=True)
+    for r in finished[:3]:
+        print(f"  req {r.uid}: {r.generated[:8]}...", flush=True)
+    return {"finished": finished, "requests": args.requests,
+            "stats": dict(sched.stats), "tokens": tok, "seconds": dt,
+            "decode_steps": steps, "decode_seconds": decode_s[0],
+            "device": str(device)}
+
+
+if __name__ == "__main__":
+    main()

@@ -10,13 +10,15 @@ Phases (any failure exits non-zero before the result line is printed):
 2. build    -- nvcc builds every kernel of ``src/repro_torch/csrc`` (one
                process per source, all at once) into ``build/kernels``.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
-               the full-width decode shapes of qwen1.5-0.5b (8 slots), for
-               both datapaths and both compute dtypes, with the tolerance
-               stated beside each check.  Times are CUDA-event medians of 25
-               launches after warm-up, each launch after a write of 128 MB
-               that evicts the 50 MB L2 (the decode path reads every weight
-               cold).  ``library_ms`` times one PyTorch call that computes the
-               same function, as a yardstick; the port never calls it.
+               the full-width decode shapes of qwen1.5-0.5b (8 slots) and
+               the full-width LeNet-5 training shapes (batch 128, and 1024
+               so that a launch moves more than a few hundred KB), for both
+               datapaths, with the tolerance stated beside each check.
+               Times are CUDA-event medians of 25 launches after warm-up,
+               each launch after a write of 128 MB that evicts the 50 MB L2
+               (the paths read every weight cold).  ``library_ms`` times one
+               PyTorch call that computes the same function, as a
+               yardstick; the port never calls it.
 4. serve    -- the port's serving entry point (``launch.serve.main``) on
                full-width qwen1.5-0.5b with random f32 masters from a seed:
                8 slots, 16 requests of 64-192 prompt tokens (every other one
@@ -29,10 +31,23 @@ Phases (any failure exits non-zero before the result line is printed):
                CPU (plain versions) from the same pool, the logits are
                compared, and torch.profiler splits a few more decode steps
                into device time by kernel, wall time and idle share.
-5. summary  -- one ``{"kernels": [...]}`` line, the card's line, and last
+5. train    -- the port's LeNet-5 train step (``core.lenet``), the paper's
+               Fig. 3 network at full width (784-256-256-256-256-10), f32
+               masters from seed 0, Table-I MNIST (I,F) points, on the
+               synthetic classification set (8192 train / 2048 test, noise
+               3.5): 150 SGD steps of batch 128 at lr 0.05, once with the
+               int8 backend and once with emulate.  Launch counts are set to
+               0 just before each run and read just after; each run must
+               descend (last-20 mean loss below half the first-20 mean).
+               Then one step from the same params and batch runs on the card
+               and on the CPU (plain versions) and the new parameters and
+               loss are compared, and torch.profiler splits a few steps into
+               device time by kernel, wall time and idle share.
+6. summary  -- one ``{"kernels": [...]}`` line, the card's line, and last
                ``{"ok": true, "device": {...}}``.
 
-``--phases`` picks a subset (for example ``--phases device,build,kernels``);
+``--phases`` picks a subset (for example ``--phases device,build,kernels`` or
+``--phases device,build,kernels,train``);
 the result line is printed only when every phase ran.  The script imports
 nothing of JAX nor of the JAX package ``repro``.
 """
@@ -49,7 +64,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "serve")
+PHASES = ("device", "build", "kernels", "serve", "train")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -60,9 +75,20 @@ REPS, WARM = 25, 3
 B, D, H, HKV, HD, FF = 8, 1024, 16, 16, 64, 2816
 BS, M = 16, 32                                # block size, blocks per slot
 
+# LeNet-5 training widths (configs/lenet5.py), batch 128 and 1024
+LENET_IN, LENET_H, LENET_C = 784, 256, 10
+TRAIN_T = (128, 1024)
+LR = 0.05
+
 SOURCES = {
     "fxp_matmul": ("src/repro_torch/csrc/fxp_matmul.cu",
                    "src/repro/kernels/fxp_matmul.py:138"),
+    "bp_gstep": ("src/repro_torch/csrc/bp_gstep.cu",
+                 "src/repro/kernels/bp_gstep.py:137"),
+    "sgd_dw_update": ("src/repro_torch/csrc/sgd_dw_update.cu",
+                      "src/repro/kernels/sgd_dw_update.py:79"),
+    "bp_fused_unit": ("src/repro_torch/csrc/bp_fused_unit.cu",
+                      "src/repro/kernels/bp_fused_unit.py:199"),
     "decode_prologue": ("src/repro_torch/csrc/decode_prologue.cu",
                         "src/repro/kernels/decode_prologue.py:188"),
     "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -402,6 +428,302 @@ def check_paged_attention(torch, dev, flush, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: the training kernels at the LeNet-5 shapes
+# ---------------------------------------------------------------------------
+
+TABLE_I = ((2, 12), (2, 12), (2, 12), (1, 12), (3, 10))   # MNIST, Table I
+# f32 sums taken in another order than the plain version's matmul: 1e-4 of
+# the output scale; after an (I,F) output rounding a value at a grid tie
+# may land one step 2^-F away, on at most 1% of the outputs
+F32_TOL = "|d| <= 1e-4*max|ref| + 1e-4*|ref|"
+# W - lr*dW: lr times the f32 reassociation error of dW (1e-4 of max|dW|),
+# plus two f32 ulps of W for the rounding of the subtraction
+UPDATE_TOL = "|d| <= 1e-4*lr*max|dW| + 2^-22*|ref|"
+GRID_TOL = " (+1 grid step on <= 1%)"
+
+
+def _record(torch, flush, name, variant, shape, run, plain, err, tol,
+            nbytes, ops, kind, library=None,
+            library_note="no single PyTorch call"):
+    """Time the kernel, its plain version and the library call; one row."""
+    ms = time_ms(run, torch, flush)
+    plain_ms = time_ms(plain, torch, flush)
+    library_ms = None if library is None else time_ms(library, torch, flush)
+    bms, by = bound(nbytes, ops, kind)
+    say(f"{name} {variant} {shape}: err {err:.3g} ({tol}) {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library "
+        f"{library_ms if library_ms is None else round(library_ms, 4)} ms "
+        f"({library_note}), bound {bms:.4f} ms ({by})")
+    return dict(name=name, variant=variant, shape=shape, max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                library=library_note, bound_ms=bms, bound_by=by)
+
+
+def _bitwise(torch, got, ref):
+    require(bool(got.isfinite().all()), "kernel output is not finite")
+    return float((got - ref).abs().max()), bool(torch.equal(got, ref))
+
+
+def _f32_close(got, ref, grid=0.0):
+    return compare(got, ref, atol=1e-4 * float(ref.abs().max()), rtol=1e-4,
+                   grid=grid, grid_frac=0.01)
+
+
+def _update_close(got, ref, dw, grid=0.0):
+    return compare(got, ref, atol=1e-4 * LR * float(dw.abs().max()),
+                   rtol=2.0 ** -22, grid=grid, grid_frac=0.01)
+
+
+def _int_mm_library(torch, a, b):
+    """torch._int_mm(a, b) as the yardstick, where its shape rules allow."""
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError as e:
+        return None, f"torch._int_mm refused: {str(e)[:100]}"
+    return (lambda: torch._int_mm(a, b)), "torch._int_mm"
+
+
+def check_fxp_matmul_lenet(torch, dev, flush, gen):
+    """fxp_matmul at the LeNet forward shapes, with each layer's Table-I
+    bits (input K = 784, head N = 10: ragged)."""
+    from repro_torch.kernels.fxp_matmul import fxp_matmul, fxp_matmul_plain
+    from repro_torch.quant.int8 import quantize_int8_auto
+
+    rows = []
+    for t in TRAIN_T:
+        for li, (k, n) in ((0, (LENET_IN, LENET_H)), (1, (LENET_H, LENET_H)),
+                           (4, (LENET_H, LENET_C))):
+            bits = TABLE_I[li]
+            x = torch.randn((t, k), generator=gen, device=dev)
+            if li:
+                x = x.clamp_min(0.0)                      # relu'd hidden
+            w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+            shape = f"{t}x{k}x{n}"
+            for datapath in ("emulate", "int8"):
+                if datapath == "int8":
+                    (a, sx), (b, sw) = (quantize_int8_auto(x, bits),
+                                        quantize_int8_auto(w, bits))
+                    kw = dict(out_bits=None, act="identity", datapath="int8",
+                              scale=sx * sw)
+                    kind, nbytes = "int8", t * k + k * n + 4 * t * n
+                else:
+                    a, b = x, w
+                    kw = dict(xa_bits=bits, w_bits=bits, out_bits=None,
+                              act="identity")
+                    kind, nbytes = "float32", 4 * (t * k + k * n + t * n)
+                got = fxp_matmul(a, b, **kw)
+                ref = fxp_matmul_plain(a, b, **kw)
+                torch.cuda.synchronize()
+                if datapath == "int8":
+                    # identical int32 sums and one identical f32 rescale
+                    tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
+                    library, note = _int_mm_library(torch, a, b)
+                else:
+                    tol, (err, ok) = F32_TOL, _f32_close(got, ref)
+                    library, note = None, "n/a: (I,F) rounding of operands"
+                require(ok, f"fxp_matmul {datapath} lenet {shape}: max err "
+                            f"{err} beyond {tol}")
+                rows.append(_record(
+                    torch, flush, "fxp_matmul",
+                    f"{datapath}/lenet/bits={bits}", shape,
+                    lambda: fxp_matmul(a, b, **kw),
+                    lambda: fxp_matmul_plain(a, b, **kw), err, tol, nbytes,
+                    2.0 * t * k * n, kind, library, note))
+    return rows
+
+
+def check_bp_gstep(torch, dev, flush, gen):
+    """The head's G seed: G [T, 10] against W_out [256, 10], f'(Z) of the
+    last hidden layer, g_bits of layer 3 (Table I); and the z=None form."""
+    from repro_torch.kernels.bp_gstep import bp_gstep, bp_gstep_plain
+    from repro_torch.quant.int8 import quantize_int8_absmax, quantize_int8_auto
+
+    rows = []
+    din, dout = LENET_H, LENET_C
+    for t in TRAIN_T:
+        g = 0.01 * torch.randn((t, dout), generator=gen, device=dev)
+        w = torch.randn((din, dout), generator=gen, device=dev) * din ** -0.5
+        z = torch.randn((t, din), generator=gen, device=dev)
+        shape = f"T{t} Dout{dout} Din{din}"
+        for datapath, form in (("emulate", "bits"), ("int8", "bits"),
+                               ("emulate", "z=None"), ("int8", "z=None")):
+            zz = z if form == "bits" else None
+            kw = (dict(g_bits=TABLE_I[3], act="relu") if form == "bits"
+                  else dict(g_bits=None, act="identity"))
+            if datapath == "int8":
+                if form == "bits":
+                    (a, sg), (b, sw) = (quantize_int8_auto(g, TABLE_I[4]),
+                                        quantize_int8_auto(w, TABLE_I[4]))
+                else:
+                    (a, sg), (b, sw) = (quantize_int8_absmax(g),
+                                        quantize_int8_absmax(w))
+                kw.update(datapath="int8", scale=sg * sw)
+                kind, esz = "int8", 1
+            else:
+                a, b, kind, esz = g, w, "float32", 4
+            got = bp_gstep(a, b, zz, **kw)
+            ref = bp_gstep_plain(a, b, zz, **kw)
+            torch.cuda.synchronize()
+            library, note = None, "n/a: f'(Z) and (I,F) rounding"
+            if datapath == "int8":
+                # identical int32 sums, rescale, f'(Z) product and rounding
+                tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
+                if form == "z=None":
+                    library, note = _int_mm_library(torch, a,
+                                                    b.T.contiguous())
+                    note += " (on a pre-transposed W)"
+            else:
+                grid = 2.0 ** -TABLE_I[3][1] if form == "bits" else 0.0
+                tol = F32_TOL + (GRID_TOL if grid else "")
+                err, ok = _f32_close(got, ref, grid)
+                if form == "z=None":
+                    library, note = (lambda: a @ b.T), "g @ w.T (f32)"
+            require(ok, f"bp_gstep {datapath} {form} {shape}: max err {err} "
+                        f"beyond {tol}")
+            nbytes = esz * (t * dout + din * dout) + 4 * t * din * (
+                2 if zz is not None else 1)
+            rows.append(_record(
+                torch, flush, "bp_gstep",
+                f"{datapath}/{'bits=on/relu' if form == 'bits' else form}",
+                shape, lambda: bp_gstep(a, b, zz, **kw),
+                lambda: bp_gstep_plain(a, b, zz, **kw), err, tol, nbytes,
+                2.0 * t * din * dout, kind, library, note))
+    return rows
+
+
+def check_sgd_dw_update(torch, dev, flush, gen):
+    """The head's update (X [T, 256], G [T, 10]) and the input layer's
+    (X [T, 784], G [T, 256]) as on the path (w_bits None), and at the input
+    shape the dW-only form and a kq_w variant."""
+    from repro_torch.kernels.sgd_dw_update import (sgd_dw_update,
+                                                   sgd_dw_update_plain)
+    from repro_torch.quant.int8 import quantize_int8_auto
+
+    rows = []
+    for t in TRAIN_T:
+        for layer, (din, dout, li) in (("w_out", (LENET_H, LENET_C, 4)),
+                                       ("w_in", (LENET_IN, LENET_H, 0))):
+            x = torch.randn((t, din), generator=gen, device=dev)
+            if layer == "w_out":
+                x = x.clamp_min(0.0)                      # relu'd hidden
+            g = 1e-3 * torch.randn((t, dout), generator=gen, device=dev)
+            w = torch.randn((din, dout), generator=gen, device=dev) \
+                * din ** -0.5
+            qx, sx = quantize_int8_auto(x, TABLE_I[li])
+            qg, sg = quantize_int8_auto(g, TABLE_I[li])
+            forms = [("w", None)]
+            if layer == "w_in":
+                forms += [("w=None", None), ("w", TABLE_I[0])]
+            shape = f"T{t} Din{din} Dout{dout}"
+            for form, w_bits in forms:
+                ww = w if form == "w" else None
+                for datapath in ("emulate", "int8"):
+                    if datapath == "int8" and w_bits is not None:
+                        continue
+                    if datapath == "int8":
+                        a, b, kind, esz = qx, qg, "int8", 1
+                        kw = dict(w_bits=w_bits, datapath="int8",
+                                  scale=sx * sg)
+                    else:
+                        a, b, kind, esz = x, g, "float32", 4
+                        kw = dict(w_bits=w_bits)
+                    got = sgd_dw_update(a, b, ww, LR, **kw)
+                    ref = sgd_dw_update_plain(a, b, ww, LR, **kw)
+                    torch.cuda.synchronize()
+                    library, note = None, "n/a: (I,F) rounding of W_new"
+                    if datapath == "int8":
+                        # identical int32 sums, rescale and update order
+                        tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
+                        if ww is None:
+                            library, note = _int_mm_library(
+                                torch, a.T.contiguous(), b)
+                            note += " (on a pre-transposed X)"
+                        else:
+                            note = "n/a: int8 product and update in one"
+                    elif ww is None:
+                        tol, (err, ok) = F32_TOL, _f32_close(got, ref)
+                        library, note = (lambda: a.T @ b), "x.T @ g (f32)"
+                    else:
+                        grid = 2.0 ** -w_bits[1] if w_bits else 0.0
+                        tol = UPDATE_TOL + (GRID_TOL if grid else "")
+                        err, ok = _update_close(got, ref, a.T @ b, grid)
+                        if w_bits is None:
+                            library = (lambda: torch.addmm(w, a.T, b,
+                                                           alpha=-LR))
+                            note = "torch.addmm(w, x.T, g, alpha=-lr) (f32)"
+                    require(ok, f"sgd_dw_update {datapath} {layer} {form} "
+                                f"{shape}: max err {err} beyond {tol}")
+                    nbytes = esz * t * (din + dout) + 4 * din * dout * (
+                        2 if ww is not None else 1)
+                    variant = f"{datapath}/{layer}/" + (
+                        "w=None" if ww is None else f"w_bits={w_bits}")
+                    rows.append(_record(
+                        torch, flush, "sgd_dw_update", variant, shape,
+                        lambda: sgd_dw_update(a, b, ww, LR, **kw),
+                        lambda: sgd_dw_update_plain(a, b, ww, LR, **kw), err,
+                        tol, nbytes, 2.0 * t * din * dout, kind, library,
+                        note))
+    return rows
+
+
+def check_bp_fused_unit(torch, dev, flush, gen):
+    """One hidden TDM frame (G, X, Z [T, 256], W [256, 256]) with Table-I
+    bits; int8 with W on an absmax grid (w_bits (2, 12), too wide for int8)
+    and on its exact (I,F) grid (w_bits (2, 5))."""
+    from repro_torch.kernels.bp_fused_unit import (bp_fused_unit,
+                                                   bp_fused_unit_plain)
+    from repro_torch.quant.int8 import quantize_int8_auto
+
+    rows = []
+    din = dout = LENET_H
+    bits = TABLE_I[1]
+    for t in TRAIN_T:
+        g = 1e-3 * torch.randn((t, dout), generator=gen, device=dev)
+        w = torch.randn((din, dout), generator=gen, device=dev) * din ** -0.5
+        x = torch.randn((t, din), generator=gen, device=dev).clamp_min(0.0)
+        z = torch.randn((t, din), generator=gen, device=dev)
+        qg, sg = quantize_int8_auto(g, bits)
+        qx, sx = quantize_int8_auto(x, bits)
+        shape = f"T{t} Din{din} Dout{dout}"
+        for datapath, w_bits, mode in (("emulate", bits, ""),
+                                       ("int8", bits, " absmax"),
+                                       ("int8", (2, 5), " exact")):
+            kw = dict(g_bits=bits, w_bits=w_bits, w_out_bits=None,
+                      act="relu")
+            if datapath == "int8":
+                a, xx, kind, esz = qg, qx, "int8", 1
+                kw.update(datapath="int8", g_scale=sg, x_scale=sx)
+            else:
+                a, xx, kind, esz = g, x, "float32", 4
+            got = bp_fused_unit(a, w, xx, z, LR, **kw)
+            ref = bp_fused_unit_plain(a, w, xx, z, LR, **kw)
+            torch.cuda.synchronize()
+            if datapath == "int8":
+                # the kernel's W payloads, absmax and int32 sums equal the
+                # plain version's, and so do the rescales and the update
+                e1, ok1 = _bitwise(torch, got[0], ref[0])
+                e2, ok2 = _bitwise(torch, got[1], ref[1])
+                tol = "bitwise"
+            else:
+                e1, ok1 = _f32_close(got[0], ref[0], 2.0 ** -bits[1])
+                e2, ok2 = _update_close(got[1], ref[1], xx.T @ a)
+                tol = f"G_out {F32_TOL}{GRID_TOL}; W_new {UPDATE_TOL}"
+            err, ok = max(e1, e2), ok1 and ok2
+            require(ok, f"bp_fused_unit {datapath}{mode} {shape}: max err "
+                        f"{e1} (G_out), {e2} (W_new) beyond {tol}")
+            nbytes = (esz * 2 * t * din + 4 * t * din        # G, X; Z
+                      + 4 * 2 * din * dout + 4 * t * din)    # W, W_new; G_out
+            rows.append(_record(
+                torch, flush, "bp_fused_unit",
+                f"{datapath}/w_bits={w_bits}{mode}", shape,
+                lambda: bp_fused_unit(a, w, xx, z, LR, **kw),
+                lambda: bp_fused_unit_plain(a, w, xx, z, LR, **kw), err, tol,
+                nbytes, 4.0 * t * din * dout, kind, None,
+                "n/a: no single call computes the frame"))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the serving path end to end
 # ---------------------------------------------------------------------------
 
@@ -422,8 +744,11 @@ PARITY_LENS = (64, 79, 80, 100, 127, 150, 191, 192)  # prompts, then 1 step
 # gives uncorrelated logits, |d|/|ref| ~ 1.4.
 PARITY_TOL = {"emulate": 0.05, "int8": 0.15}
 PROFILE_STEPS = 5
+SERVE_KERNELS = ("fxp_matmul", "decode_prologue", "paged_attention")
 PROFILE_GROUPS = (("fxp_matmul", "fxp_"), ("decode_prologue", "prologue_"),
-                  ("paged_attention", "paged_attention_"))
+                  ("paged_attention", "paged_attention_"),
+                  ("bp_gstep", "gstep_"), ("sgd_dw_update", "sgd_dw_"),
+                  ("bp_fused_unit", "fused_unit_"))
 
 
 def serve_runs(torch):
@@ -445,10 +770,12 @@ def serve_runs(torch):
                 and report["stats"]["cow_copies"] > 0,
                 f"serve {backend}: prefix sharing/COW did not run "
                 f"{report['stats']}")
-        for name, n in counts.items():
-            require(n > 0, f"serve {backend}: kernel {name} never launched")
+        for name in SERVE_KERNELS:
+            require(counts[name] > 0,
+                    f"serve {backend}: kernel {name} never launched")
         steps = report["decode_steps"]
-        rec = dict(backend=backend, cache=cache, counts=counts,
+        rec = dict(run=f"{backend}/{cache}", backend=backend, cache=cache,
+                   counts=counts,
                    tokens=report["tokens"], seconds=report["seconds"],
                    tokens_per_s=report["tokens"] / report["seconds"],
                    decode_steps=steps,
@@ -517,16 +844,16 @@ def decode_parity(torch, dev):
                         tol=f"|d|/|ref| <= {tol}", max_abs_err=err,
                         ref_max=float(ref.abs().max()),
                         argmax_agreement=agree,
-                        profile=profile_decode(
+                        profile=profile_steps(
                             torch, lambda: E.paged_decode_step(
                                 params, cfg, pool, tables.to(dev),
                                 lens.to(dev), toks.to(dev), "kernel"),
-                            backend, dev)))
+                            f"decode {backend}", backend, dev)))
     return out
 
 
-def profile_decode(torch, step, backend, dev):
-    """Where a decode step's time goes: the step's wall time (host clock,
+def profile_steps(torch, step, label, backend, dev):
+    """Where a step's time goes: the step's wall time (host clock,
     synchronised, without the profiler, whose own overhead inflates it),
     then device time by kernel over as many steps under torch.profiler,
     and the device's idle share.  Returns {"not measured": why} when the
@@ -550,7 +877,7 @@ def profile_decode(torch, step, backend, dev):
         try:
             prof.start()
         except RuntimeError as e:
-            say(f"profile {backend}: torch.profiler failed to start: {e}")
+            say(f"profile {label}: torch.profiler failed to start: {e}")
             return {"not measured": f"torch.profiler failed to start: {e}"}
         for _ in range(PROFILE_STEPS):
             step()
@@ -559,7 +886,7 @@ def profile_decode(torch, step, backend, dev):
             prof.stop()
             events = prof.events()
         except RuntimeError as e:
-            say(f"profile {backend}: torch.profiler failed: {e}")
+            say(f"profile {label}: torch.profiler failed: {e}")
             return {"not measured": f"torch.profiler failed: {e}"}
     by_name = {}
     for e in events:
@@ -567,7 +894,7 @@ def profile_decode(torch, step, backend, dev):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3)
     if not by_name:
-        say(f"profile {backend}: the profiler saw no device time")
+        say(f"profile {label}: the profiler saw no device time")
         return {"not measured": "no device events in torch.profiler"}
     groups = {}
     for name, ms in by_name.items():
@@ -581,7 +908,7 @@ def profile_decode(torch, step, backend, dev):
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
            "device_ms_by_group": groups,
            "top_other_ms": [[n, ms] for ms, n in top]}
-    say(f"profile {backend}: {wall_ms:.2f} ms/step wall, device busy "
+    say(f"profile {label}: {wall_ms:.2f} ms/step wall, device busy "
         f"{busy:.2f} ms ({100 * res['idle_share']:.1f}% idle); by group "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items()))
         + "; top other: "
@@ -595,10 +922,150 @@ def _tree_cpu(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the LeNet-5 training step end to end
+# ---------------------------------------------------------------------------
+
+TRAIN_RUNS = ("int8", "emulate")
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_WARM = 150, 128, 5
+# kernel launches per step: 5 forward matmuls, the head's G seed, the head
+# and input updates, three hidden TDM frames
+TRAIN_LAUNCHES = {"fxp_matmul": 5, "bp_gstep": 1, "sgd_dw_update": 2,
+                  "bp_fused_unit": 3}
+# One step, card against CPU, from the same params and batch: relative L2
+# error of each parameter's update, |W_card - W_cpu| / |W_cpu - W_0|, and
+# of the loss.  The G chain is rounded onto 2^-12 grids at every layer and
+# its values are only a few grid steps large, so one value that an ulp of
+# difference (another summation order, or PyTorch's softmax on the CPU
+# against CUDA) moves across a rounding boundary changes a G element by a
+# whole step, and the next frame's sums carry that step into a row of
+# boundaries: a rare event with a large effect.  Reversing the order of
+# every sum of the plain emulate step on the CPU alone moves the updates by
+# 4.6% (w_in) and 2.1% (hidden) (tests/test_torch_training.py::
+# test_lenet_update_sensitivity_to_sum_order).  The int8 chain rounds onto
+# the same grids between its exact integer sums: 0.15 for both datapaths.
+# The loss is a forward quantity: 1e-4.  A wrong index or layer order
+# gives an uncorrelated update, |d|/|ref| ~ 1.4.
+TRAIN_PARITY_TOL = 0.15
+TRAIN_LOSS_TOL = 1e-4
+
+
+def _lenet_data(torch, dev):
+    import numpy as np
+
+    from repro_torch.configs.lenet5 import CONFIG
+    from repro_torch.data import SyntheticClassificationDataset
+
+    ds = SyntheticClassificationDataset(
+        CONFIG.input_dim, CONFIG.num_classes, n_train=8192, n_test=2048,
+        noise=3.5, seed=0)
+    batches = list(ds.train_batches(TRAIN_BATCH, TRAIN_STEPS, seed=0))
+    xs = torch.from_numpy(np.stack([b[0] for b in batches])).to(dev)
+    ys = torch.from_numpy(np.stack([b[1] for b in batches])).to(dev)
+    xt, yt = (torch.from_numpy(a).to(dev) for a in ds.test)
+    return xs, ys, xt, yt
+
+
+def _test_accuracy(torch, params, x, y) -> float:
+    """The full-precision forward's accuracy on the test split, as the JAX
+    package's convergence benchmark measures it (``eval_acc``)."""
+    h = x
+    for w in (params["w_in"], *params["hidden"]):
+        h = torch.clamp_min(h @ w, 0.0)
+    return float(((h @ params["w_out"]).argmax(-1) == y).float().mean())
+
+
+def train_runs(torch, dev):
+    from repro_torch import kernels as K
+    from repro_torch.configs.lenet5 import CONFIG
+    from repro_torch.core import (init_lenet_params, lenet_bits_table,
+                                  make_lenet_train_step)
+
+    xs, ys, xt, yt = _lenet_data(torch, dev)
+    bits = lenet_bits_table(TABLE_I)
+    runs, parity = [], []
+    for backend in TRAIN_RUNS:
+        params = init_lenet_params(CONFIG, seed=0, device=dev)
+        step = make_lenet_train_step(CONFIG, bits, backend, dev)
+        losses, secs = [], []
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            params, metrics = step(params, (xs[i], ys[i]), LR)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"])
+        counts = K.launch_counts()
+        loss = torch.stack(losses).cpu()
+        require(bool(loss.isfinite().all()),
+                f"train {backend}: a loss is not finite")
+        first, last = float(loss[:20].mean()), float(loss[-20:].mean())
+        for name, n in counts.items():
+            want = TRAIN_LAUNCHES.get(name, 0) * TRAIN_STEPS
+            require(n == want, f"train {backend}: {name} launched {n} times, "
+                               f"expected {want}")
+        require(last < 0.5 * first, f"train {backend}: mean loss "
+                                    f"{first:.4f} -> {last:.4f} did not halve")
+        rec = dict(run=f"train/{backend}", backend=backend, counts=counts,
+                   steps=TRAIN_STEPS,
+                   ms_per_step=1e3 * statistics.median(secs[TRAIN_WARM:]),
+                   loss_first20=first, loss_last20=last,
+                   test_acc=_test_accuracy(torch, params, xt, yt))
+        say(f"train {backend}: {rec['ms_per_step']:.3f} ms/step (median after "
+            f"{TRAIN_WARM} warm-up), loss {first:.4f} -> {last:.4f}, test acc "
+            f"{rec['test_acc']:.4f}, launches {counts}")
+        runs.append(rec)
+        parity.append(train_parity(torch, dev, bits, backend, xs[0], ys[0]))
+    return runs, parity
+
+
+def train_parity(torch, dev, bits, backend, x, y):
+    """One step from the same params and batch: the card's kernels against
+    the plain versions on the CPU; then a profile of the step."""
+    from repro_torch.configs.lenet5 import CONFIG
+    from repro_torch.core import init_lenet_params, make_lenet_train_step
+
+    params = init_lenet_params(CONFIG, seed=0, device=dev)
+    params_cpu = _tree_cpu(params)
+    step = make_lenet_train_step(CONFIG, bits, backend, dev)
+    got, got_m = step(params, (x, y), LR)
+    ref, ref_m = make_lenet_train_step(CONFIG, bits, backend, "cpu")(
+        params_cpu, (x.cpu(), y.cpu()), LR)
+    rel = {}
+    for k, r in ref.items():
+        g = got[k].cpu()
+        require(g.shape == r.shape and bool(g.isfinite().all()),
+                f"train parity {backend}: {k} not finite or misshapen")
+        rel[k] = float((g - r).norm() / (r - params_cpu[k]).norm())
+    loss_rel = abs(float(got_m["loss"]) - float(ref_m["loss"])) / abs(
+        float(ref_m["loss"]))
+    tol = TRAIN_PARITY_TOL
+    say(f"train parity {backend}: update |d|/|ref| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        + f" (tol {tol}); loss {float(got_m['loss']):.6f} vs "
+          f"{float(ref_m['loss']):.6f}, rel {loss_rel:.3g} "
+          f"(tol {TRAIN_LOSS_TOL})")
+    require(max(rel.values()) <= tol,
+            f"train parity {backend}: update |d|/|ref| {rel} > {tol}")
+    require(loss_rel <= TRAIN_LOSS_TOL,
+            f"train parity {backend}: loss rel {loss_rel} > {TRAIN_LOSS_TOL}")
+    return dict(backend=backend, update_rel_l2_err=rel,
+                tol=f"|d|/|ref| <= {tol}", loss_rel_err=loss_rel,
+                loss_tol=TRAIN_LOSS_TOL,
+                profile=profile_steps(
+                    torch, lambda: step(params, (x, y), LR),
+                    f"train {backend}", backend, dev))
+
+
+# ---------------------------------------------------------------------------
 # the summary line
 # ---------------------------------------------------------------------------
 
 HEADLINE = {"fxp_matmul": ("int8/int8/bits=off/identity", f"{B}x{D}x{FF}"),
+            "bp_gstep": ("int8/bits=on/relu", "T128 Dout10 Din256"),
+            "sgd_dw_update": ("int8/w_in/w_bits=None", "T128 Din784 Dout256"),
+            "bp_fused_unit": ("int8/w_bits=(2, 12) absmax",
+                              "T128 Din256 Dout256"),
             "decode_prologue": ("int8/bfloat16", None),
             "paged_attention": ("bfloat16/pool=int8", None)}
 
@@ -618,8 +1085,8 @@ def summarize(rows, runs):
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             headline=f"{variant} {head['shape']}",
-            launches_by_run={f"{run['backend']}/{run['cache']}":
-                             run["counts"][name] for run in runs},
+            launches_by_run={run["run"]: run["counts"][name]
+                             for run in runs},
             variants=[{k: v for k, v in r.items() if k != "name"}
                       for r in mine]))
     return kernels
@@ -671,11 +1138,20 @@ def main(argv=None) -> int:
         rows += check_fxp_matmul(torch, dev, flush, gen)
         rows += check_decode_prologue(torch, dev, flush, gen)
         rows += check_paged_attention(torch, dev, flush, gen)
+        rows += check_fxp_matmul_lenet(torch, dev, flush, gen)
+        rows += check_bp_gstep(torch, dev, flush, gen)
+        rows += check_sgd_dw_update(torch, dev, flush, gen)
+        rows += check_bp_fused_unit(torch, dev, flush, gen)
         del flush
     if "serve" in phases:
         runs = serve_runs(torch)
         parity = decode_parity(torch, dev)
         print(json.dumps({"serve": runs, "decode_parity": parity},
+                         default=str), flush=True)
+    if "train" in phases:
+        train, train_par = train_runs(torch, dev)
+        runs += train
+        print(json.dumps({"train": train, "train_parity": train_par},
                          default=str), flush=True)
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the port pulled in jax or the JAX package")
@@ -684,6 +1160,7 @@ def main(argv=None) -> int:
         return 3
     kernels = summarize(rows, runs)
     for k in kernels:
+        require(k["launches"] > 0, f"{k['name']}: never launched on a path")
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             require(isinstance(k[key], float) and math.isfinite(k[key]),
                     f"{k['name']}: {key} = {k[key]}")

@@ -22,7 +22,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fxp_matmul", "decode_prologue", "paged_attention")
+SOURCES = ("fxp_matmul", "bp_gstep", "sgd_dw_update", "bp_fused_unit",
+           "decode_prologue", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

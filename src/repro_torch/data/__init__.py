@@ -1,0 +1,4 @@
+"""Data for the port (see ``data.pipeline``)."""
+from repro_torch.data.pipeline import SyntheticClassificationDataset
+
+__all__ = ["SyntheticClassificationDataset"]

@@ -82,3 +82,53 @@ def act_deriv(z: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "identity":
         return torch.ones_like(z)
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# argument checks shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+def bits_args(bits) -> tuple:
+    """An optional (I,F) format as the CUDA launchers take it: (on, I, F)."""
+    return (0, 0, 0) if bits is None else (1, int(bits[0]), int(bits[1]))
+
+
+def check_operands(name: str, datapath: str, tensors, scale):
+    """Check the operand dtypes of ``datapath`` (int8 payloads, or f32 for
+    emulate).  Returns the int8 datapath's scale as an f32 tensor on the
+    operands' device (a Python float becomes one), None for emulate."""
+    want = {"int8": torch.int8, "emulate": torch.float32}.get(datapath)
+    if want is None:
+        raise ValueError(f"{name}: unknown datapath {datapath!r}")
+    bad = [t.dtype for t in tensors if t.dtype != want]
+    if bad:
+        raise TypeError(f"{name}: the {datapath} datapath takes {want} "
+                        f"operands, got {bad}")
+    if datapath == "emulate":
+        return None
+    if scale is None:
+        raise ValueError(f"{name}: the int8 datapath needs its scale")
+    return torch.as_tensor(scale, dtype=torch.float32,
+                           device=tensors[0].device)
+
+
+def cuda_device(name: str, tensors) -> torch.device:
+    """The one CUDA device that all of a kernel's operands lie on; raises
+    when they are elsewhere or not contiguous (no fallback)."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise RuntimeError(f"{name}: operands on "
+                           f"{sorted({str(t.device) for t in tensors})}; "
+                           "the kernel takes one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous")
+    return dev
+
+
+def lr_args(lr, device) -> tuple:
+    """A learning rate as the CUDA launchers take it: ``(value, None)`` for
+    a Python number, passed by value, or ``(0.0, f32 [1] tensor on the
+    device)`` for a tensor, which the kernel reads there (no host sync)."""
+    if isinstance(lr, torch.Tensor):
+        return 0.0, lr.to(device=device, dtype=torch.float32).reshape(1)
+    return float(lr), None

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels import ref
-from repro_torch.kernels.common import ACT_CODES
+from repro_torch.kernels.common import ACT_CODES, bits_args, cuda_device
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _FN = {}
@@ -42,10 +42,6 @@ def _lib():
             fn.argtypes, fn.restype = args, ctypes.c_int
             _FN[name] = fn
     return _FN
-
-
-def _bits_args(bits):
-    return (0, 0, 0) if bits is None else (1, int(bits[0]), int(bits[1]))
 
 
 def fxp_matmul_plain(x, w, *, xa_bits=(4, 10), w_bits=(2, 12),
@@ -97,11 +93,7 @@ fxp_matmul.launches = 0
 
 
 def _launch(x, w, xa_bits, w_bits, out_bits, act, datapath, scale):
-    if x.device.type != "cuda" or w.device != x.device:
-        raise RuntimeError(f"fxp_matmul: operands on {x.device} and "
-                           f"{w.device}; the kernel takes one CUDA device")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("fxp_matmul: operands must be contiguous")
+    cuda_device("fxp_matmul", (x, w))
     fns = _lib()
     m, k = x.shape
     n = w.shape[1]
@@ -111,12 +103,12 @@ def _launch(x, w, xa_bits, w_bits, out_bits, act, datapath, scale):
         scale = scale.reshape(1).contiguous()
         err = fns["fxp_matmul_int8"](
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            m, n, k, *_bits_args(out_bits), ACT_CODES[act], stream)
+            m, n, k, *bits_args(out_bits), ACT_CODES[act], stream)
     else:
         err = fns["fxp_matmul_emulate"](
             x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k,
             int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-            *_bits_args(xa_bits), *_bits_args(w_bits), *_bits_args(out_bits),
+            *bits_args(xa_bits), *bits_args(w_bits), *bits_args(out_bits),
             ACT_CODES[act], stream)
     _build.check(err, "fxp_matmul")
     fxp_matmul.launches += 1

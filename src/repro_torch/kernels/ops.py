@@ -1,12 +1,18 @@
 """The kernel-backend knob and the dense-unit entry points (port of
 ``kernels/ops.py``).
 
-``KernelBackend`` selects the datapath of the serving hot path: ``"off"``
-(plain PyTorch matmuls), ``"emulate"`` (the kernels, f32 emulation) and
-``"int8"`` (int8 operands, int32 accumulation).  ``"auto"`` resolves to off
-on a CPU device and int8 on CUDA, as the JAX package's auto means int8 off
-the CPU.  Installed with ``kernel_backend_ctx``; read by ``models.layers``
-and ``kernels.decode_prologue``.
+``KernelBackend`` selects the datapath of the hot paths: ``"off"`` (plain
+PyTorch), ``"emulate"`` (the kernels, f32 emulation) and ``"int8"`` (int8
+operands, int32 accumulation).  ``"auto"`` resolves to off on a CPU device
+and int8 on CUDA, as the JAX package's auto means int8 off the CPU.
+Installed with ``kernel_backend_ctx``; read by ``models.layers`` and
+``kernels.decode_prologue``; ``core.lenet`` takes it as an argument.
+
+The ``*_op`` wrappers quantize the int8 datapath's operands here with
+``quantize_int8_auto`` (the (I,F) grid when it embeds in 8 bits, absmax
+otherwise), as the JAX package does, and hand the payloads to the kernels.
+The ``dense_*`` helpers are the dense unit's forward and backward on the
+kernels, with per-call absmax scales and no (I,F) rounding.
 
 The JAX package's block tuners and tune cache (``tune_*``) budget a TPU
 core's VMEM and fall back to jnp where a shape does not fit; they are not
@@ -21,7 +27,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.bp_fused_unit import bp_fused_unit
+from repro_torch.kernels.bp_gstep import bp_gstep
 from repro_torch.kernels.fxp_matmul import fxp_matmul
+from repro_torch.kernels.sgd_dw_update import sgd_dw_update
 from repro_torch.quant.int8 import quantize_int8_absmax, quantize_int8_auto
 
 KERNEL_BACKENDS = ("off", "emulate", "int8")
@@ -86,3 +95,66 @@ def dense_fwd(x2, w, backend: str):
                           datapath="int8", scale=sx * sw)
     return fxp_matmul(x2, w, xa_bits=None, w_bits=None, out_bits=None,
                       act="identity")
+
+
+def bp_gstep_op(g, w, z, *, g_bits=(2, 12), act="relu", datapath="emulate",
+                g_in_bits=(2, 12), w_bits=(2, 12)):
+    """bp_gstep with the int8 operands G (by ``g_in_bits``) and W (by
+    ``w_bits``) quantized here."""
+    if datapath == "int8":
+        qg, sg = quantize_int8_auto(g, g_in_bits)
+        qw, sw = quantize_int8_auto(w, w_bits)
+        return bp_gstep(qg, qw, z, g_bits=g_bits, act=act, datapath="int8",
+                        scale=sg * sw)
+    return bp_gstep(g, w, z, g_bits=g_bits, act=act)
+
+
+def sgd_dw_update_op(x, g, w, lr, *, w_bits=None, datapath="emulate",
+                     xa_bits=(4, 10), g_in_bits=(2, 12)):
+    """sgd_dw_update with the int8 operands X (by ``xa_bits``) and G (by
+    ``g_in_bits``) quantized here; the f32 master W is updated in f32."""
+    if datapath == "int8":
+        qx, sx = quantize_int8_auto(x, xa_bits)
+        qg, sg = quantize_int8_auto(g, g_in_bits)
+        return sgd_dw_update(qx, qg, w, lr, w_bits=w_bits, datapath="int8",
+                             scale=sx * sg)
+    return sgd_dw_update(x, g, w, lr, w_bits=w_bits)
+
+
+def bp_fused_unit_op(g, w, x, z, lr, *, g_bits=(2, 12), w_bits=(2, 12),
+                     w_out_bits=None, act="relu", datapath="emulate",
+                     g_in_bits=(2, 12), xa_bits=(4, 10)):
+    """One TDM frame; on the int8 datapath G (by ``g_in_bits``) and X (by
+    ``xa_bits``) are quantized here and W in the kernel."""
+    if datapath == "int8":
+        qg, sg = quantize_int8_auto(g, g_in_bits)
+        qx, sx = quantize_int8_auto(x, xa_bits)
+        return bp_fused_unit(qg, w, qx, z, lr, g_bits=g_bits, w_bits=w_bits,
+                             w_out_bits=w_out_bits, act=act, datapath="int8",
+                             g_scale=sg, x_scale=sx)
+    return bp_fused_unit(g, w, x, z, lr, g_bits=g_bits, w_bits=w_bits,
+                         w_out_bits=w_out_bits, act=act)
+
+
+def dense_bwd_dx(dz, w, backend: str):
+    """dx = dz @ wᵀ through bp_gstep's ``z=None`` form.  dz: [M, N];
+    w: [K, N] (bp_gstep's G [T, Dout] and W [Din, Dout]) -> [M, K]."""
+    if backend == "int8":
+        qg, sg = quantize_int8_absmax(dz)
+        qw, sw = quantize_int8_absmax(w)
+        return bp_gstep(qg, qw, None, g_bits=None, act="identity",
+                        datapath="int8", scale=sg * sw)
+    return bp_gstep(dz.to(torch.float32), w.to(torch.float32), None,
+                    g_bits=None, act="identity")
+
+
+def dense_bwd_dw(x2, dz, backend: str):
+    """dw = x2ᵀ @ dz through sgd_dw_update's dW-only (``w=None``) form.
+    x2: [M, K]; dz: [M, N] -> [K, N]."""
+    if backend == "int8":
+        qx, sx = quantize_int8_absmax(x2)
+        qg, sg = quantize_int8_absmax(dz)
+        return sgd_dw_update(qx, qg, None, 0.0, datapath="int8",
+                             scale=sx * sg)
+    return sgd_dw_update(x2.to(torch.float32), dz.to(torch.float32), None,
+                         0.0)

@@ -13,11 +13,18 @@ Phases (any failure exits non-zero before the result line is printed):
                the full-width decode shapes of qwen1.5-0.5b (8 slots) and
                the full-width LeNet-5 training shapes (batch 128, and 1024
                so that a launch moves more than a few hundred KB), for both
-               datapaths, with the tolerance stated beside each check.
+               datapaths, with the tolerance stated beside each check;
+               paged_attention also at yi-34b's attention widths (56 heads,
+               8 KV heads of 128, 8 slots of up to 4096 positions) and
+               sgd_dw_update also in the dW-only form at the qwen1.5-0.5b
+               MLP shape (T 2048, 1024 x 2816).  Then, untimed, the two
+               split kernels at ragged and unaligned shapes
+               (``check_edges``).
                Times are CUDA-event medians of 25 launches after warm-up,
                each launch after a write of 128 MB that evicts the 50 MB L2
-               (the paths read every weight cold).  ``library_ms`` times one
-               PyTorch call that computes the same function, as a
+               (the paths read every weight cold) and a ~0.5 ms spin of the
+               card that hides the host's enqueue time.  ``library_ms``
+               times one PyTorch call that computes the same function, as a
                yardstick; the port never calls it.
 4. serve    -- the port's serving entry point (``launch.serve.main``) on
                full-width qwen1.5-0.5b with random f32 masters from a seed:
@@ -70,6 +77,7 @@ HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
 FLUSH_BYTES = 128 << 20                       # > the 50 MB L2
 REPS, WARM = 25, 3
+SLEEP_CYCLES = 1_000_000                      # ~0.5 ms at the H100's clocks
 
 # qwen1.5-0.5b decode widths (configs/qwen1_5_0_5b.py), 8 slots
 B, D, H, HKV, HD, FF = 8, 1024, 16, 16, 64, 2816
@@ -115,13 +123,18 @@ def require(cond: bool, msg: str) -> None:
 
 def time_ms(fn, torch, flush) -> float:
     """Median CUDA-event time of ``fn`` over REPS launches, each after a
-    write of ``flush`` that evicts L2."""
+    write of ``flush`` that evicts L2.  Between the flush and the start
+    event the card spins for ~0.5 ms (``torch.cuda._sleep``), so the host
+    has enqueued all of ``fn``'s work before the start event runs: the time
+    is the device's, not the host's (a PyTorch call takes ~0.03 ms of host
+    time on the card's machine, longer than most of these kernels)."""
     for _ in range(WARM):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(REPS):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -331,100 +344,140 @@ def check_decode_prologue(torch, dev, flush, gen):
     return rows
 
 
+# yi-34b attention widths (configs/yi_34b.py: 56 heads, 8 KV heads of 128,
+# groups 7): 8 slots of up to 4096 positions
+YI = dict(b=8, h=56, hkv=8, hd=128, bs=16, m=256)
+
+
+def _attention_case(torch, dev, gen, *, b, h, hkv, hd, bs, m, lens):
+    """Random K/V in a pool of 1 + b*m blocks (block 0 the null block),
+    every slot owning m blocks in a shuffled order, slot 0 inactive."""
+    perm = 1 + torch.randperm(b * m, generator=gen, device=dev)
+    tables = perm.reshape(b, m).to(torch.int32).contiguous()
+    tables[0] = 0
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kv = torch.randn((2, 1 + b * m, bs, hkv, hd), generator=gen, device=dev)
+    return tables, lens, kv
+
+
 def check_paged_attention(torch, dev, flush, gen):
+    """The qwen1.5-0.5b decode shape (every dtype pair), then yi-34b's
+    attention widths (bf16 q, int8 and bf16 pools)."""
+    rows = []
+    qwen = dict(b=B, h=H, hkv=HKV, hd=HD, bs=BS, m=M)
+    case = _attention_case(torch, dev, gen, **qwen,
+                           lens=[0, BS - 1, BS, 100, 255, 300, 400,
+                                 BS * M - 1])
+    for dt in (torch.float32, torch.bfloat16):
+        for pool_kind in ("dt", "int8"):
+            rows.append(_paged_attention_row(torch, dev, flush, gen, qwen,
+                                             case, dt, pool_kind))
+    yi_lens = [0, 1, 700, 1500, 2047, 2900, 3600, YI["bs"] * YI["m"] - 1]
+    case = _attention_case(torch, dev, gen, **YI, lens=yi_lens)
+    for pool_kind in ("dt", "int8"):
+        rows.append(_paged_attention_row(torch, dev, flush, gen, YI, case,
+                                         torch.bfloat16, pool_kind,
+                                         tag="/yi-34b"))
+    del case
+    return rows
+
+
+def _attention_pool(kv, dt, pool_kind, hkv, hd):
+    from repro_torch.serving.engine import quant_kv_rows
+
+    if pool_kind == "dt":
+        return {"k": kv[0].to(dt).contiguous(), "v": kv[1].to(dt).contiguous()}
+    pool = {}
+    for name, t in (("k", kv[0]), ("v", kv[1])):
+        p8, s8 = quant_kv_rows(t.reshape(-1, hkv, hd))
+        pool[name] = p8.reshape(t.shape)
+        pool[f"{name}_scale"] = s8.reshape(t.shape[:2])
+    return pool
+
+
+# bf16 rows: both sides round P to bf16 from f32 scores summed in another
+# order and exp'd in another library, so a weight near a rounding tie may
+# land one bf16 ulp (<= 2^-7 P) away: allow one such weight per row, at the
+# row's largest P and max|v|; then each side rounds the output to bf16,
+# one ulp (<= 2^-7 |ref|) apart
+BF16_ATTN_TOL = ("|d| <= 2^-7*max_t(P)*max|v| + 2^-7*|ref| (one bf16 P "
+                 "ulp per row, one output ulp)")
+
+
+def _bf16_attention_atol(torch, q, kk, lens, groups, scale, vmax):
+    """BF16_ATTN_TOL's absolute term per (slot, head), [B, H, 1]: q [B, H,
+    hd]; kk the gathered K [B, T, Hkv, hd]."""
+    ok = (torch.arange(kk.shape[1], device=q.device)[None, :]
+          <= lens[:, None])                                     # [B, T]
+    s = torch.einsum("bhd,bthd->bht", q.float(),
+                     kk.repeat_interleave(groups, 2).float())
+    pmax = torch.softmax((s * scale).masked_fill(~ok[:, None], -math.inf),
+                         dim=-1).amax(-1)                       # [B, H]
+    return (2.0 ** -7 * vmax * pmax.double())[..., None]
+
+
+def _paged_attention_row(torch, dev, flush, gen, shp, case, dt, pool_kind,
+                         tag=""):
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention import (gather_kv,
                                                      paged_attention,
                                                      paged_attention_plain)
-    from repro_torch.serving.engine import quant_kv_rows
 
-    rows = []
-    n_blocks = 1 + B * M
-    # every slot owns M blocks, in a shuffled order; slot 0 is inactive
-    perm = 1 + torch.randperm(B * M, generator=gen, device=dev)
-    tables = perm.reshape(B, M).to(torch.int32).contiguous()
-    tables[0] = 0
-    lens = torch.tensor([0, BS - 1, BS, 100, 255, 300, 400, BS * M - 1],
-                        dtype=torch.int32, device=dev)
-    kv = torch.randn((2, n_blocks, BS, HKV, HD), generator=gen, device=dev)
-    scale = HD ** -0.5
-    for dt in (torch.float32, torch.bfloat16):
-        q = torch.randn((B, H, HD), generator=gen, device=dev).to(dt)
-        for pool_kind in ("dt", "int8"):
-            if pool_kind == "int8":
-                pool = {}
-                for name, t in (("k", kv[0]), ("v", kv[1])):
-                    p8, s8 = quant_kv_rows(t.reshape(-1, HKV, HD))
-                    pool[name] = p8.reshape(t.shape)
-                    pool[f"{name}_scale"] = s8.reshape(t.shape[:2])
-            else:
-                pool = {"k": kv[0].to(dt).contiguous(),
-                        "v": kv[1].to(dt).contiguous()}
-            kw = dict(groups=H // HKV, scale=scale)
-            got = paged_attention(q, pool, tables, lens, **kw)
-            ref = paged_attention_plain(q, pool, tables, lens, **kw)
-            torch.cuda.synchronize()
-            vmax = float(kv[1].abs().max())
-            kk, vv = gather_kv(pool, tables, dt)
-            qs = q[:, :, None, :]                            # [B, H, 1, hd]
-            ks_, vs_ = kk.transpose(1, 2), vv.transpose(1, 2)  # [B,Hkv,T,hd]
-            mask = (torch.arange(M * BS, device=dev)[None, :]
-                    <= lens[:, None])[:, None, None, :]
-            if dt == torch.float32:
-                atol, rtol = 1e-5 * vmax, 1e-5
-                tol = "|d| <= 1e-5*max|v| + 1e-5*|ref| (f32 sums, exp)"
-            else:
-                # both sides round P to bf16 from f32 scores summed in
-                # another order and exp'd in another library, so a weight
-                # near a rounding tie may land one bf16 ulp (<= 2^-7 P)
-                # away: allow one such weight per row, at the row's largest
-                # P and max|v|; then each side rounds the output to bf16,
-                # one ulp (<= 2^-7 |ref|) apart
-                s = torch.einsum("bhd,bhtd->bht", qs[:, :, 0].float(),
-                                 ks_.repeat_interleave(H // HKV, 1).float())
-                pmax = torch.softmax(
-                    (s * scale).masked_fill(~mask[:, :, 0], -math.inf),
-                    dim=-1).amax(-1)                               # [B, H]
-                atol = (2.0 ** -7 * vmax * pmax.double())[..., None]
-                rtol = 2.0 ** -7
-                tol = ("|d| <= 2^-7*max_t(P)*max|v| + 2^-7*|ref| (one bf16 P "
-                       "ulp per row, one output ulp)")
-            err, ok = compare(got.float(), ref.float(), atol=atol, rtol=rtol)
-            require(ok, f"paged_attention {dt} pool={pool_kind}: max err "
-                        f"{err} beyond {tol}")
-            ms = time_ms(lambda: paged_attention(q, pool, tables, lens, **kw),
-                         torch, flush)
-            plain_ms = time_ms(
-                lambda: paged_attention_plain(q, pool, tables, lens, **kw),
-                torch, flush)
-            # yardstick: SDPA over K/V already gathered and dequantized
-            library_ms = time_ms(
-                lambda: F.scaled_dot_product_attention(qs, ks_, vs_,
-                                                       attn_mask=mask,
-                                                       scale=scale),
-                torch, flush)
-            nvalid = torch.clamp(lens.long() + 1, max=M * BS)
-            tok = float(nvalid.sum())
-            el = pool["k"].element_size()
-            nbytes = (2 * tok * HKV * HD * el
-                      + (2 * 4 * tok if pool_kind == "int8" else 0)
-                      + 2 * q.numel() * q.element_size() + 4 * B * (M + 1))
-            bms, by = bound(nbytes, 4.0 * tok * H * HD,
-                            str(dt).split(".")[-1])
-            rows.append(dict(
-                name="paged_attention",
-                variant=f"{str(dt).split('.')[-1]}/pool={pool_kind}",
-                shape=f"B{B} bs{BS} M{M} H{H} Hkv{HKV} hd{HD} "
+    b, h, hkv, hd, bs, m = (shp[k] for k in ("b", "h", "hkv", "hd", "bs",
+                                             "m"))
+    tables, lens, kv = case
+    scale = hd ** -0.5
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(dt)
+    pool = _attention_pool(kv, dt, pool_kind, hkv, hd)
+    kw = dict(groups=h // hkv, scale=scale)
+    got = paged_attention(q, pool, tables, lens, **kw)
+    ref = paged_attention_plain(q, pool, tables, lens, **kw)
+    torch.cuda.synchronize()
+    vmax = float(kv[1].abs().max())
+    kk, vv = gather_kv(pool, tables, dt)
+    if dt == torch.float32:
+        atol, rtol = 1e-5 * vmax, 1e-5
+        tol = "|d| <= 1e-5*max|v| + 1e-5*|ref| (f32 sums, exp)"
+    else:
+        atol = _bf16_attention_atol(torch, q, kk, lens, h // hkv, scale, vmax)
+        rtol, tol = 2.0 ** -7, BF16_ATTN_TOL
+    qs = q[:, :, None, :]                                   # [B, H, 1, hd]
+    ks_, vs_ = kk.transpose(1, 2), vv.transpose(1, 2)       # [B, Hkv, T, hd]
+    del kk, vv
+    mask = (torch.arange(m * bs, device=dev)[None, :]
+            <= lens[:, None])[:, None, None, :]
+    err, ok = compare(got.float(), ref.float(), atol=atol, rtol=rtol)
+    variant = f"{str(dt).split('.')[-1]}/pool={pool_kind}{tag}"
+    require(ok, f"paged_attention {variant}: max err {err} beyond {tol}")
+    ms = time_ms(lambda: paged_attention(q, pool, tables, lens, **kw),
+                 torch, flush)
+    plain_ms = time_ms(
+        lambda: paged_attention_plain(q, pool, tables, lens, **kw),
+        torch, flush)
+    # yardstick: SDPA over K/V already gathered and dequantized
+    library_ms = time_ms(
+        lambda: F.scaled_dot_product_attention(qs, ks_, vs_, attn_mask=mask,
+                                               scale=scale,
+                                               enable_gqa=h != hkv),
+        torch, flush)
+    nvalid = torch.clamp(lens.long() + 1, max=m * bs)
+    tok = float(nvalid.sum())
+    el = pool["k"].element_size()
+    nbytes = (2 * tok * hkv * hd * el
+              + (2 * 4 * tok if pool_kind == "int8" else 0)
+              + 2 * q.numel() * q.element_size() + 4 * b * (m + 1))
+    bms, by = bound(nbytes, 4.0 * tok * h * hd, str(dt).split(".")[-1])
+    say(f"paged_attention {variant}: err {err:.3g} ({tol}) {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{bms:.5f} ms ({by}), {ms / bms:.0f}x bound")
+    return dict(name="paged_attention", variant=variant,
+                shape=f"B{b} bs{bs} M{m} H{h} Hkv{hkv} hd{hd} "
                       f"lens={lens.tolist()}",
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms,
                 library="F.scaled_dot_product_attention on gathered K/V",
-                bound_ms=bms, bound_by=by))
-            say(f"paged_attention {rows[-1]['variant']}: err {err:.3g} "
-                f"({tol}) {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"{library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-    return rows
+                bound_ms=bms, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -664,6 +717,149 @@ def check_sgd_dw_update(torch, dev, flush, gen):
                         tol, nbytes, 2.0 * t * din * dout, kind, library,
                         note))
     return rows
+
+
+# qwen1.5-0.5b's MLP up-projection as the dense engine's backward sees it:
+# dW = Xᵀ G over 2048 tokens, X [T, 1024], G [T, 2816]
+DENSE_T, DENSE_DIN, DENSE_DOUT = 2048, D, FF
+
+
+def check_sgd_dw_update_dense(torch, dev, flush, gen):
+    """The dW-only form at the qwen1.5-0.5b MLP shape, both datapaths."""
+    from repro_torch.kernels.sgd_dw_update import (sgd_dw_update,
+                                                   sgd_dw_update_plain)
+    from repro_torch.quant.int8 import quantize_int8_absmax
+
+    t, din, dout = DENSE_T, DENSE_DIN, DENSE_DOUT
+    x = torch.randn((t, din), generator=gen, device=dev)
+    g = 1e-3 * torch.randn((t, dout), generator=gen, device=dev)
+    shape = f"T{t} Din{din} Dout{dout}"
+    rows = []
+    for datapath in ("emulate", "int8"):
+        if datapath == "int8":
+            (a, sx), (b, sg) = quantize_int8_absmax(x), quantize_int8_absmax(g)
+            kw = dict(datapath="int8", scale=sx * sg)
+            kind, esz = "int8", 1
+        else:
+            a, b, kw, kind, esz = x, g, {}, "float32", 4
+        got = sgd_dw_update(a, b, None, LR, **kw)
+        ref = sgd_dw_update_plain(a, b, None, LR, **kw)
+        torch.cuda.synchronize()
+        if datapath == "int8":
+            # identical int32 sums and one identical rescale
+            tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
+            at = a.T.contiguous()
+            library, note = _int_mm_library(torch, at, b)
+            note += " (on a pre-transposed X)"
+        else:
+            tol, (err, ok) = F32_TOL, _f32_close(got, ref)
+            library, note = (lambda: a.T @ b), "x.T @ g (f32)"
+        require(ok, f"sgd_dw_update {datapath} dense {shape}: max err {err} "
+                    f"beyond {tol}")
+        rows.append(_record(
+            torch, flush, "sgd_dw_update", f"{datapath}/qwen_mlp/w=None",
+            shape, lambda: sgd_dw_update(a, b, None, LR, **kw),
+            lambda: sgd_dw_update_plain(a, b, None, LR, **kw), err, tol,
+            esz * t * (din + dout) + 4 * din * dout, 2.0 * t * din * dout,
+            kind, library, note))
+    return rows
+
+
+def check_edges(torch, dev, gen):
+    """Correctness only, no timing: the two split kernels at ragged and
+    unaligned shapes the main paths do not reach -- a token count that is
+    no multiple of a tile, widths that are no multiple of 16 bytes, an
+    operand that starts 4 bytes past an aligned address, h2o-danube3-4b's
+    hd = 120 (120 bytes a row in int8), block sizes that do not divide a
+    chunk, and MQA with 16 query heads (two register blocks of 8); and a
+    pool that starts off a vector boundary, which paged_attention must
+    refuse."""
+    from repro_torch.kernels.paged_attention import (gather_kv,
+                                                     paged_attention,
+                                                     paged_attention_plain)
+    from repro_torch.kernels.sgd_dw_update import (sgd_dw_update,
+                                                   sgd_dw_update_plain)
+    from repro_torch.quant.int8 import quantize_int8_absmax
+
+    n = 0
+    for t, din, dout, offset in ((100, 50, 10, 0), (1000, 784, 10, 0),
+                                 (33, 130, 70, 1), (3, 16, 16, 0),
+                                 (4100, 64, 48, 1)):
+        x = torch.randn((t * din + offset,), generator=gen,
+                        device=dev)[offset:].view(t, din)
+        g = 1e-3 * torch.randn((t, dout), generator=gen, device=dev)
+        w = torch.randn((din, dout), generator=gen, device=dev)
+        for ww, bits in ((None, None), (w, None), (w, (2, 12))):
+            got = sgd_dw_update(x, g, ww, LR, w_bits=bits)
+            ref = sgd_dw_update_plain(x, g, ww, LR, w_bits=bits)
+            if ww is None:
+                err, ok = _f32_close(got, ref)
+            else:
+                err, ok = _update_close(got, ref, x.T @ g,
+                                        2.0 ** -bits[1] if bits else 0.0)
+            require(ok, f"edge sgd_dw_update emulate T{t} Din{din} "
+                        f"Dout{dout} +{offset} w={ww is not None} "
+                        f"bits={bits}: max err {err}")
+            (qx, sx), (qg, sg) = quantize_int8_absmax(x), \
+                quantize_int8_absmax(g)
+            if offset:
+                qx = torch.empty((t * din + offset,), dtype=torch.int8,
+                                 device=dev)[offset:].view(t, din).copy_(qx)
+            kw = dict(w_bits=bits, datapath="int8", scale=sx * sg)
+            got = sgd_dw_update(qx, qg, ww, LR, **kw)
+            ref = sgd_dw_update_plain(qx, qg, ww, LR, **kw)
+            err, ok = _bitwise(torch, got, ref)
+            require(ok, f"edge sgd_dw_update int8 T{t} Din{din} Dout{dout} "
+                        f"+{offset} w={ww is not None} bits={bits}: max err "
+                        f"{err}, not bitwise")
+            n += 2
+    for shp, lens in ((dict(b=3, h=32, hkv=8, hd=120, bs=16, m=12),
+                       [0, 63, 191]),
+                      (dict(b=4, h=16, hkv=1, hd=64, bs=7, m=30),
+                       [209, 64, 65, 0]),
+                      (dict(b=2, h=4, hkv=4, hd=32, bs=128, m=3),
+                       [383, 127])):
+        tables, lens, kv = _attention_case(torch, dev, gen, **shp, lens=lens)
+        for dt in (torch.float32, torch.bfloat16):
+            for pool_kind in ("dt", "int8"):
+                pool = _attention_pool(kv, dt, pool_kind, shp["hkv"],
+                                       shp["hd"])
+                q = torch.randn((shp["b"], shp["h"], shp["hd"]),
+                                generator=gen, device=dev).to(dt)
+                kw = dict(groups=shp["h"] // shp["hkv"],
+                          scale=shp["hd"] ** -0.5)
+                for _ in range(2):          # the tickets must be zero again
+                    got = paged_attention(q, pool, tables, lens, **kw)
+                ref = paged_attention_plain(q, pool, tables, lens, **kw)
+                vmax = float(kv[1].abs().max())
+                # the tolerances of the phase-3 rows
+                if dt == torch.float32:
+                    atol, rtol = 1e-5 * vmax, 1e-5
+                else:
+                    atol = _bf16_attention_atol(
+                        torch, q, gather_kv(pool, tables, dt)[0], lens,
+                        kw["groups"], kw["scale"], vmax)
+                    rtol = 2.0 ** -7
+                err, ok = compare(got.float(), ref.float(), atol=atol,
+                                  rtol=rtol)
+                require(ok, f"edge paged_attention {shp} {dt} {pool_kind}: "
+                            f"max err {err}")
+                n += 1
+    # the last case's K as a bf16 pool that starts 2 bytes past a vector
+    # (q, tables, lens as the last case's bf16 rows)
+    k = kv[0].to(torch.bfloat16)
+    off = torch.empty((k.numel() + 1,), dtype=k.dtype,
+                      device=dev)[1:].view(k.shape).copy_(k)
+    try:
+        paged_attention(q, {"k": off, "v": off}, tables, lens, **kw)
+        refused = False
+    except RuntimeError:
+        refused = True
+    require(refused, "edge paged_attention: a pool off a vector boundary "
+                     "was not refused")
+    torch.cuda.synchronize()
+    say(f"edges: {n} ragged/unaligned cases of sgd_dw_update and "
+        "paged_attention agree with their plain versions")
 
 
 def check_bp_fused_unit(torch, dev, flush, gen):
@@ -1141,7 +1337,9 @@ def main(argv=None) -> int:
         rows += check_fxp_matmul_lenet(torch, dev, flush, gen)
         rows += check_bp_gstep(torch, dev, flush, gen)
         rows += check_sgd_dw_update(torch, dev, flush, gen)
+        rows += check_sgd_dw_update_dense(torch, dev, flush, gen)
         rows += check_bp_fused_unit(torch, dev, flush, gen)
+        check_edges(torch, dev, gen)
         del flush
     if "serve" in phases:
         runs = serve_runs(torch)

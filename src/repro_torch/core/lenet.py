@@ -69,11 +69,12 @@ def lenet_bits_table(points: Sequence[tuple]) -> LeNetBits:
     return LeNetBits(w=pts, a=pts, g=pts)
 
 
-def init_lenet_params(cfg: LeNetConfig, seed: int = 0, device="cpu") -> dict:
+def init_lenet_params(cfg: LeNetConfig, seed: int = 0, device=None) -> dict:
     """f32 masters in the JAX package's layout -- ``w_in`` [in, hidden],
     ``hidden`` [L-2, hidden, hidden], ``w_out`` [hidden, classes] -- each
-    N(0, 1/fan_in), drawn from a ``torch.Generator`` on ``device``."""
-    gen = torch.Generator(device=device)
+    N(0, 1/fan_in), drawn from a ``torch.Generator`` on ``device`` (CUDA
+    unless the caller names another; raises when CUDA is absent)."""
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
 
     def normal(shape, fan_in):
@@ -87,14 +88,15 @@ def init_lenet_params(cfg: LeNetConfig, seed: int = 0, device="cpu") -> dict:
 
 
 def make_lenet_train_step(cfg: LeNetConfig, bits: Optional[LeNetBits] = None,
-                          kernel_backend: str = "off", device=None):
+                          kernel_backend: str = "auto", device=None):
     """Build ``step(params, batch, lr) -> (params, metrics)``.
 
     ``batch`` = (x [B, input_dim] f32, y [B] int), tensors or numpy arrays,
     moved to the step's device; ``lr`` a float or a scalar tensor.  SGD only
     (the paper's optimizer); the update is fused into the backward kernels.
     ``metrics`` holds ``loss`` and ``acc`` as device scalars.  ``device``
-    defaults to CUDA and raises when CUDA is absent.
+    defaults to CUDA and raises when CUDA is absent; ``kernel_backend``
+    defaults to ``auto``: int8 on CUDA, the plain oracles on the CPU.
     """
     dev = resolve_device(device)
     backend = kops.resolve_backend(kernel_backend, dev)

@@ -9,10 +9,22 @@ The CUDA kernel is ``csrc/paged_attention.cu``; ``paged_attention_plain`` is
 its plain PyTorch version (the JAX package's ``_ref`` math: f32 scores, P
 cast to the compute dtype before P.V).  ``paged_attention`` runs the plain
 version only for CPU tensors; a CUDA tensor launches the kernel or raises.
+
+The kernel splits each slot's positions into chunks of ``CHUNK`` (``_chunks``)
+and runs two launches per call over (slot, KV head, chunk): scores with
+per-chunk softmax stats, then P.V per chunk, summed by the last chunk's CTA.
+Its scratch (``_scratch_shapes``, one allocation a call) comes from here,
+and so does one zeroed int32 ticket counter per (slot, KV head), kept
+across calls for each (device, stream) (the kernel leaves it zero again):
+calls on one stream run in order, so they never share a ticket, and calls
+on two streams get two buffers.  The kernel takes ``hd`` a multiple of 8
+and pool bases aligned to 8 elements (at most 16 bytes); it refuses
+anything else.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -23,17 +35,48 @@ NEG_INF = -1e30  # matches models.layers.NEG_INF
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FN = {}
 _KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_COUNTERS = {}
+
+CHUNK = 64  # positions per CTA (csrc/paged_attention.cu)
 
 
 def _lib():
     if not _FN:
         fn = _build.load("paged_attention").paged_attention_launch
-        # q, kp, vp, ks, vs, tables, lens, probs, out; B, H, Hkv, hd, bs, M;
-        # scale; q_bf16, kv_kind; stream
-        fn.argtypes = [_VP] * 9 + [_I] * 6 + [_F] + [_I, _I] + [_VP]
+        # q, kp, vp, ks, vs, tables, lens, probs, stats, part, counters, out;
+        # B, H, Hkv, hd, bs, M, S; scale; q_bf16, kv_kind; stream
+        fn.argtypes = [_VP] * 12 + [_I] * 7 + [_F] + [_I, _I] + [_VP]
         fn.restype = ctypes.c_int
         _FN["launch"] = fn
     return _FN["launch"]
+
+
+def _chunks(m: int, bs: int) -> list:
+    """The positions ``[0, m*bs)`` of a slot's table cut into the kernel's
+    chunks, in order: ``[(start, stop), ...]``, CHUNK positions each but
+    the last."""
+    n = m * bs
+    return [(s, min(s + CHUNK, n)) for s in range(0, n, CHUNK)]
+
+
+def _scratch_shapes(b: int, h: int, hd: int, m: int, bs: int) -> dict:
+    """The f32 scratch one call uses, in this order in one allocation: the
+    scores, each chunk's softmax stats (max, sum of exp) and each chunk's
+    P.V.  The chunk count is ``len(_chunks(m, bs))``."""
+    s = -(-m * bs // CHUNK)
+    return {"probs": (b, h, m * bs), "stats": (b, h, s, 2),
+            "part": (b, h, s, hd)}
+
+
+def _counters(dev, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 ticket counters for calls on ``stream``
+    of ``dev``; the kernel returns each to zero, so they are zeroed once,
+    when first allocated."""
+    buf = _COUNTERS.get((dev, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[(dev, stream)] = buf
+    return buf
 
 
 def _expand_heads(k, groups: int):
@@ -128,14 +171,21 @@ def _launch(q, pool_l, tables, lens, groups, scale):
             raise ValueError("paged_attention: operands must be contiguous "
                              f"on {dev}")
     out = torch.empty_like(q)
-    probs = torch.empty((b, h, m * bs), dtype=torch.float32, device=dev)
+    shapes = _scratch_shapes(b, h, hd, m, bs)
+    n_probs, n_stats, n_part = (math.prod(v) for v in shapes.values())
+    scratch = torch.empty(n_probs + n_stats + n_part, dtype=torch.float32,
+                          device=dev)
+    ptr = scratch.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
         pool_l["k_scale"].data_ptr() if int8 else None,
         pool_l["v_scale"].data_ptr() if int8 else None,
-        tables.data_ptr(), lens.data_ptr(), probs.data_ptr(), out.data_ptr(),
-        b, h, hkv, hd, bs, m, float(scale), int(q.dtype == torch.bfloat16),
-        _KV_KIND[kp.dtype], torch.cuda.current_stream(dev).cuda_stream)
+        tables.data_ptr(), lens.data_ptr(), ptr, ptr + 4 * n_probs,
+        ptr + 4 * (n_probs + n_stats),
+        _counters(dev, stream, b * hkv).data_ptr(), out.data_ptr(),
+        b, h, hkv, hd, bs, m, shapes["stats"][2], float(scale),
+        int(q.dtype == torch.bfloat16), _KV_KIND[kp.dtype], stream)
     _build.check(err, "paged_attention")
     paged_attention.launches += 1
     return out

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -23,13 +24,14 @@ def _stack(trees: list) -> dict:
     return torch.stack(trees)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cpu") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random f32 master weights for the dense family, drawn from a
-    ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    ``torch.Generator`` on ``device`` seeded with ``seed`` (CUDA unless the
+    caller names another; raises when CUDA is absent)."""
     if cfg.family != "dense":
         raise NotImplementedError(
             f"the port covers the dense family so far, not {cfg.family}")
-    gen = torch.Generator(device=device)
+    gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     D, V = cfg.d_model, cfg.vocab_size
     params = {"embed": L._randn(gen, (V, D), D ** -0.5),

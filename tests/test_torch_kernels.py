@@ -312,3 +312,59 @@ def test_paged_attention_vs_jax(pool_dtype, groups):
                               torch.from_numpy(tables), torch.from_numpy(lens),
                               groups=groups, scale=hd ** -0.5)
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# paged_attention: the chunk plan of the CUDA kernel (the kernel runs only
+# on the card; chip_smoke.py holds it against its plain version there)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,bs", [(32, 16), (256, 16), (1, 16), (30, 7),
+                                  (3, 128), (5, 1)])
+def test_paged_attention_chunks_cover_each_position_once(m, bs):
+    chunks = TPA._chunks(m, bs)
+    positions = [t for start, stop in chunks for t in range(start, stop)]
+    assert positions == list(range(m * bs))          # each once, in order
+    assert all(0 < stop - start <= TPA.CHUNK for start, stop in chunks)
+    assert all(stop - start == TPA.CHUNK for start, stop in chunks[:-1])
+    # the kernel refuses any other count: S = ceil(M*bs / CHUNK)
+    assert len(chunks) == -(-m * bs // TPA.CHUNK)
+
+
+def test_paged_attention_scratch_shapes():
+    # yi-34b's widths at 8 slots of 256 blocks of 16
+    shapes = TPA._scratch_shapes(8, 56, 128, 256, 16)
+    assert shapes == {"probs": (8, 56, 4096), "stats": (8, 56, 64, 2),
+                      "part": (8, 56, 64, 128)}
+    # the phase-3 decode shape of qwen1.5-0.5b
+    shapes = TPA._scratch_shapes(8, 16, 64, 32, 16)
+    assert shapes["stats"] == (8, 16, 8, 2) and shapes["part"] == (
+        8, 16, 8, 64)
+
+
+def test_init_params_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the parameters would go to the card")
+    from repro_torch.models import lm as TLM
+    cfg = TModelConfig(name="t", family="dense", num_layers=1, d_model=32,
+                       num_heads=2, num_kv_heads=2, head_dim=16, d_ff=64,
+                       vocab_size=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TLM.init_params(cfg)
+    params = TLM.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
+def test_paged_attention_counters_are_kept_per_stream(monkeypatch):
+    """Two streams never share tickets: each (device, stream) has its own
+    zeroed counters, reused across calls and grown (zeroed) on demand."""
+    monkeypatch.setattr(TPA, "_COUNTERS", {})
+    dev = torch.device("cpu")
+    a = TPA._counters(dev, 1, 64)
+    assert TPA._counters(dev, 1, 64) is a
+    b = TPA._counters(dev, 2, 64)
+    assert b is not a and b.data_ptr() != a.data_ptr()
+    assert a.dtype == torch.int32 and int(a.abs().sum()) == 0
+    big = TPA._counters(dev, 1, 4096)
+    assert big.numel() >= 4096 and int(big.abs().sum()) == 0
+    assert TPA._counters(dev, 2, 64) is b

@@ -94,7 +94,7 @@ def test_params_from_numpy_keeps_layout():
     assert tuple(tp["blocks"]["attn"]["wq"].shape) == (
         tc.num_layers, tc.d_model, tc.num_heads, tc.head_dim)
     shapes = jax.tree.map(lambda x: x.shape, jp)
-    ours = TLM.init_params(tc, seed=0)
+    ours = TLM.init_params(tc, seed=0, device="cpu")
     assert jax.tree.map(lambda x: tuple(x.shape), ours,
                         is_leaf=torch.is_tensor) == shapes
 

@@ -48,6 +48,7 @@ from repro_torch.core import lenet as TL
 from repro_torch.data import SyntheticClassificationDataset as TData
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
+from repro_torch.kernels import sgd_dw_update as TSW
 from repro_torch.kernels.bp_fused_unit import bp_fused_unit
 from repro_torch.kernels.bp_gstep import bp_gstep
 from repro_torch.kernels.sgd_dw_update import sgd_dw_update
@@ -524,3 +525,84 @@ def test_lenet_update_sensitivity_to_sum_order(monkeypatch):
             assert max(rel.values()) == 0.0, rel
         assert float(got_m["loss"]) == pytest.approx(float(ref_m["loss"]),
                                                      rel=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# sgd_dw_update: the token split of the CUDA kernel (the kernel runs only on
+# the card; chip_smoke.py holds it against its plain version there)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+@pytest.mark.parametrize("t,din,dout", [(128, 784, 256), (1024, 784, 256),
+                                        (128, 256, 10), (1024, 256, 10),
+                                        (2048, 1024, 2816), (100, 50, 10),
+                                        (3, 16, 16), (4100, 64, 48),
+                                        (0, 8, 8)])
+@pytest.mark.parametrize("n_sm", [132, 8])
+def test_sgd_dw_splits_cover_each_token_once(datapath, t, din, dout, n_sm):
+    kind, per, s = TSW._plan(t, din, dout, n_sm, datapath)
+    bk = TSW.BK[datapath]
+    nk = -(-t // bk)
+    runs = [range(k * per * bk, min((k + 1) * per * bk, t)) for k in range(s)]
+    # each token once, in order
+    assert [i for r in runs for i in r] == list(range(t))
+    if t == 0:
+        assert s == 1
+        return
+    assert 1 <= s <= nk
+    assert all(len(r) > 0 for r in runs)                    # no empty split
+    # the kernel's own check of the plan (csrc/sgd_dw_update.cu, plan_ok):
+    # the splits of a tile form one cluster, at most MAX_SPLITS CTAs
+    assert per >= 1 and (s - 1) * per < nk <= s * per
+    assert s <= TSW.MAX_SPLITS == 16
+    # a split is at least MIN_SPLIT_TOKENS long unless it is the only one
+    assert s == 1 or per * bk >= TSW.MIN_SPLIT_TOKENS[datapath]
+    # at most CTAS_PER_SM CTAs an SM, unless one split already has more
+    tiles = TSW._tiles(kind, din, dout)
+    assert s * tiles <= max(tiles, TSW.CTAS_PER_SM[kind] * n_sm)
+    assert (kind == "int8") == (datapath == "int8")
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+def test_sgd_dw_plan_at_the_lenet_and_mlp_shapes(datapath):
+    f32 = datapath == "emulate"
+    # LeNet at batch 128 (the train step): emulate splits 64x64 tiles in 4,
+    # int8 runs one CTA a tile over both token tiles
+    for din, dout in ((784, 256), (256, 10)):
+        assert TSW._plan(128, din, dout, 132, datapath) == (
+            ("f32x4", 2, 4) if f32 else ("int8", 2, 1))
+    # at batch 1024 both split, up to CTAS_PER_SM CTAs an SM, in clusters
+    # of a power of two
+    assert TSW._plan(1024, 784, 256, 132, datapath) == (
+        ("f32x4", 8, 8) if f32 else ("int8", 4, 4))
+    assert TSW._plan(1024, 256, 10, 132, datapath) == (
+        ("f32x4", 4, 16) if f32 else ("int8", 2, 8))
+    # the qwen MLP shape fills the card with whole tiles
+    assert TSW._plan(2048, 1024, 2816, 132, datapath) == (
+        ("f32x8" if f32 else "int8"), 128 if f32 else 32, 1)
+
+
+def test_lenet_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the defaults would run on the card")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TL.init_lenet_params(CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TL.make_lenet_train_step(CONFIG, TL.lenet_bits(5))
+    assert TL.init_lenet_params(CONFIG, device="cpu")["w_in"].device.type \
+        == "cpu"
+
+
+def test_lenet_default_backend_on_the_cpu_is_off():
+    """``auto`` (the default) resolves to the plain oracles on the CPU."""
+    params, x, y = _lenet_setup()
+    cfg, bits = LeNetConfig(**SMALL), TL.lenet_bits(5)
+    p0 = TL.params_from_numpy(params)
+    got, got_m = TL.make_lenet_train_step(cfg, bits, device="cpu")(
+        p0, (x, y), 0.1)
+    ref, ref_m = TL.make_lenet_train_step(cfg, bits, "off", device="cpu")(
+        p0, (x, y), 0.1)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    assert torch.equal(got_m["loss"], ref_m["loss"])

@@ -10,16 +10,19 @@ Phases (any failure exits non-zero before the result line is printed):
 2. build    -- nvcc builds every kernel of ``src/repro_torch/csrc`` (one
                process per source, all at once) into ``build/kernels``.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
-               the full-width decode shapes of qwen1.5-0.5b (8 slots) and
-               the full-width LeNet-5 training shapes (batch 128, and 1024
-               so that a launch moves more than a few hundred KB), for both
+               the full-width decode shapes of qwen1.5-0.5b (8 slots; for
+               fxp_matmul also the prefill chunk of 16 rows) and the
+               full-width LeNet-5 training shapes (batch 128, and 1024 so
+               that a launch moves more than a few hundred KB), for both
                datapaths, with the tolerance stated beside each check;
                paged_attention also at yi-34b's attention widths (56 heads,
                8 KV heads of 128, 8 slots of up to 4096 positions) and
                sgd_dw_update also in the dW-only form at the qwen1.5-0.5b
-               MLP shape (T 2048, 1024 x 2816).  Then, untimed, the two
-               split kernels at ragged and unaligned shapes
-               (``check_edges``).
+               MLP shape (T 2048, 1024 x 2816).  Then, untimed, fxp_matmul,
+               sgd_dw_update and paged_attention at ragged and unaligned
+               shapes, and fxp_matmul at every split count its plan could
+               pick (``check_edges``).  The timer's floor, a one-element
+               fill, is printed first.
                Times are CUDA-event medians of 25 launches after warm-up,
                each launch after a write of 128 MB that evicts the 50 MB L2
                (the paths read every weight cold) and a ~0.5 ms spin of the
@@ -178,23 +181,32 @@ def check_fxp_matmul(torch, dev, flush, gen):
     from repro_torch.quant.int8 import quantize_int8_absmax
 
     rows = []
-    shapes = [(B, D, FF), (B, FF, D), (5, 1000, 333)]
-    # datapath, x dtype, (xa_bits, w_bits, out_bits), act
+    # decode (8 slots), the unaligned row, and prefill (chunks of 16 rows)
+    shapes = [(B, D, FF), (B, FF, D), (5, 1000, 333), (BS, D, FF),
+              (BS, FF, D)]
+    # datapath, x dtype, W dtype, (xa_bits, w_bits, out_bits), act
     variants = [
-        ("emulate", torch.float32, (None, None, None), "identity"),
-        ("emulate", torch.bfloat16, (None, None, None), "identity"),
-        ("emulate", torch.float32, ((4, 10), (2, 12), (4, 10)), "silu"),
-        ("int8", torch.int8, (None, None, None), "identity"),
-        ("int8", torch.int8, (None, None, (4, 10)), "silu"),
+        ("emulate", torch.float32, torch.float32, (None, None, None),
+         "identity"),
+        ("emulate", torch.bfloat16, torch.float32, (None, None, None),
+         "identity"),
+        ("emulate", torch.bfloat16, torch.bfloat16, (None, None, None),
+         "identity"),
+        ("emulate", torch.float32, torch.float32,
+         ((4, 10), (2, 12), (4, 10)), "silu"),
+        ("int8", torch.int8, torch.int8, (None, None, None), "identity"),
+        ("int8", torch.int8, torch.int8, (None, None, (4, 10)), "silu"),
     ]
     for (m, k, n) in shapes:
         x = torch.randn((m, k), generator=gen, device=dev)
         w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         qx, sx = quantize_int8_absmax(x)
         qw, sw = quantize_int8_absmax(w)
-        for datapath, xdt, (xa, wb, ob), act in variants:
+        for datapath, xdt, wdt, (xa, wb, ob), act in variants:
             if (m, k, n) == (5, 1000, 333) and ob is not None:
                 continue
+            if m == BS and (xdt == torch.bfloat16 or act != "identity"):
+                continue             # prefill: f32 and int8 only
             kw = dict(xa_bits=xa, w_bits=wb, out_bits=ob, act=act,
                       datapath=datapath)
             if datapath == "int8":
@@ -202,9 +214,10 @@ def check_fxp_matmul(torch, dev, flush, gen):
                 kw["scale"] = sx * sw
                 kind, nbytes = "int8", m * k + k * n + 4 * m * n
             else:
-                a, bw = x.to(xdt), w
+                a, bw = x.to(xdt), w.to(wdt)
                 kind = "bfloat16" if xdt == torch.bfloat16 else "float32"
-                nbytes = a.element_size() * m * k + 4 * k * n + 4 * m * n
+                nbytes = (a.element_size() * m * k + bw.element_size() * k * n
+                          + 4 * m * n)
             got = fxp_matmul(a, bw, **kw)
             ref = fxp_matmul_plain(a, bw, **kw)
             torch.cuda.synchronize()
@@ -244,15 +257,21 @@ def check_fxp_matmul(torch, dev, flush, gen):
                 library_ms = time_ms(lambda: torch.matmul(a, bw), torch,
                                      flush)
                 library_note = "torch.matmul f32 (TF32 off)"
+            elif wdt == torch.bfloat16:
+                library_ms = time_ms(lambda: torch.matmul(a, bw), torch,
+                                     flush)
+                library_note = "torch.matmul bf16"
             else:
+                # the kernel reads f32 W (4 bytes a weight), this call bf16
                 wb16 = bw.to(torch.bfloat16)
                 library_ms = time_ms(lambda: torch.matmul(a, wb16), torch,
                                      flush)
                 library_note = "torch.matmul bf16 (weights pre-cast)"
             bms, by = bound(nbytes, 2.0 * m * k * n, kind)
+            wname = "/w=bfloat16" if wdt == torch.bfloat16 else ""
             rows.append(dict(
                 name="fxp_matmul",
-                variant=f"{datapath}/{str(xdt).split('.')[-1]}"
+                variant=f"{datapath}/{str(xdt).split('.')[-1]}{wname}"
                         f"/bits={'on' if xa or ob else 'off'}/{act}",
                 shape=f"{m}x{k}x{n}", max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms,
@@ -765,6 +784,92 @@ def check_sgd_dw_update_dense(torch, dev, flush, gen):
     return rows
 
 
+def _offset_copy(torch, t, offset):
+    """``t`` in a buffer that starts ``offset`` elements past an aligned
+    address (off every vector boundary for offset 1)."""
+    buf = torch.empty((t.numel() + offset,), dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+def check_fxp_matmul_edges(torch, dev, gen):
+    """Correctness only, no timing: fxp_matmul's decode path (M <= 16) and
+    tiled path (M = 17) at ragged and unaligned shapes (N = 10 and 333,
+    K = 784 and 1000, operands 1 element off a 16-byte boundary), with the
+    tolerances of the phase-3 rows; then every split count the plan could
+    pick at the decode, prefill and LeNet shapes: int8 bitwise for each."""
+    from repro_torch.kernels import fxp_matmul as FM
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.quant.int8 import quantize_int8_absmax
+
+    def check(a, b, kw, label, plan=None):
+        scale = kw.get("scale")
+        if plan is None:
+            got = FM.fxp_matmul(a, b, **kw)
+        else:
+            got = FM._launch(a, b, kw.get("xa_bits"), kw.get("w_bits"),
+                             kw.get("out_bits"), kw["act"],
+                             kw.get("datapath", "emulate"), scale, plan)
+        ref = FM.fxp_matmul_plain(a, b, **kw)
+        ob = kw.get("out_bits")
+        if kw.get("datapath") == "int8" and kw["act"] in ("identity",
+                                                          "relu"):
+            (err, ok), tol = _bitwise(torch, got, ref), "bitwise"
+        else:
+            (err, ok), tol = _f32_close(got, ref, 2.0 ** -ob[1] if ob
+                                        else 0.0), F32_TOL + GRID_TOL
+        require(ok, f"edge fxp_matmul {label}: max err {err} beyond {tol}")
+
+    n = 0
+    bits = ((4, 10), (2, 12), (4, 10))
+    for m in (1, 5, 16, 17):
+        for k in (784, 1000):
+            for nn in (10, 333):
+                x = torch.randn((m, k), generator=gen, device=dev)
+                w = torch.randn((k, nn), generator=gen, device=dev) * k ** -0.5
+                (qx, sx), (qw, sw) = (quantize_int8_absmax(x),
+                                      quantize_int8_absmax(w))
+                for off in (0, 1):
+                    cases = (
+                        (x, w, dict(xa_bits=bits[0], w_bits=bits[1],
+                                    out_bits=bits[2], act="silu")),
+                        (x.to(torch.bfloat16), w.to(torch.bfloat16),
+                         dict(xa_bits=None, w_bits=None, out_bits=None,
+                              act="identity")),
+                        (qx, qw, dict(out_bits=(4, 10), act="relu",
+                                      datapath="int8", scale=sx * sw)))
+                    for a, b, kw in cases:
+                        if off:
+                            a, b = (_offset_copy(torch, a, off),
+                                    _offset_copy(torch, b, off))
+                        check(a, b, kw, f"{a.dtype}/{b.dtype} {m}x{k}x{nn} "
+                                        f"+{off}")
+                        n += 1
+    n_sm = sm_count(dev)
+    for m, k, nn in ((B, D, FF), (B, FF, D), (BS, FF, D), (128, LENET_IN,
+                                                            LENET_H)):
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, nn), generator=gen, device=dev) * k ** -0.5
+        (qx, sx), (qw, sw) = quantize_int8_absmax(x), quantize_int8_absmax(w)
+        for a, b, kw in ((x, w, dict(act="identity", xa_bits=None,
+                                     w_bits=None, out_bits=None)),
+                         (qx, qw, dict(act="identity", out_bits=None,
+                                       datapath="int8",
+                                       scale=(sx * sw).reshape(1)))):
+            plan = FM._plan(m, k, nn, n_sm, kw.get("datapath", "emulate"),
+                            a.element_size(), b.element_size())
+            nt = -(-k // plan.bk)
+            for s in (1, 2, 4, 8, 16):
+                if s > nt or (plan.path == "decode" and FM._x_bytes(
+                        m, k, plan.bk, s, kw.get("datapath", "emulate"),
+                        a.element_size()) > FM.X_SMEM):
+                    continue
+                check(a, b, kw, f"{a.dtype} {m}x{k}x{nn} S={s}",
+                      plan._replace(splits=s))
+                n += 1
+    torch.cuda.synchronize()
+    return n
+
+
 def check_edges(torch, dev, gen):
     """Correctness only, no timing: the two split kernels at ragged and
     unaligned shapes the main paths do not reach -- a token count that is
@@ -781,6 +886,7 @@ def check_edges(torch, dev, gen):
                                                    sgd_dw_update_plain)
     from repro_torch.quant.int8 import quantize_int8_absmax
 
+    n_fxp = check_fxp_matmul_edges(torch, dev, gen)
     n = 0
     for t, din, dout, offset in ((100, 50, 10, 0), (1000, 784, 10, 0),
                                  (33, 130, 70, 1), (3, 16, 16, 0),
@@ -858,8 +964,9 @@ def check_edges(torch, dev, gen):
     require(refused, "edge paged_attention: a pool off a vector boundary "
                      "was not refused")
     torch.cuda.synchronize()
-    say(f"edges: {n} ragged/unaligned cases of sgd_dw_update and "
-        "paged_attention agree with their plain versions")
+    say(f"edges: {n_fxp} ragged/unaligned/split cases of fxp_matmul and {n} "
+        "of sgd_dw_update and paged_attention agree with their plain "
+        "versions")
 
 
 def check_bp_fused_unit(torch, dev, flush, gen):
@@ -1331,6 +1438,9 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+        one = torch.zeros(1, device=dev)
+        say(f"timer floor: {time_ms(lambda: one.zero_(), torch, flush):.5f}"
+            " ms for a one-element fill, the least any row can read")
         rows += check_fxp_matmul(torch, dev, flush, gen)
         rows += check_decode_prologue(torch, dev, flush, gen)
         rows += check_paged_attention(torch, dev, flush, gen)

@@ -125,6 +125,16 @@ def cuda_device(name: str, tensors) -> torch.device:
     return dev
 
 
+_N_SM: dict = {}
+
+
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev`` (the K/token splits' target)."""
+    if dev not in _N_SM:
+        _N_SM[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _N_SM[dev]
+
+
 def lr_args(lr, device) -> tuple:
     """A learning rate as the CUDA launchers take it: ``(value, None)`` for
     a Python number, passed by value, or ``(0.0, f32 [1] tensor on the

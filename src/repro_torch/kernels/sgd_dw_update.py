@@ -34,11 +34,10 @@ import torch
 from repro_torch import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import (bits_args, check_operands,
-                                        cuda_device, lr_args)
+                                        cuda_device, lr_args, sm_count)
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FN = {}
-_N_SM = {}
 
 # The CTA tiles: outputs along (Din, Dout) and the CTAs an SM the token
 # split aims for.  f32x8: 8x8 outputs a thread, the better ratio of shared
@@ -89,13 +88,6 @@ def _plan(t: int, din: int, dout: int, n_sm: int,
     s = 1 << (s.bit_length() - 1)
     per = -(-nk // s)
     return kind, per, -(-nk // per)
-
-
-def _n_sm(dev) -> int:
-    if dev not in _N_SM:
-        props = torch.cuda.get_device_properties(dev)
-        _N_SM[dev] = props.multi_processor_count
-    return _N_SM[dev]
 
 
 def _vec(t: torch.Tensor, datapath: str) -> int:
@@ -165,7 +157,7 @@ def _launch(x, g, w, lr, w_bits, datapath, scale, tensors):
     fns = _lib()
     t, din = x.shape
     dout = g.shape[1]
-    kind, per, s = _plan(t, din, dout, _n_sm(dev), datapath)
+    kind, per, s = _plan(t, din, dout, sm_count(dev), datapath)
     out = torch.empty((din, dout), dtype=torch.float32, device=dev)
     wp = None if w is None else w.data_ptr()
     lr_val, lr_t = lr_args(lr, dev)

@@ -53,9 +53,11 @@ def head_weight(params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device=None):
     """The JAX parameter pytree (numpy leaves) as the port's dict of tensors,
-    with the same keys, shapes, dtypes and layout."""
+    with the same keys, shapes, dtypes and layout, on ``device`` (CUDA
+    unless the caller names another: ``resolve_device``)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, copy=True)).to(device)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import decode_prologue as DP
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models import layers as L
@@ -37,7 +38,10 @@ def paged_supported(cfg: ModelConfig) -> bool:
 
 
 def init_paged_state(cfg: ModelConfig, num_blocks: int, block_size: int,
-                     cache_dtype=torch.bfloat16, device="cpu") -> dict:
+                     cache_dtype=torch.bfloat16, device=None) -> dict:
+    """The zeroed paged KV pool on ``device`` (CUDA unless the caller names
+    another: ``resolve_device``)."""
+    device = resolve_device(device)
     if not paged_supported(cfg):
         raise ValueError(f"paged KV unsupported for {cfg.family} "
                          f"(mla={cfg.use_mla}, swa={cfg.swa_window})")

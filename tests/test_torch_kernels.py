@@ -29,6 +29,7 @@ from repro.kernels.fxp_matmul import fxp_matmul as j_fxp_matmul
 from repro.models.config import ModelConfig as JModelConfig
 from repro_torch.kernels import common as TC
 from repro_torch.kernels import decode_prologue as TDP
+from repro_torch.kernels import fxp_matmul as TFM
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import paged_attention as TPA
 from repro_torch.kernels import ref as TR
@@ -186,6 +187,78 @@ def test_dense_fwd_vs_jax(backend, m):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     else:
         _close(got, want)
+
+
+@pytest.mark.parametrize("n_sm", [132, 4])
+@pytest.mark.parametrize("k", [784, 1000, 2816])
+@pytest.mark.parametrize("datapath,xb,wb", [("emulate", 4, 4),
+                                            ("emulate", 2, 4),
+                                            ("emulate", 2, 2),
+                                            ("int8", 1, 1)])
+def test_fxp_matmul_plan_splits_cover_k_once(n_sm, k, datapath, xb, wb):
+    """Every k lies in exactly one split, in order, no split is empty, and
+    the split count is a power of two <= 16 (one thread-block cluster)."""
+    for m in (1, 8, 16, 17, 128, 1024):
+        for n in (10, 256, 333, 1024, 2816):
+            plan = TFM._plan(m, k, n, n_sm, datapath, xb, wb)
+            s = plan.splits
+            assert 1 <= s <= TFM.MAX_SPLITS and s & (s - 1) == 0
+            ranges = TFM._k_ranges(plan, k)
+            assert len(ranges) == s and ranges[0][0] == 0
+            assert ranges[-1][1] == k
+            for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(k, k)]):
+                assert lo < hi == nxt and lo % plan.bk == 0
+            assert plan.path == ("decode" if m <= TFM.DECODE_ROWS
+                                 else "tiled")
+            if plan.path == "decode":
+                # the largest split's X fits its shared-memory budget
+                rows = 8 if m <= 8 else 16
+                xrow = rows * (xb + (1 if datapath == "int8" else 4))
+                assert max(hi - lo for lo, hi in ranges) * xrow <= TFM.X_SMEM
+                assert TFM._x_bytes(m, k, plan.bk, s, datapath,
+                                    xb) <= TFM.X_SMEM
+
+
+@pytest.mark.parametrize("datapath,xb,wb", [("emulate", 4, 4),
+                                            ("emulate", 2, 2),
+                                            ("int8", 1, 1)])
+def test_fxp_matmul_plan_alignment_class(datapath, xb, wb):
+    """Rows that are whole 16-byte pieces take 16-byte loads; an unaligned
+    N (the LeNet head's 10, 333) or K takes the narrow loads."""
+    for n in (10, 333):
+        assert not TFM._plan(8, 1024, n, 132, datapath, xb, wb).vw
+        assert not TFM._plan(128, 1024, n, 132, datapath, xb, wb).vw
+    for n in (256, 1024, 2816):
+        assert TFM._plan(8, 1024, n, 132, datapath, xb, wb).vw
+    assert TFM._plan(8, 1024, 256, 132, datapath, xb, wb).vx
+    assert TFM._plan(5, 1000, 333, 132, datapath, xb,
+                     wb).vx == (1000 * xb % 16 == 0)
+
+
+@pytest.mark.parametrize("datapath,xb,wb", [("emulate", 4, 4),
+                                            ("emulate", 2, 4),
+                                            ("emulate", 2, 2),
+                                            ("int8", 1, 1)])
+def test_fxp_matmul_plan_at_the_serving_and_lenet_shapes(datapath, xb, wb):
+    bk = TFM.DECODE_BK[wb]
+    # qwen1.5-0.5b decode (8 slots) and prefill (chunks of 16): 44 strips
+    # of N = 2816 in 4 K splits (176 CTAs), 16 strips of N = 1024 in 8
+    for m in (8, 16):
+        assert TFM._plan(m, 1024, 2816, 132, datapath, xb, wb) == (
+            "decode", 64, bk, 4, True, True)
+        assert TFM._plan(m, 2816, 1024, 132, datapath, xb, wb) == (
+            "decode", 64, bk, 8, True, True)
+    # the unaligned phase-3 row: 6 strips, 8 splits, narrow loads of W
+    assert TFM._plan(5, 1000, 333, 132, datapath, xb, wb) == (
+        "decode", 64, bk, 8, 1000 * xb % 16 == 0, False)
+    # LeNet-5 forward at batch 128 and 1024: 64x64 tiles, a K split while
+    # the tiles leave SMs idle, at most 8
+    tbk = TFM.TILED_BK[datapath]
+    for (m, k, n), s in (((128, 784, 256), 8), ((128, 256, 256), 4),
+                         ((128, 256, 10), 4), ((1024, 784, 256), 2),
+                         ((1024, 256, 256), 2), ((1024, 256, 10), 4)):
+        assert TFM._plan(m, k, n, 132, datapath, xb, wb) == (
+            "tiled", 64, tbk, s, True, n != 10), (m, k, n)
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
@@ -353,6 +426,27 @@ def test_init_params_defaults_to_the_card():
         TLM.init_params(cfg)
     params = TLM.init_params(cfg, device="cpu")
     assert params["embed"].device.type == "cpu"
+
+
+def test_params_from_numpy_and_paged_pool_default_to_the_card():
+    """The two helpers that carry weights across and make the KV pool run
+    on the card unless told otherwise: without CUDA both defaults raise."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the tensors would go to the card")
+    from repro_torch.models import lm as TLM
+    from repro_torch.serving import engine as TE
+    cfg = TModelConfig(name="t", family="dense", num_layers=1, d_model=32,
+                       num_heads=2, num_kv_heads=2, head_dim=16, d_ff=64,
+                       vocab_size=64)
+    tree = {"embed": np.zeros((4, 8), np.float32)}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TLM.params_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TE.init_paged_state(cfg, 3, 4)
+    assert TLM.params_from_numpy(tree, device="cpu")["embed"].device.type \
+        == "cpu"
+    assert TE.init_paged_state(cfg, 3, 4, device="cpu")["k"].device.type \
+        == "cpu"
 
 
 def test_paged_attention_counters_are_kept_per_stream(monkeypatch):

@@ -67,7 +67,7 @@ def _params(jc):
     if key not in _PARAMS:
         jp = JLM.init_params(jax.random.key(0), jc)
         _PARAMS[key] = (jp, TLM.params_from_numpy(
-            jax.tree.map(np.asarray, jp)))
+            jax.tree.map(np.asarray, jp), device="cpu"))
     return _PARAMS[key]
 
 
@@ -148,7 +148,7 @@ def _prefill_both(jc, tc, jp, tp, cache):
         tdt = {"float32": torch.float32, "int8": torch.int8}[cache]
         nb = 1 + 4 * MAXB
         jpool = JE.init_paged_state(jc, nb, BS, jdt)
-        tpool = TE.init_paged_state(tc, nb, BS, tdt)
+        tpool = TE.init_paged_state(tc, nb, BS, tdt, device="cpu")
         jchunk = jax.jit(lambda pool, table, toks, start:
                          JE.paged_prefill_chunk(jp, jc, pool, table, toks,
                                                 start))

@@ -443,7 +443,7 @@ def test_lenet_step_vs_jax(backend, bits_on):
                                      device="cpu")
     jp, jm = jstep(jax.tree.map(jnp.asarray, params),
                    (jnp.asarray(x), jnp.asarray(y)), 0.1)
-    tp, tm = tstep(TL.params_from_numpy(params), (x, y), 0.1)
+    tp, tm = tstep(TL.params_from_numpy(params, device="cpu"), (x, y), 0.1)
     loss_tol, param_tol = STEP_TOL[backend]
     assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
                                               rel=loss_tol)
@@ -460,7 +460,8 @@ def test_lenet_five_steps_descend_with_jax(backend):
                                              JL.lenet_bits(5), backend))
     tstep = TL.make_lenet_train_step(LeNetConfig(**SMALL), TL.lenet_bits(5),
                                      backend, device="cpu")
-    jp, tp = jax.tree.map(jnp.asarray, params), TL.params_from_numpy(params)
+    jp = jax.tree.map(jnp.asarray, params)
+    tp = TL.params_from_numpy(params, device="cpu")
     jl, tl = [], []
     for _ in range(5):
         jp, jm = jstep(jp, (jnp.asarray(x), jnp.asarray(y)), 0.1)
@@ -477,7 +478,8 @@ def test_lenet_step_metrics_stay_tensors():
     params, x, y = _lenet_setup()
     step = TL.make_lenet_train_step(LeNetConfig(**SMALL), TL.lenet_bits(5),
                                     "auto", device="cpu")
-    p, m = step(TL.params_from_numpy(params), (x, y), torch.tensor(0.1))
+    p, m = step(TL.params_from_numpy(params, device="cpu"), (x, y),
+                torch.tensor(0.1))
     assert isinstance(m["loss"], torch.Tensor) and m["loss"].dim() == 0
     assert set(p) == {"w_in", "hidden", "w_out"}
     assert tuple(p["hidden"].shape) == (3, 32, 32)
@@ -598,7 +600,7 @@ def test_lenet_default_backend_on_the_cpu_is_off():
     """``auto`` (the default) resolves to the plain oracles on the CPU."""
     params, x, y = _lenet_setup()
     cfg, bits = LeNetConfig(**SMALL), TL.lenet_bits(5)
-    p0 = TL.params_from_numpy(params)
+    p0 = TL.params_from_numpy(params, device="cpu")
     got, got_m = TL.make_lenet_train_step(cfg, bits, device="cpu")(
         p0, (x, y), 0.1)
     ref, ref_m = TL.make_lenet_train_step(cfg, bits, "off", device="cpu")(

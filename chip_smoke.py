@@ -18,11 +18,15 @@ Phases (any failure exits non-zero before the result line is printed):
                paged_attention also at yi-34b's attention widths (56 heads,
                8 KV heads of 128, 8 slots of up to 4096 positions) and
                sgd_dw_update also in the dW-only form at the qwen1.5-0.5b
-               MLP shape (T 2048, 1024 x 2816).  Then, untimed, fxp_matmul,
-               sgd_dw_update and paged_attention at ragged and unaligned
-               shapes, and fxp_matmul at every split count its plan could
-               pick (``check_edges``).  The timer's floor, a one-element
-               fill, is printed first.
+               MLP shape (T 2048, 1024 x 2816); bp_fused_unit also on a
+               2816-wide hidden frame (T 128), and beside each of its rows
+               the port's unfused pair (bp_gstep + sgd_dw_update) on the
+               same inputs (``unfused_ms``).  Then, untimed, fxp_matmul,
+               sgd_dw_update, bp_fused_unit and paged_attention at ragged
+               and unaligned shapes, fxp_matmul at every split count and
+               bp_fused_unit at every cluster size its plan could pick
+               (``check_edges``).  The timer's floor, a one-element fill,
+               is printed first.
                Times are CUDA-event medians of 25 launches after warm-up,
                each launch after a write of 128 MB that evicts the 50 MB L2
                (the paths read every weight cold) and a ~0.5 ms spin of the
@@ -52,7 +56,9 @@ Phases (any failure exits non-zero before the result line is printed):
                Then one step from the same params and batch runs on the card
                and on the CPU (plain versions) and the new parameters and
                loss are compared, and torch.profiler splits a few steps into
-               device time by kernel, wall time and idle share.
+               device time by kernel, wall time and idle share; and one
+               such step of a net with 2048-wide hidden layers (frames the
+               first port of bp_fused_unit refused).
 6. summary  -- one ``{"kernels": [...]}`` line, the card's line, and last
                ``{"ok": true, "device": {...}}``.
 
@@ -871,14 +877,14 @@ def check_fxp_matmul_edges(torch, dev, gen):
 
 
 def check_edges(torch, dev, gen):
-    """Correctness only, no timing: the two split kernels at ragged and
-    unaligned shapes the main paths do not reach -- a token count that is
-    no multiple of a tile, widths that are no multiple of 16 bytes, an
-    operand that starts 4 bytes past an aligned address, h2o-danube3-4b's
-    hd = 120 (120 bytes a row in int8), block sizes that do not divide a
-    chunk, and MQA with 16 query heads (two register blocks of 8); and a
-    pool that starts off a vector boundary, which paged_attention must
-    refuse."""
+    """Correctness only, no timing: fxp_matmul's and bp_fused_unit's own
+    checks, then sgd_dw_update and paged_attention at ragged and unaligned
+    shapes the main paths do not reach -- a token count that is no
+    multiple of a tile, widths that are no multiple of 16 bytes, an operand
+    that starts 4 bytes past an aligned address, h2o-danube3-4b's hd = 120
+    (120 bytes a row in int8), block sizes that do not divide a chunk, and
+    MQA with 16 query heads (two register blocks of 8); and a pool that
+    starts off a vector boundary, which paged_attention must refuse."""
     from repro_torch.kernels.paged_attention import (gather_kv,
                                                      paged_attention,
                                                      paged_attention_plain)
@@ -887,6 +893,7 @@ def check_edges(torch, dev, gen):
     from repro_torch.quant.int8 import quantize_int8_absmax
 
     n_fxp = check_fxp_matmul_edges(torch, dev, gen)
+    n_fused = check_bp_fused_unit_edges(torch, dev, gen)
     n = 0
     for t, din, dout, offset in ((100, 50, 10, 0), (1000, 784, 10, 0),
                                  (33, 130, 70, 1), (3, 16, 16, 0),
@@ -964,35 +971,67 @@ def check_edges(torch, dev, gen):
     require(refused, "edge paged_attention: a pool off a vector boundary "
                      "was not refused")
     torch.cuda.synchronize()
-    say(f"edges: {n_fxp} ragged/unaligned/split cases of fxp_matmul and {n} "
-        "of sgd_dw_update and paged_attention agree with their plain "
-        "versions")
+    say(f"edges: {n_fxp} ragged/unaligned/split cases of fxp_matmul, "
+        f"{n_fused} of bp_fused_unit and {n} of sgd_dw_update and "
+        "paged_attention agree with their plain versions")
+
+
+# a 2816-wide hidden frame (qwen1.5-0.5b's MLP width), above the first
+# port's limit of 1024
+WIDE_H = FF
+
+
+def _unfused_pair(a, w, xx, z, kw, w_bits, g_scale, x_scale):
+    """The port's own unfused pair on the frame's inputs, as a yardstick:
+    bp_gstep on W rounded (emulate) or quantized (int8) beforehand -- that
+    rounding is not timed -- and sgd_dw_update with w_bits = w_out_bits.
+    Returns a function that runs both launches."""
+    from repro_torch.kernels.bp_gstep import bp_gstep
+    from repro_torch.kernels.common import maybe_kq
+    from repro_torch.kernels.sgd_dw_update import sgd_dw_update
+    from repro_torch.quant.int8 import quantize_int8_auto
+
+    gk = dict(g_bits=kw["g_bits"], act=kw["act"])
+    if kw.get("datapath") == "int8":
+        qw, sw = quantize_int8_auto(w, w_bits)
+        gk.update(datapath="int8", scale=g_scale * sw)
+        uk = dict(w_bits=kw["w_out_bits"], datapath="int8",
+                  scale=x_scale * g_scale)
+        wg = qw
+    else:
+        wg, uk = maybe_kq(w, w_bits), dict(w_bits=kw["w_out_bits"])
+    return lambda: (bp_gstep(a, wg, z, **gk),
+                    sgd_dw_update(xx, a, w, LR, **uk))
 
 
 def check_bp_fused_unit(torch, dev, flush, gen):
     """One hidden TDM frame (G, X, Z [T, 256], W [256, 256]) with Table-I
     bits; int8 with W on an absmax grid (w_bits (2, 12), too wide for int8)
-    and on its exact (I,F) grid (w_bits (2, 5))."""
+    and on its exact (I,F) grid (w_bits (2, 5)); then a 2816-wide frame at
+    T 128 (emulate, int8 absmax).  Beside each row, the port's unfused pair
+    on the same inputs (``unfused_ms``), which must agree with the frame:
+    bitwise on int8, within the row's tolerance on emulate."""
     from repro_torch.kernels.bp_fused_unit import (bp_fused_unit,
                                                    bp_fused_unit_plain)
     from repro_torch.quant.int8 import quantize_int8_auto
 
     rows = []
-    din = dout = LENET_H
     bits = TABLE_I[1]
-    for t in TRAIN_T:
+    variants = (("emulate", bits, ""), ("int8", bits, " absmax"),
+                ("int8", (2, 5), " exact"))
+    frames = [(t, LENET_H, variants) for t in TRAIN_T]
+    frames.append((128, WIDE_H, variants[:2]))
+    for t, width, frame_variants in frames:
+        din = dout = width
         g = 1e-3 * torch.randn((t, dout), generator=gen, device=dev)
         w = torch.randn((din, dout), generator=gen, device=dev) * din ** -0.5
         x = torch.randn((t, din), generator=gen, device=dev).clamp_min(0.0)
         z = torch.randn((t, din), generator=gen, device=dev)
-        qg, sg = quantize_int8_auto(g, bits)
-        qx, sx = quantize_int8_auto(x, bits)
+        (qg, sg), (qx, sx) = (quantize_int8_auto(g, bits),
+                              quantize_int8_auto(x, bits))
         shape = f"T{t} Din{din} Dout{dout}"
-        for datapath, w_bits, mode in (("emulate", bits, ""),
-                                       ("int8", bits, " absmax"),
-                                       ("int8", (2, 5), " exact")):
-            kw = dict(g_bits=bits, w_bits=w_bits, w_out_bits=None,
-                      act="relu")
+        for datapath, w_bits, mode in frame_variants:
+            kw = dict(g_bits=bits, w_bits=w_bits, w_out_bits=None, act="relu")
             if datapath == "int8":
                 a, xx, kind, esz = qg, qx, "int8", 1
                 kw.update(datapath="int8", g_scale=sg, x_scale=sx)
@@ -1000,20 +1039,32 @@ def check_bp_fused_unit(torch, dev, flush, gen):
                 a, xx, kind, esz = g, x, "float32", 4
             got = bp_fused_unit(a, w, xx, z, LR, **kw)
             ref = bp_fused_unit_plain(a, w, xx, z, LR, **kw)
+            unfused = _unfused_pair(a, w, xx, z, kw, w_bits, sg, sx)
+            pair = unfused()
             torch.cuda.synchronize()
             if datapath == "int8":
                 # the kernel's W payloads, absmax and int32 sums equal the
                 # plain version's, and so do the rescales and the update
-                e1, ok1 = _bitwise(torch, got[0], ref[0])
-                e2, ok2 = _bitwise(torch, got[1], ref[1])
+                checks = [_bitwise(torch, got[0], ref[0]),
+                          _bitwise(torch, got[1], ref[1]),
+                          _bitwise(torch, pair[0], got[0]),
+                          _bitwise(torch, pair[1], got[1])]
                 tol = "bitwise"
             else:
-                e1, ok1 = _f32_close(got[0], ref[0], 2.0 ** -bits[1])
-                e2, ok2 = _update_close(got[1], ref[1], xx.T @ a)
+                dw = xx.T @ a
+                checks = [_f32_close(got[0], ref[0], 2.0 ** -bits[1]),
+                          _update_close(got[1], ref[1], dw),
+                          _f32_close(pair[0], got[0], 2.0 ** -bits[1]),
+                          _update_close(pair[1], got[1], dw)]
                 tol = f"G_out {F32_TOL}{GRID_TOL}; W_new {UPDATE_TOL}"
+            (e1, ok1), (e2, ok2) = checks[:2]
             err, ok = max(e1, e2), ok1 and ok2
             require(ok, f"bp_fused_unit {datapath}{mode} {shape}: max err "
                         f"{e1} (G_out), {e2} (W_new) beyond {tol}")
+            require(all(c[1] for c in checks[2:]),
+                    f"bp_fused_unit {datapath}{mode} {shape}: the unfused "
+                    f"pair differs from the frame by "
+                    f"{[c[0] for c in checks[2:]]}, beyond {tol}")
             nbytes = (esz * 2 * t * din + 4 * t * din        # G, X; Z
                       + 4 * 2 * din * dout + 4 * t * din)    # W, W_new; G_out
             rows.append(_record(
@@ -1023,7 +1074,69 @@ def check_bp_fused_unit(torch, dev, flush, gen):
                 lambda: bp_fused_unit_plain(a, w, xx, z, LR, **kw), err, tol,
                 nbytes, 4.0 * t * din * dout, kind, None,
                 "n/a: no single call computes the frame"))
+            rows[-1]["unfused_ms"] = time_ms(unfused, torch, flush)
+            rows[-1]["unfused"] = ("bp_gstep on a pre-rounded (emulate) or "
+                                   "pre-quantized (int8) W, not timed, + "
+                                   "sgd_dw_update(w_bits=w_out_bits)")
+            say(f"  bp_fused_unit {rows[-1]['variant']} {shape}: unfused "
+                f"pair {rows[-1]['unfused_ms']:.4f} ms against the frame's "
+                f"{rows[-1]['ms']:.4f}")
     return rows
+
+
+def check_bp_fused_unit_edges(torch, dev, gen):
+    """Correctness only: bp_fused_unit at ragged T, Din and Dout (Dout 10,
+    1025 and 2816; T no multiple of the 64-token block), G and X 1 element
+    off a 16-byte boundary, for emulate and int8 (absmax and exact W), with
+    every cluster size a plan can take (so every chunk count these widths
+    give): int8 bitwise, emulate within the phase-3 tolerance."""
+    from repro_torch.kernels import bp_fused_unit as FU
+    from repro_torch.quant.int8 import quantize_int8_auto
+
+    bits = TABLE_I[1]
+    n = 0
+    for t, din, dout, off in ((100, 48, 10, 0), (130, 40, 1025, 1),
+                              (64, 256, 2816, 0), (3, 16, 16, 0),
+                              (200, 70, 300, 1)):
+        g = 1e-3 * torch.randn((t, dout), generator=gen, device=dev)
+        w = torch.randn((din, dout), generator=gen, device=dev) * din ** -0.5
+        x = torch.randn((t, din), generator=gen, device=dev).clamp_min(0.0)
+        z = torch.randn((t, din), generator=gen, device=dev)
+        (qg, sg), (qx, sx) = (quantize_int8_auto(g, bits),
+                              quantize_int8_auto(x, bits))
+        for datapath, w_bits in (("emulate", bits), ("int8", bits),
+                                 ("int8", (2, 5))):
+            kw = dict(g_bits=bits, w_bits=w_bits, w_out_bits=None,
+                      act="relu")
+            if datapath == "int8":
+                a, xx = qg, qx
+                kw.update(datapath="int8", g_scale=sg, x_scale=sx)
+            else:
+                a, xx = g, x
+            if off:
+                a, xx = _offset_copy(torch, a, off), _offset_copy(torch, xx,
+                                                                  off)
+            ref = FU.bp_fused_unit_plain(a, w, xx, z, LR, **kw)
+            dw = None if datapath == "int8" else xx.T @ a
+            for cluster in (1, 2, 4, 8):
+                plan = FU._plan(t, din, dout, 132, datapath, cluster=cluster)
+                got = FU._launch(a, w, xx, z, LR, kw["g_bits"], w_bits, None,
+                                 "relu", datapath, kw.get("g_scale"),
+                                 kw.get("x_scale"), plan)
+                if dw is None:
+                    (e1, ok1), (e2, ok2) = (_bitwise(torch, got[0], ref[0]),
+                                            _bitwise(torch, got[1], ref[1]))
+                else:
+                    (e1, ok1), (e2, ok2) = (
+                        _f32_close(got[0], ref[0], 2.0 ** -bits[1]),
+                        _update_close(got[1], ref[1], dw))
+                require(ok1 and ok2,
+                        f"edge bp_fused_unit {datapath} w_bits={w_bits} "
+                        f"T{t} Din{din} Dout{dout} +{off} {plan}: max err "
+                        f"{e1} (G_out), {e2} (W_new)")
+                n += 1
+    torch.cuda.synchronize()
+    return n
 
 
 # ---------------------------------------------------------------------------
@@ -1250,6 +1363,9 @@ TRAIN_LAUNCHES = {"fxp_matmul": 5, "bp_gstep": 1, "sgd_dw_update": 2,
 # gives an uncorrelated update, |d|/|ref| ~ 1.4.
 TRAIN_PARITY_TOL = 0.15
 TRAIN_LOSS_TOL = 1e-4
+# the one-step parity check's wide net: hidden frames of 2048 x 2048, which
+# the first port of bp_fused_unit refused (Dout > 1024)
+WIDE_TRAIN_HIDDEN = 2048
 
 
 def _lenet_data(torch, dev):
@@ -1279,7 +1395,7 @@ def _test_accuracy(torch, params, x, y) -> float:
 
 def train_runs(torch, dev):
     from repro_torch import kernels as K
-    from repro_torch.configs.lenet5 import CONFIG
+    from repro_torch.configs.lenet5 import CONFIG, LeNetConfig
     from repro_torch.core import (init_lenet_params, lenet_bits_table,
                                   make_lenet_train_step)
 
@@ -1319,20 +1435,26 @@ def train_runs(torch, dev):
             f"{rec['test_acc']:.4f}, launches {counts}")
         runs.append(rec)
         parity.append(train_parity(torch, dev, bits, backend, xs[0], ys[0]))
+    # hidden frames wider than the first port's limit of 1024 (one step)
+    wide = LeNetConfig(hidden=WIDE_TRAIN_HIDDEN)
+    for backend in TRAIN_RUNS:
+        parity.append(train_parity(torch, dev, bits, backend, xs[0], ys[0],
+                                   wide, profile=False))
     return runs, parity
 
 
-def train_parity(torch, dev, bits, backend, x, y):
+def train_parity(torch, dev, bits, backend, x, y, cfg=None, profile=True):
     """One step from the same params and batch: the card's kernels against
     the plain versions on the CPU; then a profile of the step."""
     from repro_torch.configs.lenet5 import CONFIG
     from repro_torch.core import init_lenet_params, make_lenet_train_step
 
-    params = init_lenet_params(CONFIG, seed=0, device=dev)
+    cfg = cfg or CONFIG
+    params = init_lenet_params(cfg, seed=0, device=dev)
     params_cpu = _tree_cpu(params)
-    step = make_lenet_train_step(CONFIG, bits, backend, dev)
+    step = make_lenet_train_step(cfg, bits, backend, dev)
     got, got_m = step(params, (x, y), LR)
-    ref, ref_m = make_lenet_train_step(CONFIG, bits, backend, "cpu")(
+    ref, ref_m = make_lenet_train_step(cfg, bits, backend, "cpu")(
         params_cpu, (x.cpu(), y.cpu()), LR)
     rel = {}
     for k, r in ref.items():
@@ -1343,21 +1465,24 @@ def train_parity(torch, dev, bits, backend, x, y):
     loss_rel = abs(float(got_m["loss"]) - float(ref_m["loss"])) / abs(
         float(ref_m["loss"]))
     tol = TRAIN_PARITY_TOL
-    say(f"train parity {backend}: update |d|/|ref| "
+    label = f"{backend} hidden={cfg.hidden}"
+    say(f"train parity {label}: update |d|/|ref| "
         + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
         + f" (tol {tol}); loss {float(got_m['loss']):.6f} vs "
           f"{float(ref_m['loss']):.6f}, rel {loss_rel:.3g} "
           f"(tol {TRAIN_LOSS_TOL})")
     require(max(rel.values()) <= tol,
-            f"train parity {backend}: update |d|/|ref| {rel} > {tol}")
+            f"train parity {label}: update |d|/|ref| {rel} > {tol}")
     require(loss_rel <= TRAIN_LOSS_TOL,
-            f"train parity {backend}: loss rel {loss_rel} > {TRAIN_LOSS_TOL}")
-    return dict(backend=backend, update_rel_l2_err=rel,
-                tol=f"|d|/|ref| <= {tol}", loss_rel_err=loss_rel,
-                loss_tol=TRAIN_LOSS_TOL,
-                profile=profile_steps(
-                    torch, lambda: step(params, (x, y), LR),
-                    f"train {backend}", backend, dev))
+            f"train parity {label}: loss rel {loss_rel} > {TRAIN_LOSS_TOL}")
+    res = dict(backend=backend, hidden=cfg.hidden, update_rel_l2_err=rel,
+               tol=f"|d|/|ref| <= {tol}", loss_rel_err=loss_rel,
+               loss_tol=TRAIN_LOSS_TOL)
+    if profile:
+        res["profile"] = profile_steps(
+            torch, lambda: step(params, (x, y), LR), f"train {backend}",
+            backend, dev)
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ from repro_torch.core import lenet as TL
 from repro_torch.data import SyntheticClassificationDataset as TData
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
+from repro_torch.kernels import bp_fused_unit as TFU
 from repro_torch.kernels import sgd_dw_update as TSW
 from repro_torch.kernels.bp_fused_unit import bp_fused_unit
 from repro_torch.kernels.bp_gstep import bp_gstep
@@ -251,13 +252,14 @@ def test_sgd_dw_update_vs_jax_kernel(dout, w_bits, with_w, datapath):
         _grid_close(got, want, 2.0 ** -w_bits[1])
 
 
-@pytest.mark.parametrize("dout", [10, 24])
+@pytest.mark.parametrize("dout", [10, 24, 1030])
 @pytest.mark.parametrize("datapath,w_bits", [
     ("emulate", (2, 12)), ("emulate", None),
     ("int8", (2, 12)), ("int8", (2, 5)), ("int8", None)])
 def test_bp_fused_unit_vs_jax_kernel(dout, datapath, w_bits):
     """int8 covers W on its exact (I,F) grid (2, 5) and the whole-tensor
-    absmax ((2, 12) does not embed in 8 bits; None)."""
+    absmax ((2, 12) does not embed in 8 bits; None); Dout 1030 is ragged
+    and wider than the first CUDA port took."""
     t, din = 16, 32
     w = _rand((din, dout), 30, 0.3)
     z = _rand((t, din), 31)
@@ -293,6 +295,21 @@ def test_training_wrappers_never_fall_back_off_the_cpu():
         sgd_dw_update(xz, g, w, LR)
     with pytest.raises(RuntimeError):
         bp_fused_unit(g, w, xz, xz, LR)
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+def test_bp_fused_unit_takes_a_wide_dout_off_the_cpu(datapath):
+    """No Dout is too wide: a 2816-wide frame on meta tensors gets as far
+    as the device check (RuntimeError), where the first CUDA port refused
+    Dout > 1024 with a ValueError before it."""
+    m = dict(device="meta")
+    dt = torch.int8 if datapath == "int8" else torch.float32
+    g, w = torch.zeros((8, 2816), dtype=dt, **m), torch.zeros((16, 2816), **m)
+    x, z = torch.zeros((8, 16), dtype=dt, **m), torch.zeros((8, 16), **m)
+    kw = dict(datapath="int8", g_scale=1.0, x_scale=1.0) \
+        if datapath == "int8" else {}
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        bp_fused_unit(g, w, x, z, LR, **kw)
 
 
 def test_wrappers_check_their_operands():
@@ -608,3 +625,56 @@ def test_lenet_default_backend_on_the_cpu_is_off():
     for k in ref:
         assert torch.equal(got[k], ref[k]), k
     assert torch.equal(got_m["loss"], ref_m["loss"])
+
+
+# ---------------------------------------------------------------------------
+# bp_fused_unit: the tiles, clusters and Dout chunks of the CUDA kernel (the
+# kernel runs only on the card; chip_smoke.py holds it against its plain
+# version there, for every tile height and cluster size)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+@pytest.mark.parametrize("din", [256, 784])
+@pytest.mark.parametrize("dout", [10, 256, 1025, 2816, 8192])
+@pytest.mark.parametrize("t", [128, 1024, 2048])
+def test_bp_fused_unit_plan_tiles_w_once(datapath, din, dout, t):
+    plan = TFU._plan(t, din, dout, 132, datapath)
+    gx, gy = plan.grid
+    # every (Din, Dout) element is owned by exactly one CTA: the Din tiles
+    # and the Dout slices each cover their axis once (a CTA past Dout pads
+    # the last cluster and owns nothing)
+    rows, cols = np.zeros(din, np.int64), np.zeros(dout, np.int64)
+    for y in range(gy):
+        rows[y * TFU.TI:(y + 1) * TFU.TI] += 1
+    for xs in range(gx):
+        cols[xs * TFU.TO:(xs + 1) * TFU.TO] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    slices = -(-dout // TFU.TO)
+    assert gy == -(-din // TFU.TI) and 0 <= gx - slices < plan.cluster
+    # the launch may ask for it: portable clusters that tile the grid, and
+    # shared memory within Hopper's 227 KB a CTA
+    assert plan.cluster in (1, 2, 4, 8) and gx % plan.cluster == 0
+    assert plan.smem <= TFU.SMEM_MAX == 232448
+    # the chunks' sums: a second pass over [chunks, T, Din] only when the
+    # Dout slices need more than one cluster
+    assert plan.chunks == -(-slices // plan.cluster)
+    assert plan.scratch == (plan.chunks * t * din if plan.chunks > 1 else 0)
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+def test_bp_fused_unit_plan_fills_the_card_at_the_lenet_frame(datapath):
+    """The LeNet hidden frame (T 128, 256 x 256) puts at least 64 CTAs on
+    the H100's 132 SMs (the first port put 16) in one launch: 8 Dout
+    slices summed in one cluster for each 16-row Din tile."""
+    plan = TFU._plan(128, 256, 256, 132, datapath)
+    assert plan.ctas >= 64 and plan.chunks == 1
+    assert (plan.cluster, plan.grid) == (8, (8, 16))
+    # a long token loop sums the slices through the scratch instead
+    assert TFU._plan(1024, 256, 256, 132, datapath).cluster == 1
+    # every power-of-two cluster can be forced; no other size
+    for c in (1, 2, 4, 8):
+        plan = TFU._plan(128, 256, 256, 132, datapath, cluster=c)
+        assert (plan.grid, plan.chunks) == ((8, 16), 8 // c)
+    with pytest.raises(ValueError):
+        TFU._plan(128, 256, 256, 132, datapath, cluster=3)

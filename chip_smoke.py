@@ -15,24 +15,28 @@ Phases (any failure exits non-zero before the result line is printed):
                full-width LeNet-5 training shapes (batch 128, and 1024 so
                that a launch moves more than a few hundred KB), for both
                datapaths, with the tolerance stated beside each check;
-               paged_attention also at yi-34b's attention widths (56 heads,
-               8 KV heads of 128, 8 slots of up to 4096 positions) and
+               paged_attention and decode_prologue also at yi-34b's
+               attention widths (D 7168, 56 heads, 8 KV heads of 128, 8
+               slots; attention over up to 4096 positions) and
                sgd_dw_update also in the dW-only form at the qwen1.5-0.5b
                MLP shape (T 2048, 1024 x 2816); bp_fused_unit also on a
-               2816-wide hidden frame (T 128), and beside each of its rows
-               the port's unfused pair (bp_gstep + sgd_dw_update) on the
-               same inputs (``unfused_ms``).  Then, untimed, fxp_matmul,
-               sgd_dw_update, bp_fused_unit and paged_attention at ragged
-               and unaligned shapes, fxp_matmul at every split count and
-               bp_fused_unit at every cluster size its plan could pick
-               (``check_edges``).  The timer's floor, a one-element fill,
-               is printed first.
+               2816-wide hidden frame (T 128).  Beside each bp_fused_unit
+               row the port's unfused pair (bp_gstep + sgd_dw_update), and
+               beside each decode_prologue row the engine's unfused branch
+               (rmsnorm, three fxp_matmul launches, bias, rope), run on the
+               same inputs (``unfused_ms``).  The timer's floor, a
+               one-element fill, is printed first.
                Times are CUDA-event medians of 25 launches after warm-up,
                each launch after a write of 128 MB that evicts the 50 MB L2
                (the paths read every weight cold) and a ~0.5 ms spin of the
                card that hides the host's enqueue time.  ``library_ms``
                times one PyTorch call that computes the same function, as a
                yardstick; the port never calls it.
+3b. edges   -- untimed: fxp_matmul, sgd_dw_update, bp_fused_unit,
+               decode_prologue and paged_attention at ragged and unaligned
+               shapes, fxp_matmul and decode_prologue at every split count
+               and bp_fused_unit at every cluster size its plan could pick
+               (``check_edges``), int8 bitwise across them.
 4. serve    -- the port's serving entry point (``launch.serve.main``) on
                full-width qwen1.5-0.5b with random f32 masters from a seed:
                8 slots, 16 requests of 64-192 prompt tokens (every other one
@@ -62,8 +66,9 @@ Phases (any failure exits non-zero before the result line is printed):
 6. summary  -- one ``{"kernels": [...]}`` line, the card's line, and last
                ``{"ok": true, "device": {...}}``.
 
-``--phases`` picks a subset (for example ``--phases device,build,kernels`` or
-``--phases device,build,kernels,train``);
+``--phases`` picks a subset of device, build, kernels, edges, serve and
+train (for example ``--phases device,build,kernels,edges`` or
+``--phases device,train``);
 the result line is printed only when every phase ran.  The script imports
 nothing of JAX nor of the JAX package ``repro``.
 """
@@ -80,7 +85,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "serve", "train")
+PHASES = ("device", "build", "kernels", "edges", "serve", "train")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -289,25 +294,133 @@ def check_fxp_matmul(torch, dev, flush, gen):
     return rows
 
 
+# the prologue's phase-3 shapes: qwen1.5-0.5b's attention front (8 slots,
+# bias; eps 1e-6 as the first rows of this check had it), and yi-34b's
+# (configs/yi_34b.py: 56 heads, 8 KV heads of 128, rope theta 5e6, no
+# bias) at 8 slots
+PROLOGUE_SHAPES = (
+    dict(b=B, d=D, h=H, hkv=HKV, hd=HD, bias=True, theta=1e6, eps=1e-6,
+         variants=(("float32", "emulate"), ("float32", "int8"),
+                   ("bfloat16", "emulate"), ("bfloat16", "int8"))),
+    dict(b=8, d=7168, h=56, hkv=8, hd=128, bias=False, theta=5e6, eps=1e-5,
+         variants=(("bfloat16", "int8"), ("bfloat16", "emulate"))),
+)
+
+
+def _prologue_inputs(torch, dev, gen, *, b, d, h, hkv, hd, bias, **_):
+    """Random f32 norm scale, masters, biases, positions and x [b, d]."""
+    nscale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    ws = [torch.randn((d, nh * hd), generator=gen, device=dev) * d ** -0.5
+          for nh in (h, hkv, hkv)]
+    biases = tuple(0.1 * torch.randn((nh, hd), generator=gen, device=dev)
+                   for nh in (h, hkv, hkv)) if bias else None
+    pos = torch.randint(0, BS * M, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    x32 = torch.randn((b, d), generator=gen, device=dev)
+    return nscale, ws, biases, pos, x32
+
+
+def _prologue_tol(torch, x, nscale, ws, datapath, ref, eps):
+    """The phase-3 tolerance of a prologue row: (atol, rtol, text)."""
+    scale_ref = max(float(r.float().abs().max()) for r in ref)
+    if x.dtype == torch.float32:
+        # f32 sums in another order, and cos/sin/pow of the rope angle (up
+        # to 511 rad) in another library
+        atol, rtol, tol = (2e-4 * scale_ref, 2e-4,
+                           "|d| <= 2e-4*max|ref| + 2e-4*|ref|")
+    else:
+        # the reference rounds to bf16 after the dot, after the bias and
+        # after the rope: up to one bf16 ulp (2^-7 relative) at each of them
+        atol, rtol, tol = (2.0 ** -7 * scale_ref, 2.0 ** -6,
+                           "|d| <= 2^-7*max|ref| + 2^-6*|ref|")
+    if datapath == "int8":
+        # the normed row, rounded in another order, may move one activation
+        # payload by one step: sx * max|w| per output
+        xn = x.float() * torch.rsqrt(
+            x.float().square().mean(-1, keepdim=True) + eps) * nscale
+        sx = float(xn.abs().amax()) / 127.0
+        step = sx * max(float(w.abs().max()) for w in ws)
+        atol += 2 * step
+        tol += f" + 2*sx*max|w| ({2 * step:.3g})"
+    return atol, rtol, tol
+
+
+def _prologue_close(got, ref, atol, rtol):
+    err, ok = 0.0, True
+    for g_, r_ in zip(got, ref):
+        e, o = compare(g_.float(), r_.float(), atol=atol, rtol=rtol)
+        err, ok = max(err, e), ok and o
+    return err, ok
+
+
+def _unfused_prologue(torch, x, nscale, ws, biases, pos, datapath, shp):
+    """The engine's unfused branch on the row's inputs, as a yardstick:
+    ``layers.apply_norm`` + ``layers._project_qkv`` (rmsnorm, three
+    fxp_matmul launches, bias, ``apply_rope``) under the emulate backend;
+    for int8 the same steps with W quantized beforehand (not timed) and x
+    quantized per tensor at each projection, as ``ops.dense_fwd`` does.
+    Returns a function that runs them."""
+    import types
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fxp_matmul import fxp_matmul
+    from repro_torch.models import layers as L
+    from repro_torch.quant.int8 import quantize_int8_absmax
+
+    b, d, hd = x.shape[0], x.shape[1], shp["hd"]
+    heads = (shp["h"], shp["hkv"], shp["hkv"])
+    cfg = types.SimpleNamespace(norm_kind="rmsnorm", norm_eps=shp["eps"],
+                                qkv_bias=biases is not None, use_rope=True,
+                                rope_theta=shp["theta"])
+    x3, positions, norm = x[:, None, :], pos[:, None], {"scale": nscale}
+    attn = {f"w{n}": w.view(d, nh, hd) for n, w, nh in zip("qkv", ws, heads)}
+    if biases is not None:
+        attn.update({f"b{n}": bb for n, bb in zip("qkv", biases)})
+    if datapath == "emulate":
+        def run():
+            with kops.kernel_backend_ctx("emulate"):
+                return L._project_qkv(attn, L.apply_norm(norm, x3, cfg), cfg,
+                                      positions)
+        return run
+    q8 = [quantize_int8_absmax(w) for w in ws]
+
+    def run():
+        h2 = L.apply_norm(norm, x3, cfg).reshape(b, d)
+        out = []
+        for (qw, sw), nh, n in zip(q8, heads, "qkv"):
+            qx, sx = quantize_int8_absmax(h2)
+            y = fxp_matmul(qx, qw, out_bits=None, act="identity",
+                           datapath="int8", scale=sx * sw)
+            y = y.to(x.dtype).reshape(b, 1, nh, hd)
+            if biases is not None:
+                y = y + attn[f"b{n}"].to(x.dtype)
+            out.append(y)
+        q, k, v = out
+        return (L.apply_rope(q, positions, cfg.rope_theta),
+                L.apply_rope(k, positions, cfg.rope_theta), v)
+    return run
+
+
 def check_decode_prologue(torch, dev, flush, gen):
+    """Each prologue row against its plain version, with the engine's
+    unfused branch on the same inputs beside it (``unfused_ms``)."""
     from repro_torch.kernels.decode_prologue import (fused_prologue,
                                                      prologue_plain)
     from repro_torch.quant.int8 import quantize_int8_absmax
 
     rows = []
-    nscale = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
-    ws = [torch.randn((D, nh * HD), generator=gen, device=dev) * D ** -0.5
-          for nh in (H, HKV, HKV)]
-    biases = tuple(0.1 * torch.randn((nh, HD), generator=gen, device=dev)
-                   for nh in (H, HKV, HKV))
-    pos = torch.randint(0, BS * M, (B,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    stat = dict(use_rope=True, theta=1e6, eps=1e-6, h=H, hkv=HKV, hd=HD)
-    x32 = torch.randn((B, D), generator=gen, device=dev)
-    q8 = [quantize_int8_absmax(w) for w in ws]
-    for dt in (torch.float32, torch.bfloat16):
-        x = x32.to(dt)
-        for datapath in ("emulate", "int8"):
+    for shp in PROLOGUE_SHAPES:
+        b, d, h, hkv, hd = (shp[k] for k in ("b", "d", "h", "hkv", "hd"))
+        nscale, ws, biases, pos, x32 = _prologue_inputs(torch, dev, gen,
+                                                        **shp)
+        stat = dict(use_rope=True, theta=shp["theta"], eps=shp["eps"], h=h,
+                    hkv=hkv, hd=hd)
+        q8 = [quantize_int8_absmax(w) for w in ws]
+        shape = (f"B{b} D{d} H{h} Hkv{hkv} hd{hd}"
+                 + (" bias" if shp["bias"] else "") + " rope")
+        for dt_name, datapath in shp["variants"]:
+            dt = getattr(torch, dt_name)
+            x = x32.to(dt)
             if datapath == "int8":
                 w3 = [q for q, _ in q8]
                 wscales = torch.stack([s for _, s in q8])
@@ -321,50 +434,40 @@ def check_decode_prologue(torch, dev, flush, gen):
                           **stat)
             got, ref = run(fused_prologue), run(prologue_plain)
             torch.cuda.synchronize()
-            scale_ref = max(float(r.float().abs().max()) for r in ref)
-            if dt == torch.float32:
-                # f32 sums in another order, and cos/sin/pow of the rope
-                # angle (up to 511 rad) in another library
-                atol, rtol, tol = (2e-4 * scale_ref, 2e-4,
-                                   "|d| <= 2e-4*max|ref| + 2e-4*|ref|")
-            else:
-                # the reference rounds to bf16 after the dot, after the bias
-                # and after the rope: up to one bf16 ulp (2^-7 relative) at
-                # each of them
-                atol, rtol, tol = (2.0 ** -7 * scale_ref, 2.0 ** -6,
-                                   "|d| <= 2^-7*max|ref| + 2^-6*|ref|")
-            if datapath == "int8":
-                # the normed row, rounded in another order, may move one
-                # activation payload by one step: sx * max|w| per output
-                xn = x.float() * torch.rsqrt(
-                    x.float().square().mean(-1, keepdim=True) + 1e-6) * nscale
-                sx = float(xn.abs().amax()) / 127.0
-                step = sx * max(float(w.abs().max()) for w in ws)
-                atol += 2 * step
-                tol += f" + 2*sx*max|w| ({2 * step:.3g})"
-            err, ok = 0.0, True
-            for g_, r_ in zip(got, ref):
-                e, o = compare(g_.float(), r_.float(), atol=atol, rtol=rtol)
-                err, ok = max(err, e), ok and o
-            require(ok, f"decode_prologue {datapath} {dt}: max err {err} "
-                        f"beyond {tol}")
+            atol, rtol, tol = _prologue_tol(torch, x, nscale, ws, datapath,
+                                            ref, shp["eps"])
+            err, ok = _prologue_close(got, ref, atol, rtol)
+            require(ok, f"decode_prologue {datapath} {dt} {shape}: max err "
+                        f"{err} beyond {tol}")
+            unfused = _unfused_prologue(torch, x, nscale, ws, biases, pos,
+                                        datapath, shp)
+            u_err, u_ok = _prologue_close(
+                [t.reshape(r.shape) for t, r in zip(unfused(), ref)], ref,
+                atol, rtol)
+            if datapath == "emulate":
+                require(u_ok, f"decode_prologue unfused emulate {dt} {shape}:"
+                              f" max err {u_err} beyond {tol}")
             ms = time_ms(lambda: run(fused_prologue), torch, flush)
             plain_ms = time_ms(lambda: run(prologue_plain), torch, flush)
+            unfused_ms = time_ms(unfused, torch, flush)
             isz = x.element_size()
-            nbytes = (wbytes + isz * B * D + 4 * D + 4 * B
-                      + 4 * (H + 2 * HKV) * HD
-                      + isz * B * (H + 2 * HKV) * HD)
-            kind = "int8" if datapath == "int8" else str(dt).split(".")[-1]
-            bms, by = bound(nbytes, 2.0 * B * D * (H + 2 * HKV) * HD, kind)
+            nbytes = (wbytes + isz * b * d + 4 * d + 4 * b
+                      + (4 * (h + 2 * hkv) * hd if shp["bias"] else 0)
+                      + isz * b * (h + 2 * hkv) * hd)
+            kind = "int8" if datapath == "int8" else dt_name
+            bms, by = bound(nbytes, 2.0 * b * d * (h + 2 * hkv) * hd, kind)
             rows.append(dict(
-                name="decode_prologue",
-                variant=f"{datapath}/{str(dt).split('.')[-1]}",
-                shape=f"B{B} D{D} H{H} Hkv{HKV} hd{HD} bias rope",
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                library_ms=None, library="no single PyTorch call",
-                bound_ms=bms, bound_by=by))
-            say(f"decode_prologue {rows[-1]['variant']}: err {err:.3g} "
-                f"({tol}) {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                name="decode_prologue", variant=f"{datapath}/{dt_name}",
+                shape=shape, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, library_ms=None,
+                library="no single PyTorch call", bound_ms=bms, bound_by=by,
+                unfused_ms=unfused_ms, unfused_max_abs_err=u_err,
+                unfused="layers.apply_norm + layers._project_qkv (int8: W "
+                        "quantized beforehand, not timed; x per tensor)"))
+            say(f"decode_prologue {rows[-1]['variant']} {shape}: err "
+                f"{err:.3g} ({tol}) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"unfused {unfused_ms:.4f} ms (err {u_err:.3g}"
+                f"{'' if datapath == 'emulate' else ', not gated'}), bound "
                 f"{bms:.4f} ms ({by})")
     return rows
 
@@ -876,15 +979,88 @@ def check_fxp_matmul_edges(torch, dev, gen):
     return n
 
 
+# decode_prologue's edges: (B, D, H, Hkv, hd, bias, rope, x offset) --
+# B 1, 5, 16, 24 (two passes); hd 64, 120 (h2o-danube3-4b: 4-byte W copies
+# in int8, a strip of 28 pairs), 128, 256 (gemma-7b: 4 strips a head); GQA
+# groups 1, 4, 7; D 1000 (a ragged last tile) and 3840; x 1 element off a
+# 16-byte boundary; hd 20 (10 pairs: single-byte W copies in int8)
+PROLOGUE_EDGES = ((1, 1000, 4, 4, 64, True, True, 0),
+                  (5, 3840, 32, 8, 120, False, True, 1),
+                  (16, 1000, 28, 4, 128, True, False, 0),
+                  (24, 3840, 4, 4, 256, False, False, 1),
+                  (8, 1024, 14, 2, 120, True, True, 1),
+                  (3, 3840, 8, 2, 256, True, True, 0),
+                  (24, 1024, 7, 1, 64, False, True, 0),
+                  (2, 1000, 3, 1, 20, True, True, 0))
+
+
+def check_decode_prologue_edges(torch, dev, gen):
+    """Correctness only, no timing: the prologue at PROLOGUE_EDGES, both
+    compute dtypes and both datapaths, at every split count ``_plan`` can
+    take (forced through ``splits``), each within the phase-3 row's
+    tolerance of plain; int8 bitwise equal to the split-1 launch."""
+    from repro_torch.kernels import decode_prologue as DP
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.quant.int8 import quantize_int8_absmax
+
+    n_sm, n = sm_count(dev), 0
+    for b, d, h, hkv, hd, bias, rope, off in PROLOGUE_EDGES:
+        nscale, ws, biases, pos, x32 = _prologue_inputs(
+            torch, dev, gen, b=b, d=d, h=h, hkv=hkv, hd=hd, bias=bias)
+        q8 = [quantize_int8_absmax(w) for w in ws]
+        kw = dict(use_rope=rope, theta=1e4, eps=1e-5, h=h, hkv=hkv, hd=hd)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            if off:
+                x = _offset_copy(torch, x, off)
+            for datapath in ("emulate", "int8"):
+                if datapath == "int8":
+                    w3 = [q for q, _ in q8]
+                    wscales = torch.stack([s for _, s in q8])
+                else:
+                    w3, wscales = ws, None
+                ref = DP.prologue_plain(x, nscale, *w3, biases, pos,
+                                        wscales=wscales, **kw)
+                atol, rtol, tol = _prologue_tol(torch, x, nscale, ws,
+                                                datapath, ref, kw["eps"])
+                label = (f"B{b} D{d} H{h} Hkv{hkv} hd{hd} bias={bias} "
+                         f"rope={rope} +{off} {dt} {datapath}")
+                first = None
+                for s in (1, 2, 4, 8):
+                    try:
+                        plan = DP._plan(b, d, h, hkv, hd, n_sm, datapath,
+                                        x.element_size(), splits=s)
+                    except ValueError:
+                        continue
+                    got = DP._launch(x, nscale, *w3, biases, pos, wscales,
+                                     plan=plan, **kw)
+                    err, ok = _prologue_close(got, ref, atol, rtol)
+                    require(ok, f"edge decode_prologue {label} S={s}: max "
+                                f"err {err} beyond {tol}")
+                    if datapath == "int8":
+                        if first is None:
+                            require(s == 1, f"edge decode_prologue {label}: "
+                                            "no split-1 plan")
+                            first = got
+                        require(all(torch.equal(g_, f_)
+                                    for g_, f_ in zip(got, first)),
+                                f"edge decode_prologue {label} S={s}: not "
+                                "bitwise equal to S=1")
+                    n += 1
+    torch.cuda.synchronize()
+    return n
+
+
 def check_edges(torch, dev, gen):
-    """Correctness only, no timing: fxp_matmul's and bp_fused_unit's own
-    checks, then sgd_dw_update and paged_attention at ragged and unaligned
-    shapes the main paths do not reach -- a token count that is no
-    multiple of a tile, widths that are no multiple of 16 bytes, an operand
-    that starts 4 bytes past an aligned address, h2o-danube3-4b's hd = 120
-    (120 bytes a row in int8), block sizes that do not divide a chunk, and
-    MQA with 16 query heads (two register blocks of 8); and a pool that
-    starts off a vector boundary, which paged_attention must refuse."""
+    """Correctness only, no timing: fxp_matmul's, bp_fused_unit's and
+    decode_prologue's own checks, then sgd_dw_update and paged_attention
+    at ragged and unaligned shapes the main paths do not reach -- a token
+    count that is no multiple of a tile, widths that are no multiple of 16
+    bytes, an operand that starts 4 bytes past an aligned address,
+    h2o-danube3-4b's hd = 120 (120 bytes a row in int8), block sizes that
+    do not divide a chunk, and MQA with 16 query heads (two register
+    blocks of 8); and a pool that starts off a vector boundary, which
+    paged_attention must refuse."""
     from repro_torch.kernels.paged_attention import (gather_kv,
                                                      paged_attention,
                                                      paged_attention_plain)
@@ -894,6 +1070,7 @@ def check_edges(torch, dev, gen):
 
     n_fxp = check_fxp_matmul_edges(torch, dev, gen)
     n_fused = check_bp_fused_unit_edges(torch, dev, gen)
+    n_pro = check_decode_prologue_edges(torch, dev, gen)
     n = 0
     for t, din, dout, offset in ((100, 50, 10, 0), (1000, 784, 10, 0),
                                  (33, 130, 70, 1), (3, 16, 16, 0),
@@ -972,8 +1149,8 @@ def check_edges(torch, dev, gen):
                      "was not refused")
     torch.cuda.synchronize()
     say(f"edges: {n_fxp} ragged/unaligned/split cases of fxp_matmul, "
-        f"{n_fused} of bp_fused_unit and {n} of sgd_dw_update and "
-        "paged_attention agree with their plain versions")
+        f"{n_fused} of bp_fused_unit, {n_pro} of decode_prologue and {n} of "
+        "sgd_dw_update and paged_attention agree with their plain versions")
 
 
 # a 2816-wide hidden frame (qwen1.5-0.5b's MLP width), above the first
@@ -1494,7 +1671,8 @@ HEADLINE = {"fxp_matmul": ("int8/int8/bits=off/identity", f"{B}x{D}x{FF}"),
             "sgd_dw_update": ("int8/w_in/w_bits=None", "T128 Din784 Dout256"),
             "bp_fused_unit": ("int8/w_bits=(2, 12) absmax",
                               "T128 Din256 Dout256"),
-            "decode_prologue": ("int8/bfloat16", None),
+            "decode_prologue": ("int8/bfloat16",
+                                f"B{B} D{D} H{H} Hkv{HKV} hd{HD} bias rope"),
             "paged_attention": ("bfloat16/pool=int8", None)}
 
 
@@ -1559,9 +1737,9 @@ def main(argv=None) -> int:
                 say(f"  ptxas {name}: {line.strip()}")
 
     rows, runs = [], []
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
     if "kernels" in phases:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
         flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
         one = torch.zeros(1, device=dev)
         say(f"timer floor: {time_ms(lambda: one.zero_(), torch, flush):.5f}"
@@ -1574,8 +1752,9 @@ def main(argv=None) -> int:
         rows += check_sgd_dw_update(torch, dev, flush, gen)
         rows += check_sgd_dw_update_dense(torch, dev, flush, gen)
         rows += check_bp_fused_unit(torch, dev, flush, gen)
-        check_edges(torch, dev, gen)
         del flush
+    if "edges" in phases:
+        check_edges(torch, dev, gen)
     if "serve" in phases:
         runs = serve_runs(torch)
         parity = decode_parity(torch, dev)

@@ -1,4 +1,4 @@
-"""Fused decode prologue: RMSNorm + QKV projection + RoPE in one launch.
+"""Fused decode prologue: RMSNorm + QKV projection + RoPE in one call.
 
 Port of ``repro/kernels/decode_prologue.py``.  For the decode slot batch
 ``x [B, 1, D]`` it computes, in the compute dtype of ``x``, exactly what
@@ -8,35 +8,144 @@ master weights cast to the compute dtype, the QKV biases, and the
 half-rotation RoPE of q and k (v is never rotated).
 
 The int8 datapath quantizes the weights per tensor (absmax) outside the
-launch, once per call, as the JAX package does; the kernel quantizes each
-normed row by its absmax, multiplies at int32 and rescales once.
+kernels, once per call, as the JAX package does; the kernels quantize each
+normed row by its absmax, multiply at int32 and rescale once.
 
 The CUDA kernel is ``csrc/decode_prologue.cu``; ``prologue_plain`` is its
 plain PyTorch version.  ``fused_prologue`` runs the plain version only for
 CPU tensors; a CUDA tensor launches the kernel or raises.
+
+``_plan`` picks the launch.  The q, k and v projections are one space of
+``H + 2*Hkv`` heads; a CTA owns a strip of up to ``PAIRS`` rotation pairs
+(j, j + hd/2) of one head, so RoPE stays inside it.  Where the strips
+cannot give every SM a CTA, D is split into up to ``MAX_SPLITS``
+tile-aligned ranges whose CTAs form a thread-block cluster and sum their
+partials in shared memory.  Rows go 8 or 16 a pass, so B <= 16 reads W
+once.  A small first launch norms (and int8: quantizes) the rows once,
+k-major, into scratch; the main launch streams them through one ring with
+W and is its programmatic dependent.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch import _build
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.common import int8_dot
+from repro_torch.kernels.common import int8_dot, sm_count
 from repro_torch.quant.int8 import quantize_int8, quantize_int8_absmax
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FN = {}
+
+# csrc/decode_prologue.cu's constants
+PAIRS = 32                # rotation pairs a strip (64 columns)
+STRIP = 2 * PAIRS
+MAX_SPLITS = 8            # the portable thread-block cluster size
+# k-rows of W a ring stage (8 KB of the strip) by the element size of W, and
+# the bytes a staged row of W is padded to
+TILE_K = {4: 32, 1: 128}
+_PITCH = {4: STRIP * 4 + 16, 1: STRIP + 16}
+_STAGES = 4
+
+
+class Plan(NamedTuple):
+    """One launch: ``grid`` (strips, passes, splits) of 256-thread CTAs;
+    ``splits`` CTAs along D form a cluster; ``rows`` (8 or 16) a pass;
+    ``bk`` k-rows a W tile (the splits are whole tiles); ``smem`` bytes a
+    CTA; ``w_piece`` bytes a W copy that the head's halves allow (16, 4, or
+    1 for int8), before the bases' alignment is checked."""
+
+    strips: int
+    passes: int
+    splits: int
+    rows: int
+    bk: int
+    smem: int
+    w_piece: int
+
+    @property
+    def grid(self) -> tuple:
+        return (self.strips, self.passes, self.splits)
+
+    @property
+    def ctas(self) -> int:
+        return self.strips * self.passes * self.splits
+
+
+def _strips(h: int, hkv: int, hd: int) -> list:
+    """Strip s of the grid as ``(kind, head, j0, np)``: projection (0 q,
+    1 k, 2 v), head, first pair and pairs; it owns columns ``j0 .. j0+np``
+    and ``hd/2 + j0 .. hd/2 + j0+np`` of the head."""
+    half = hd // 2
+    out = []
+    for kind, nh in enumerate((h, hkv, hkv)):
+        for head in range(nh):
+            for j0 in range(0, half, PAIRS):
+                out.append((kind, head, j0, min(PAIRS, half - j0)))
+    return out
+
+
+def _k_ranges(plan: Plan, d: int) -> list:
+    """The D range ``(lo, hi)`` of each split, in split order."""
+    nt = -(-d // plan.bk)
+    s = plan.splits
+    return [(min(i * nt // s * plan.bk, d), min((i + 1) * nt // s * plan.bk,
+                                                 d)) for i in range(s)]
+
+
+def _smem(rows: int, bk: int, wb: int, xc_bytes: int) -> int:
+    """Shared memory of one CTA (``Smem::TOTAL`` in the .cu): a ring of
+    stages that each hold W's tile and the normed rows' tile (``xc_bytes``
+    a value) for the same ``bk`` k-rows; the cluster's inbox; the rows'
+    activation scales."""
+    stage = bk * _PITCH[wb] + bk * rows * xc_bytes
+    return _STAGES * stage + rows * STRIP * 4 + rows * 4
+
+
+def _plan(b: int, d: int, h: int, hkv: int, hd: int, n_sm: int,
+          datapath: str = "int8", x_bytes: int = 2,
+          splits: Optional[int] = None) -> Plan:
+    """The launch of one prologue: B rows of width D against H + 2*Hkv heads
+    of ``hd``.  Rows go ``rows`` = 8 (B <= 8) or 16 a pass.  S is the least
+    power of two that gives every one of the ``n_sm`` SMs a CTA, at most
+    ``MAX_SPLITS`` and the number of W tiles.  The normed rows stream
+    through the ring with W, so no D is too wide.  ``x_bytes``: the
+    compute dtype's size (4 f32, 2 bf16).  ``splits`` forces S (any power
+    of two up to ``MAX_SPLITS`` and the tiles), as the card's edge checks
+    do."""
+    if hd <= 0 or hd % 2:
+        raise ValueError(f"decode_prologue: head dim {hd} is not even")
+    wb = 1 if datapath == "int8" else 4
+    bk = TILE_K[wb]
+    nt = -(-d // bk)
+    strips = (h + 2 * hkv) * -(-(hd // 2) // PAIRS)
+    piece = next(p for p in (16, 4, 1) if (hd // 2) * wb % p == 0)
+    rows = 8 if b <= 8 else 16
+    passes = -(-b // rows)
+    if splits is None:
+        s = 1
+        while 2 * s <= min(MAX_SPLITS, nt) and strips * passes * s < n_sm:
+            s *= 2
+    elif 1 <= splits <= min(MAX_SPLITS, nt) and splits & (splits - 1) == 0:
+        s = splits
+    else:
+        raise ValueError(f"decode_prologue: no plan with {splits} splits of "
+                         f"{nt} tiles")
+    smem = _smem(rows, bk, wb, 1 if datapath == "int8" else x_bytes)
+    return Plan(strips, passes, s, rows, bk, smem, piece)
 
 
 def _lib():
     if not _FN:
         fn = _build.load("decode_prologue").decode_prologue_launch
         # x, nscale, wq, wk, wv, wscale, bq, bk, bv, pos, q, k, v;
-        # B, D, H, Hkv, hd, use_rope; theta, eps; x_bf16, int8; stream
-        fn.argtypes = [_VP] * 13 + [_I] * 6 + [_F, _F] + [_I, _I] + [_VP]
+        # B, D, H, Hkv, hd, use_rope; theta, eps; x_bf16, int8, S, rows, vx,
+        # wp; xp, sx; stream
+        fn.argtypes = ([_VP] * 13 + [_I] * 6 + [_F, _F] + [_I] * 6
+                       + [_VP] * 3)
         fn.restype = ctypes.c_int
         _FN["launch"] = fn
     return _FN["launch"]
@@ -130,7 +239,9 @@ fused_prologue.launches = 0
 
 
 def _launch(x2, nscale, wq2, wk2, wv2, biases, positions, wscales, *,
-            use_rope, theta, eps, h, hkv, hd):
+            use_rope, theta, eps, h, hkv, hd, plan: Optional[Plan] = None):
+    """One launch; ``plan`` defaults to ``_plan``'s (a check may force
+    another split count)."""
     dev = x2.device
     if dev.type != "cuda":
         raise RuntimeError(f"decode_prologue: no kernel for {dev}")
@@ -156,17 +267,33 @@ def _launch(x2, nscale, wq2, wk2, wv2, biases, positions, wscales, *,
         raise TypeError("decode_prologue: nscale f32 and positions int32")
     if biases is not None and any(bb.dtype != torch.float32 for bb in biases):
         raise TypeError("decode_prologue: biases must be f32")
+    if plan is None:
+        plan = _plan(b, d, h, hkv, hd, sm_count(dev),
+                     "int8" if int8 else "emulate", x2.element_size())
+    # scratch: the normed rows, k-major by pass and whole W tiles (int8
+    # payloads or the compute dtype), and their activation scales
+    rows_p = plan.passes * plan.rows
+    xp = torch.empty((rows_p * -(-d // plan.bk) * plan.bk,),
+                     dtype=torch.int8 if int8 else x2.dtype, device=dev)
+    sx = torch.empty((rows_p,), dtype=torch.float32, device=dev)
     q = torch.empty((b, h, hd), dtype=x2.dtype, device=dev)
     k = torch.empty((b, hkv, hd), dtype=x2.dtype, device=dev)
     v = torch.empty((b, hkv, hd), dtype=x2.dtype, device=dev)
     bq, bk, bv = (None, None, None) if biases is None else (
         bb.data_ptr() for bb in biases)
+    # 16-byte pieces of x and nscale; W's copies as wide as its bases allow
+    vx = int(d * x2.element_size() % 16 == 0 and x2.data_ptr() % 16 == 0
+             and nscale.data_ptr() % 16 == 0)
+    wp = plan.w_piece
+    while any(w.data_ptr() % wp for w in (wq2, wk2, wv2)):
+        wp = 4 if wp == 16 else 1
     err = _lib()(
         x2.data_ptr(), nscale.data_ptr(), wq2.data_ptr(), wk2.data_ptr(),
         wv2.data_ptr(), wscales.data_ptr() if int8 else None, bq, bk, bv,
         positions.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         b, d, h, hkv, hd, int(use_rope), float(theta), float(eps),
-        int(x2.dtype == torch.bfloat16), int(int8),
+        int(x2.dtype == torch.bfloat16), int(int8), plan.splits, plan.rows,
+        vx, wp, xp.data_ptr(), sx.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "decode_prologue")
     fused_prologue.launches += 1

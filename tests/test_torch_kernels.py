@@ -285,13 +285,13 @@ def test_wrappers_never_fall_back_off_the_cpu():
 # decode_prologue
 # ---------------------------------------------------------------------------
 
-def _prologue_setup(hkv, bias, rope, seed=0):
+def _prologue_setup(hkv, bias, rope, seed=0, hd=16):
     kw = dict(name="t-prologue", family="dense", num_layers=1, d_model=64,
               num_heads=4, num_kv_heads=hkv, d_ff=64, vocab_size=64,
               compute_dtype="float32", qkv_bias=bias, use_rope=rope,
-              rope_theta=1e6)
+              rope_theta=1e6, head_dim=hd)
     rng = np.random.default_rng(seed)
-    d, h, hd = 64, 4, 16
+    d, h = 64, 4
     norm = {"scale": (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)}
     attn = {"wq": (0.1 * rng.standard_normal((d, h, hd))).astype(np.float32),
             "wk": (0.1 * rng.standard_normal((d, hkv, hd))).astype(np.float32),
@@ -306,10 +306,17 @@ def _prologue_setup(hkv, bias, rope, seed=0):
 
 
 @pytest.mark.parametrize("backend", ["emulate", "int8"])
-@pytest.mark.parametrize("hkv,bias,rope", [(4, True, True), (2, False, True),
-                                           (2, True, False)])
-def test_decode_prologue_vs_jax(backend, hkv, bias, rope):
-    jcfg, tcfg, norm, attn, x, pos = _prologue_setup(hkv, bias, rope)
+@pytest.mark.parametrize("hkv,bias,rope,hd,angle_ulp", [
+    pytest.param(4, True, True, 16, 0.0, id="4-True-True"),
+    pytest.param(2, False, True, 16, 0.0, id="2-False-True"),
+    pytest.param(2, True, False, 16, 0.0, id="2-True-False"),
+    # two strips a head on the card, GQA groups of 2.  At hd 128 position
+    # 300 turns pair 1 by 242 rad, whose f32 ulp is 2^-15: the two
+    # libraries' rotations of the same q sit up to about that far apart
+    # (1.8e-5 here), so q and k are allowed one such ulp of max|ref|
+    pytest.param(2, True, True, 128, 2.0 ** -15, id="2-True-True-hd128")])
+def test_decode_prologue_vs_jax(backend, hkv, bias, rope, hd, angle_ulp):
+    jcfg, tcfg, norm, attn, x, pos = _prologue_setup(hkv, bias, rope, hd=hd)
     with JO.kernel_backend_ctx(backend):
         want = JDP.decode_prologue(
             jax.tree.map(jnp.asarray, norm), jax.tree.map(jnp.asarray, attn),
@@ -322,7 +329,12 @@ def test_decode_prologue_vs_jax(backend, hkv, bias, rope):
                                   torch.from_numpy(pos))
     for g, w in zip(got, want):
         assert tuple(g.shape) == tuple(w.shape)
-        if backend == "emulate":
+        if backend == "emulate" and angle_ulp:
+            j = np.asarray(w)
+            np.testing.assert_array_less(
+                np.abs(g.numpy() - j),
+                RTOL * (1.0 + np.abs(j)) + angle_ulp * np.abs(j).max())
+        elif backend == "emulate":
             _close(g, w)
         else:
             # one int8 step of the normed row (|x| <= 127 * sx) moves an
@@ -330,6 +342,95 @@ def test_decode_prologue_vs_jax(backend, hkv, bias, rope):
             d = np.abs(g.numpy() - np.asarray(w))
             assert d.max() <= 1e-3 * (1 + np.abs(np.asarray(w)).max())
             assert (d > RTOL * (1 + np.abs(np.asarray(w)))).mean() <= 0.05
+
+
+# (D, H, Hkv, hd) of the configs the prologue serves: qwen1.5-0.5b,
+# yi-34b, h2o-danube3-4b (hd 120) and gemma-7b (hd 256)
+PROLOGUE_WIDTHS = {"qwen": (1024, 16, 16, 64), "yi": (7168, 56, 8, 128),
+                   "danube": (3840, 32, 8, 120), "gemma": (3072, 16, 16, 256)}
+
+
+@pytest.mark.parametrize("width", sorted(PROLOGUE_WIDTHS))
+@pytest.mark.parametrize("datapath,xb", [("int8", 2), ("emulate", 2),
+                                         ("emulate", 4)])
+def test_decode_prologue_plan_covers_each_weight_once(width, datapath, xb):
+    """Every (column, k) of the three weights is owned by exactly one
+    (strip, split): the strips cover each column of q, k and v once and
+    the splits each k once; both columns of a RoPE pair lie in one strip;
+    a CTA's shared memory fits Hopper's and the cluster is portable."""
+    d, h, hkv, hd = PROLOGUE_WIDTHS[width]
+    half = hd // 2
+    strips = TDP._strips(h, hkv, hd)
+    cover = [np.zeros(nh * hd, np.int64) for nh in (h, hkv, hkv)]
+    for kind, head, j0, npairs in strips:
+        assert 0 < npairs <= TDP.PAIRS
+        cols = head * hd + j0 + np.arange(npairs)
+        cover[kind][cols] += 1            # pair j ...
+        cover[kind][cols + half] += 1     # ... and j + hd/2, same strip
+    assert all((c == 1).all() for c in cover)
+    for b in (1, 8, 16, 24):
+        plan = TDP._plan(b, d, h, hkv, hd, 132, datapath, xb)
+        assert plan.strips == len(strips)
+        assert plan.grid == (len(strips), plan.passes, plan.splits)
+        assert plan.rows in (8, 16) and plan.passes * plan.rows >= b
+        assert plan.passes == -(-b // plan.rows)
+        s = plan.splits                   # the cluster's CTAs
+        assert 1 <= s <= 8 and s & (s - 1) == 0
+        assert plan.smem <= 232448
+        assert plan.bk == (128 if datapath == "int8" else 32)
+        kcov = np.zeros(d, np.int64)
+        for lo, hi in TDP._k_ranges(plan, d):
+            assert lo < hi and lo % plan.bk == 0
+            kcov[lo:hi] += 1
+        assert (kcov == 1).all()
+
+
+@pytest.mark.parametrize("datapath,xb", [("int8", 2), ("emulate", 2),
+                                         ("emulate", 4)])
+def test_decode_prologue_plan_fills_the_card(datapath, xb):
+    """At qwen1.5-0.5b width the 48 strips split D until the 132 SMs of an
+    H100 each have a CTA; at yi-34b width B <= 16 slots read W once."""
+    d, h, hkv, hd = PROLOGUE_WIDTHS["qwen"]
+    for b in (1, 8, 16):
+        plan = TDP._plan(b, d, h, hkv, hd, 132, datapath, xb)
+        assert plan.strips == 48 and plan.ctas >= 132
+    d, h, hkv, hd = PROLOGUE_WIDTHS["yi"]
+    for b in (1, 8, 16):
+        plan = TDP._plan(b, d, h, hkv, hd, 132, datapath, xb)
+        assert plan.passes == 1 and plan.strips == 144
+    assert TDP._plan(24, d, h, hkv, hd, 132, datapath, xb).passes == 2
+
+
+def test_decode_prologue_plan_forces_and_refuses_splits():
+    d, h, hkv, hd = PROLOGUE_WIDTHS["qwen"]
+    for s in (1, 2, 4, 8):
+        assert TDP._plan(8, d, h, hkv, hd, 132, "int8", 2,
+                         splits=s).splits == s
+    with pytest.raises(ValueError):
+        TDP._plan(8, d, h, hkv, hd, 132, "int8", 2, splits=3)
+    with pytest.raises(ValueError):
+        TDP._plan(8, 100, h, hkv, hd, 132, "int8", 2, splits=2)  # 1 tile
+    with pytest.raises(ValueError):
+        TDP._plan(8, d, h, hkv, 15, 132, "int8", 2)              # odd hd
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+def test_decode_prologue_takes_yi_width_off_the_cpu(datapath):
+    """A yi-34b-wide prologue on meta tensors gets as far as the device
+    check (RuntimeError), not a width limit (ValueError)."""
+    m = dict(device="meta")
+    d, h, hkv, hd = PROLOGUE_WIDTHS["yi"]
+    wdt = torch.int8 if datapath == "int8" else torch.float32
+    wq = torch.zeros((d, h * hd), dtype=wdt, **m)
+    wkv = torch.zeros((d, hkv * hd), dtype=wdt, **m)
+    kw = dict(wscales=torch.ones(3, **m)) if datapath == "int8" else {}
+    with pytest.raises(RuntimeError, match="no kernel for meta"):
+        TDP.fused_prologue(torch.zeros((8, d), dtype=torch.bfloat16, **m),
+                           torch.ones(d, **m), wq, wkv, wkv, None,
+                           torch.zeros(8, dtype=torch.int32, **m),
+                           use_rope=True, theta=5e6, eps=1e-5, h=h, hkv=hkv,
+                           hd=hd, **kw)
+    assert TDP._plan(8, d, h, hkv, hd, 132, datapath, 2).passes == 1
 
 
 def test_prologue_gates():

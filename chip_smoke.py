@@ -19,12 +19,16 @@ Phases (any failure exits non-zero before the result line is printed):
                attention widths (D 7168, 56 heads, 8 KV heads of 128, 8
                slots; attention over up to 4096 positions) and
                sgd_dw_update also in the dW-only form at the qwen1.5-0.5b
-               MLP shape (T 2048, 1024 x 2816); bp_fused_unit also on a
-               2816-wide hidden frame (T 128).  Beside each bp_fused_unit
-               row the port's unfused pair (bp_gstep + sgd_dw_update), and
-               beside each decode_prologue row the engine's unfused branch
-               (rmsnorm, three fxp_matmul launches, bias, rope), run on the
-               same inputs (``unfused_ms``).  The timer's floor, a
+               MLP shape (T 2048, 1024 x 2816); bp_gstep also at the dense
+               engine's dx shapes there (mlp_up: G [2048, 2816] against W
+               [1024, 2816]; mlp_down: G [2048, 1024] against W
+               [2816, 1024], z=None and with a silu gate's f'(Z));
+               bp_fused_unit also on a 2816-wide hidden frame (T 128).
+               Beside each bp_fused_unit row the port's unfused pair
+               (bp_gstep + sgd_dw_update), and beside each decode_prologue
+               row the engine's unfused branch (rmsnorm, three fxp_matmul
+               launches, bias, rope), run on the same inputs
+               (``unfused_ms``).  The timer's floor, a
                one-element fill, is printed first.
                Times are CUDA-event medians of 25 launches after warm-up,
                each launch after a write of 128 MB that evicts the 50 MB L2
@@ -32,11 +36,13 @@ Phases (any failure exits non-zero before the result line is printed):
                card that hides the host's enqueue time.  ``library_ms``
                times one PyTorch call that computes the same function, as a
                yardstick; the port never calls it.
-3b. edges   -- untimed: fxp_matmul, sgd_dw_update, bp_fused_unit,
-               decode_prologue and paged_attention at ragged and unaligned
-               shapes, fxp_matmul and decode_prologue at every split count
-               and bp_fused_unit at every cluster size its plan could pick
-               (``check_edges``), int8 bitwise across them.
+3b. edges   -- untimed: fxp_matmul, bp_gstep, sgd_dw_update,
+               bp_fused_unit, decode_prologue and paged_attention at ragged
+               and unaligned shapes, fxp_matmul and decode_prologue at
+               every split count, bp_gstep on both of its paths, at every
+               row count of the short one and every split count of the
+               tiled one, and bp_fused_unit at every cluster size its plan
+               could pick (``check_edges``), int8 bitwise across them.
 4. serve    -- the port's serving entry point (``launch.serve.main``) on
                full-width qwen1.5-0.5b with random f32 masters from a seed:
                8 slots, 16 requests of 64-192 prompt tokens (every other one
@@ -713,10 +719,64 @@ def check_fxp_matmul_lenet(torch, dev, flush, gen):
     return rows
 
 
+# bp_gstep at the dense engine's dx shapes, qwen1.5-0.5b's MLP at T 2048:
+# (label, Dout, Din, variants) with G [T, Dout], W [Din, Dout] -> [T, Din];
+# mlp_down's bits rows carry the gate's pre-activation Z [T, 2816] (silu)
+GSTEP_QWEN = (
+    ("qwen_mlp_up", FF, D, (("emulate", "z=None"), ("int8", "z=None"))),
+    ("qwen_mlp_down", D, FF, (("emulate", "z=None"), ("int8", "z=None"),
+                              ("emulate", "silu"), ("int8", "silu"))))
+
+
+def _gstep_row(torch, flush, g, w, z, datapath, act, g_bits, quant, shape,
+               suffix=""):
+    """One bp_gstep row: the kernel against its plain version (int8
+    bitwise; emulate F32_TOL, + GRID_TOL when g_bits rounds), timed beside
+    the plain version and, for z=None, the library's product."""
+    from repro_torch.kernels.bp_gstep import bp_gstep, bp_gstep_plain
+
+    kw = dict(g_bits=g_bits, act=act)
+    if datapath == "int8":
+        (a, sg), (b, sw) = quant(g), quant(w)
+        kw.update(datapath="int8", scale=sg * sw)
+        kind, esz = "int8", 1
+    else:
+        a, b, kind, esz = g, w, "float32", 4
+    got = bp_gstep(a, b, z, **kw)
+    ref = bp_gstep_plain(a, b, z, **kw)
+    torch.cuda.synchronize()
+    library, note = None, "n/a: f'(Z) and (I,F) rounding"
+    if datapath == "int8":
+        # identical int32 sums, rescale, f'(Z) product and rounding
+        tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
+        if z is None:
+            library, note = _int_mm_library(torch, a, b.T.contiguous())
+            note += " (on a pre-transposed W)"
+    else:
+        grid = 2.0 ** -g_bits[1] if g_bits else 0.0
+        tol = F32_TOL + (GRID_TOL if grid else "")
+        err, ok = _f32_close(got, ref, grid)
+        if z is None:
+            library, note = (lambda: a @ b.T), "g @ w.T (f32)"
+    form = "z=None" if z is None else f"bits=on/{act}"
+    require(ok, f"bp_gstep {datapath} {form}{suffix} {shape}: max err {err} "
+                f"beyond {tol}")
+    (t, dout), din = g.shape, w.shape[0]
+    nbytes = esz * (t * dout + din * dout) + 4 * t * din * (
+        2 if z is not None else 1)
+    return _record(torch, flush, "bp_gstep", f"{datapath}/{form}{suffix}",
+                   shape, lambda: bp_gstep(a, b, z, **kw),
+                   lambda: bp_gstep_plain(a, b, z, **kw), err, tol, nbytes,
+                   2.0 * t * din * dout, kind, library, note)
+
+
 def check_bp_gstep(torch, dev, flush, gen):
     """The head's G seed: G [T, 10] against W_out [256, 10], f'(Z) of the
-    last hidden layer, g_bits of layer 3 (Table I); and the z=None form."""
-    from repro_torch.kernels.bp_gstep import bp_gstep, bp_gstep_plain
+    last hidden layer, g_bits of layer 3 (Table I); and the z=None form.
+    Then the dense engine's dx at qwen1.5-0.5b's MLP widths (GSTEP_QWEN):
+    z=None as ``dense_bwd_dx`` runs it (int8 payloads by absmax), and
+    f'(Z) of a silu gate with g_bits (2, 12), int8 operands as
+    ``bp_gstep_op`` quantizes them."""
     from repro_torch.quant.int8 import quantize_int8_absmax, quantize_int8_auto
 
     rows = []
@@ -728,47 +788,30 @@ def check_bp_gstep(torch, dev, flush, gen):
         shape = f"T{t} Dout{dout} Din{din}"
         for datapath, form in (("emulate", "bits"), ("int8", "bits"),
                                ("emulate", "z=None"), ("int8", "z=None")):
-            zz = z if form == "bits" else None
-            kw = (dict(g_bits=TABLE_I[3], act="relu") if form == "bits"
-                  else dict(g_bits=None, act="identity"))
-            if datapath == "int8":
-                if form == "bits":
-                    (a, sg), (b, sw) = (quantize_int8_auto(g, TABLE_I[4]),
-                                        quantize_int8_auto(w, TABLE_I[4]))
-                else:
-                    (a, sg), (b, sw) = (quantize_int8_absmax(g),
-                                        quantize_int8_absmax(w))
-                kw.update(datapath="int8", scale=sg * sw)
-                kind, esz = "int8", 1
+            if form == "bits":
+                rows.append(_gstep_row(
+                    torch, flush, g, w, z, datapath, "relu", TABLE_I[3],
+                    lambda v: quantize_int8_auto(v, TABLE_I[4]), shape))
             else:
-                a, b, kind, esz = g, w, "float32", 4
-            got = bp_gstep(a, b, zz, **kw)
-            ref = bp_gstep_plain(a, b, zz, **kw)
-            torch.cuda.synchronize()
-            library, note = None, "n/a: f'(Z) and (I,F) rounding"
-            if datapath == "int8":
-                # identical int32 sums, rescale, f'(Z) product and rounding
-                tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
-                if form == "z=None":
-                    library, note = _int_mm_library(torch, a,
-                                                    b.T.contiguous())
-                    note += " (on a pre-transposed W)"
+                rows.append(_gstep_row(
+                    torch, flush, g, w, None, datapath, "identity", None,
+                    quantize_int8_absmax, shape))
+    t = DENSE_T
+    for label, dout, din, variants in GSTEP_QWEN:
+        g = 0.01 * torch.randn((t, dout), generator=gen, device=dev)
+        w = torch.randn((din, dout), generator=gen, device=dev) * dout ** -0.5
+        z = torch.randn((t, din), generator=gen, device=dev)
+        shape = f"T{t} Dout{dout} Din{din}"
+        for datapath, act in variants:
+            if act == "z=None":
+                rows.append(_gstep_row(
+                    torch, flush, g, w, None, datapath, "identity", None,
+                    quantize_int8_absmax, shape, f"/{label}"))
             else:
-                grid = 2.0 ** -TABLE_I[3][1] if form == "bits" else 0.0
-                tol = F32_TOL + (GRID_TOL if grid else "")
-                err, ok = _f32_close(got, ref, grid)
-                if form == "z=None":
-                    library, note = (lambda: a @ b.T), "g @ w.T (f32)"
-            require(ok, f"bp_gstep {datapath} {form} {shape}: max err {err} "
-                        f"beyond {tol}")
-            nbytes = esz * (t * dout + din * dout) + 4 * t * din * (
-                2 if zz is not None else 1)
-            rows.append(_record(
-                torch, flush, "bp_gstep",
-                f"{datapath}/{'bits=on/relu' if form == 'bits' else form}",
-                shape, lambda: bp_gstep(a, b, zz, **kw),
-                lambda: bp_gstep_plain(a, b, zz, **kw), err, tol, nbytes,
-                2.0 * t * din * dout, kind, library, note))
+                rows.append(_gstep_row(
+                    torch, flush, g, w, z, datapath, act, (2, 12),
+                    lambda v: quantize_int8_auto(v, (2, 12)), shape,
+                    f"/{label}"))
     return rows
 
 
@@ -1051,9 +1094,73 @@ def check_decode_prologue_edges(torch, dev, gen):
     return n
 
 
+# bp_gstep's edges: (T, Din, Dout, offset, act) -- T 1, 33, 1000, 4100 (no
+# multiple of a tile); Din 50, 130, 1000 (no multiple of 64 or 128); Dout
+# 1, 10 and 15 (the short path, at every row count), 16 (the tiled path's
+# least), 40 (ragged last tiles), 70 (rows of no whole 16-byte pieces), 80
+# (int8: 16-byte pieces, a ragged last tile) and 1000 (int8: no whole
+# pieces, f32: whole), the tiled ones at every split count; an operand 1
+# element past an aligned address; f'(Z) of every activation
+GSTEP_EDGES = ((1, 50, 1, 0, "relu"), (33, 130, 10, 1, "sigmoid"),
+               (1000, 1000, 15, 0, "silu"), (4100, 130, 40, 1, "tanh"),
+               (33, 1000, 70, 0, "gelu"), (4100, 50, 16, 1, "silu"),
+               (1000, 130, 80, 0, "relu"), (1, 1000, 1000, 1, "tanh"),
+               (1000, 1000, 1000, 0, "silu"), (33, 50, 1000, 1, "gelu"))
+
+
+def check_bp_gstep_edges(torch, dev, gen):
+    """Correctness only: bp_gstep at GSTEP_EDGES, with Z (g_bits (2, 12))
+    and z=None, both datapaths, at every row count of the short path and
+    every split count of the tiled one: int8 bitwise, emulate within the
+    phase-3 tolerances."""
+    from repro_torch.kernels import bp_gstep as GS
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.quant.int8 import quantize_int8_absmax
+
+    n_sm, n = sm_count(dev), 0
+    for t, din, dout, off, act in GSTEP_EDGES:
+        g = 0.01 * torch.randn((t, dout), generator=gen, device=dev)
+        w = torch.randn((din, dout), generator=gen, device=dev) * dout ** -0.5
+        z = torch.randn((t, din), generator=gen, device=dev)
+        (qg, sg), (qw, sw) = quantize_int8_absmax(g), quantize_int8_absmax(w)
+        if off:
+            g, w, z, qg, qw = (_offset_copy(torch, v, off)
+                               for v in (g, w, z, qg, qw))
+        for datapath, a, b, scale in (("emulate", g, w, None),
+                                      ("int8", qg, qw, sg * sw)):
+            for zz, kw in ((z, dict(g_bits=(2, 12), act=act)),
+                           (None, dict(g_bits=None, act="identity"))):
+                ref = GS.bp_gstep_plain(a, b, zz, datapath=datapath,
+                                        scale=scale, **kw)
+                if dout < GS.SHORT_DOUT:
+                    plans = [GS._plan(t, din, dout, n_sm, datapath, rows=r)
+                             for r in GS.SHORT_ROWS]
+                else:
+                    nt = -(-dout // GS.TILE_K[datapath])
+                    plans = [GS._plan(t, din, dout, n_sm, datapath,
+                                      splits=sp)
+                             for sp in (1, 2, 4, 8) if sp <= nt]
+                for p in plans:
+                    got = GS._launch(a, b, zz, kw["g_bits"], kw["act"],
+                                     datapath, scale, (a, b) if zz is None
+                                     else (a, b, zz), p)
+                    if datapath == "int8":
+                        (err, ok), tol = _bitwise(torch, got, ref), "bitwise"
+                    else:
+                        grid = 2.0 ** -12 if zz is not None else 0.0
+                        (err, ok), tol = _f32_close(got, ref, grid), (
+                            F32_TOL + (GRID_TOL if grid else ""))
+                    require(ok, f"edge bp_gstep {datapath} T{t} Din{din} "
+                                f"Dout{dout} +{off} {kw['act']} {p}: max "
+                                f"err {err} beyond {tol}")
+                    n += 1
+    torch.cuda.synchronize()
+    return n
+
+
 def check_edges(torch, dev, gen):
-    """Correctness only, no timing: fxp_matmul's, bp_fused_unit's and
-    decode_prologue's own checks, then sgd_dw_update and paged_attention
+    """Correctness only, no timing: fxp_matmul's, bp_gstep's,
+    bp_fused_unit's and decode_prologue's own checks, then sgd_dw_update and paged_attention
     at ragged and unaligned shapes the main paths do not reach -- a token
     count that is no multiple of a tile, widths that are no multiple of 16
     bytes, an operand that starts 4 bytes past an aligned address,
@@ -1069,6 +1176,7 @@ def check_edges(torch, dev, gen):
     from repro_torch.quant.int8 import quantize_int8_absmax
 
     n_fxp = check_fxp_matmul_edges(torch, dev, gen)
+    n_gstep = check_bp_gstep_edges(torch, dev, gen)
     n_fused = check_bp_fused_unit_edges(torch, dev, gen)
     n_pro = check_decode_prologue_edges(torch, dev, gen)
     n = 0
@@ -1149,7 +1257,7 @@ def check_edges(torch, dev, gen):
                      "was not refused")
     torch.cuda.synchronize()
     say(f"edges: {n_fxp} ragged/unaligned/split cases of fxp_matmul, "
-        f"{n_fused} of bp_fused_unit, {n_pro} of decode_prologue and {n} of "
+        f"{n_gstep} of bp_gstep, {n_fused} of bp_fused_unit, {n_pro} of decode_prologue and {n} of "
         "sgd_dw_update and paged_attention agree with their plain versions")
 
 

@@ -21,7 +21,7 @@ Tolerances, and why:
     of lr*dW there: |d| <= 2^-23 * (|W| + |W_new|).
   * f32 datapaths: the frameworks sum products in different orders, so
     values agree to f32 reassociation error, |d| <= 1e-5 * (1 + |ref|) at
-    these sizes (contractions <= 64 terms, values O(1)).
+    these sizes (contractions <= 256 terms, values O(1)).
   * after an (I,F) rounding, a value that sits at a rounding tie in one
     framework may land one grid step 2^-F away in the other (ROADMAP's
     grid-step rule): every difference is at most one step, on at most 2%
@@ -49,6 +49,7 @@ from repro_torch.data import SyntheticClassificationDataset as TData
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import bp_fused_unit as TFU
+from repro_torch.kernels import bp_gstep as TGS
 from repro_torch.kernels import sgd_dw_update as TSW
 from repro_torch.kernels.bp_fused_unit import bp_fused_unit
 from repro_torch.kernels.bp_gstep import bp_gstep
@@ -197,10 +198,13 @@ def test_bp_fused_unit_int8_ref_bitwise(w_bits):
 # the wrappers' plain versions against the Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dout", [10, 32])
+@pytest.mark.parametrize("dout", [10, 32, 256])
 @pytest.mark.parametrize("form", ["relu", "z=None"])
 @pytest.mark.parametrize("datapath", ["emulate", "int8"])
 def test_bp_gstep_vs_jax_kernel(dout, form, datapath):
+    """Dout 10 is the LeNet head (the CUDA kernel's short path); 256 is
+    deeper than one tile of its tiled path and two of the JAX kernel's
+    128-deep blocks."""
     t, din = 16, 24
     z = _rand((t, din), 20) if form == "relu" else None
     kw = (dict(g_bits=(1, 12), act="relu") if form == "relu"
@@ -678,3 +682,124 @@ def test_bp_fused_unit_plan_fills_the_card_at_the_lenet_frame(datapath):
         assert (plan.grid, plan.chunks) == ((8, 16), 8 // c)
     with pytest.raises(ValueError):
         TFU._plan(128, 256, 256, 132, datapath, cluster=3)
+
+
+# ---------------------------------------------------------------------------
+# bp_gstep: the paths and tiles of the CUDA kernel (the kernel runs only on
+# the card; chip_smoke.py holds it against its plain version there, on both
+# paths and at every row count of the short one)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+def test_bp_gstep_plan_at_the_lenet_and_qwen_shapes(datapath):
+    # the LeNet head (Dout 10): the short path, with the most rows a CTA
+    # whose CTAs still number a third of the H100's 132 SMs
+    assert TGS._plan(128, 256, 10, 132, datapath) == (
+        "short", 8, 64, (16, 4), 1, False)
+    assert TGS._plan(1024, 256, 10, 132, datapath) == (
+        "short", 16, 64, (64, 4), 1, False)
+    # the dense engine's dx at qwen1.5-0.5b's MLP (T 2048): 128x128 tiles
+    # that fill the card unsplit, 16-byte copies of G and W
+    assert TGS._plan(2048, 1024, 2816, 132, datapath) == (
+        "tiled", 128, 128, (16, 8), 1, True)
+    assert TGS._plan(2048, 2816, 1024, 132, datapath) == (
+        "tiled", 128, 128, (16, 22), 1, True)
+    # a LeNet hidden layer's dx (T 128, 256 x 256) has 2 tiles: Dout split
+    # over a cluster of 8 (f32: 8 tiles of 32) or 4 (int8: 4 tiles of 64);
+    # at T 1024 (16 tiles) in 4, and the 2816-wide frame (22 tiles) in 4
+    assert TGS._plan(128, 256, 256, 132, datapath).splits == (
+        8 if datapath == "emulate" else 4)
+    assert TGS._plan(1024, 256, 256, 132, datapath).splits == 4
+    assert TGS._plan(128, 2816, 2816, 132, datapath).splits == 4
+    # with few SMs the most rows a CTA already fill them; a short T the
+    # fewest
+    assert TGS._plan(128, 256, 10, 8, datapath).rows == 16
+    assert TGS._plan(4, 64, 10, 132, datapath).rows == 4
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+@pytest.mark.parametrize("t,din,dout", [(1, 50, 1), (33, 130, 10),
+                                        (1000, 1000, 15), (4100, 130, 40),
+                                        (33, 1000, 70), (4100, 50, 16),
+                                        (1000, 130, 80), (1, 1000, 1000),
+                                        (2048, 2816, 1024), (3, 16, 16)])
+def test_bp_gstep_plan_tiles_cover_each_output_once(datapath, t, din, dout):
+    """Every output [t, din] lies in exactly one CTA's tile, for the plan's
+    own row count and each one the short path can be forced to."""
+    plan = TGS._plan(t, din, dout, 132, datapath)
+    assert plan.path == ("short" if dout < TGS.SHORT_DOUT else "tiled")
+    plans = [plan]
+    if plan.path == "short":
+        plans += [TGS._plan(t, din, dout, 132, datapath, rows=r)
+                  for r in TGS.SHORT_ROWS]
+    for p in plans:
+        gx, gy = p.grid
+        assert p.splits == 1 or p.path == "tiled"
+        rows, cols = np.zeros(t, np.int64), np.zeros(din, np.int64)
+        for x in range(gx):
+            rows[x * p.rows:(x + 1) * p.rows] += 1
+        for y in range(gy):
+            cols[y * p.cols:(y + 1) * p.cols] += 1
+        assert (rows == 1).all() and (cols == 1).all()
+        # no CTA lies wholly past the edge
+        assert (gx - 1) * p.rows < t and (gy - 1) * p.cols < din
+        assert gy <= TGS.MAX_GRID_Y
+        if p.path == "tiled":
+            assert (p.rows, p.cols) == (TGS.TILE_T, TGS.TILE_DIN)
+        else:
+            assert p.rows in TGS.SHORT_ROWS and p.cols == TGS.SHORT_COLS
+
+
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+def test_bp_gstep_plan_alignment_class(datapath):
+    """16-byte copies of G and W where Dout elements make whole 16-byte
+    pieces; the class follows the shape, never the data (the launch adds
+    the check of the bases)."""
+    esz = 1 if datapath == "int8" else 4
+    for dout in (1, 10, 15, 16, 40, 70, 80, 1000, 1024, 2816):
+        plan = TGS._plan(64, 256, dout, 132, datapath)
+        assert plan.vec == (dout * esz % 16 == 0), dout
+
+
+def test_bp_gstep_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        TGS._plan(128, 256, 10, 132, "emulate", rows=3)     # short rows
+    for bad in (3, 16, 0):                                  # splits
+        with pytest.raises(ValueError):
+            TGS._plan(128, 256, 256, 132, "emulate", splits=bad)
+    with pytest.raises(ValueError):                          # > Dout tiles
+        TGS._plan(128, 256, 256, 132, "int8", splits=8)
+    with pytest.raises(ValueError):
+        TGS._plan(128, 256, 256, 132, "emulate", rows=4)    # tiled rows
+    with pytest.raises(ValueError):
+        TGS._plan(128, 256, 10, 132, "bf16")
+    with pytest.raises(ValueError):                          # grid's y
+        TGS._plan(4, 64 * 65536, 10, 132, "int8")
+    assert TGS._plan(4, 64 * 65535, 10, 132, "int8").grid[1] == 65535
+
+
+@pytest.mark.parametrize("n_sm", [132, 8])
+@pytest.mark.parametrize("datapath", ["emulate", "int8"])
+def test_bp_gstep_splits_cover_dout_once(n_sm, datapath):
+    """Every Dout index lies in exactly one split, in order, no split is
+    empty, and the split count is a power of two <= 8 (one portable
+    cluster) that keeps the CTAs within the SMs where it splits."""
+    for t in (1, 128, 1024, 2048):
+        for din in (50, 256, 1024, 2816):
+            for dout in (16, 40, 80, 256, 1000, 2816):
+                plan = TGS._plan(t, din, dout, n_sm, datapath)
+                s, tiles = plan.splits, plan.grid[0] * plan.grid[1]
+                assert 1 <= s <= TGS.MAX_SPLITS and s & (s - 1) == 0
+                assert s == 1 or 3 * tiles * s <= 2 * n_sm
+                forced = [TGS._plan(t, din, dout, n_sm, datapath, splits=f)
+                          for f in (1, 2, 4, 8)
+                          if f <= -(-dout // TGS.TILE_K[datapath])]
+                for p in [plan] + forced:
+                    ranges = TGS._k_ranges(p, dout, datapath)
+                    assert len(ranges) == p.splits
+                    assert ranges[0][0] == 0 and ranges[-1][1] == dout
+                    for (lo, hi), (nxt, _) in zip(ranges,
+                                                  ranges[1:] + [(dout, 0)]):
+                        assert lo < hi == nxt
+                        assert lo % TGS.TILE_K[datapath] == 0

@@ -24,6 +24,11 @@ Phases (any failure exits non-zero before the result line is printed):
                [1024, 2816]; mlp_down: G [2048, 1024] against W
                [2816, 1024], z=None and with a silu gate's f'(Z));
                bp_fused_unit also on a 2816-wide hidden frame (T 128).
+               fxp_matmul, bp_gstep and sgd_dw_update also as the layer
+               engine calls them in train_lm (``check_engine_units``): T
+               1024 tokens through each of qwen1.5-0.5b's unit shapes
+               (q/k/v/o 1024 x 1024, gate/up 1024 x 2816, down 2816 x
+               1024), bf16 activations against f32 weights, identity.
                Beside each bp_fused_unit row the port's unfused pair
                (bp_gstep + sgd_dw_update), and beside each decode_prologue
                row the engine's unfused branch (rmsnorm, three fxp_matmul
@@ -69,11 +74,20 @@ Phases (any failure exits non-zero before the result line is printed):
                device time by kernel, wall time and idle share; and one
                such step of a net with 2048-wide hidden layers (frames the
                first port of bp_fused_unit refused).
+5b. train_lm -- the layer engine (``core.steps.make_train_step``) on
+               full-width, 24-layer qwen1.5-0.5b (f32 masters from seed 0,
+               bf16 compute): 20 momentum steps of batch 8 x seq 128 at lr
+               3e-3 on one synthetic batch, once a backend (int8, emulate);
+               every loss finite, the last-5 mean below the first-5 mean,
+               and exactly 336 fxp_matmul, 168 bp_gstep and 168
+               sgd_dw_update launches a step; then timed ms/step, tokens/s
+               and a profile of 5 steps, and one step of a 2-layer
+               full-width net on the card against the CPU.
 6. summary  -- one ``{"kernels": [...]}`` line, the card's line, and last
                ``{"ok": true, "device": {...}}``.
 
-``--phases`` picks a subset of device, build, kernels, edges, serve and
-train (for example ``--phases device,build,kernels,edges`` or
+``--phases`` picks a subset of device, build, kernels, edges, serve,
+train and train_lm (for example ``--phases device,build,kernels,edges`` or
 ``--phases device,train``);
 the result line is printed only when every phase ran.  The script imports
 nothing of JAX nor of the JAX package ``repro``.
@@ -91,7 +105,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "edges", "serve", "train")
+PHASES = ("device", "build", "kernels", "edges", "serve", "train",
+          "train_lm")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -895,44 +910,121 @@ def check_sgd_dw_update(torch, dev, flush, gen):
 DENSE_T, DENSE_DIN, DENSE_DOUT = 2048, D, FF
 
 
-def check_sgd_dw_update_dense(torch, dev, flush, gen):
-    """The dW-only form at the qwen1.5-0.5b MLP shape, both datapaths."""
+def _dw_row(torch, flush, x, g, datapath, variant):
+    """One dW-only sgd_dw_update row (dW = Xᵀ G) as the dense engine's
+    backward runs it: int8 payloads by absmax (bitwise against the plain
+    version), or X widened to f32 (F32_TOL)."""
     from repro_torch.kernels.sgd_dw_update import (sgd_dw_update,
                                                    sgd_dw_update_plain)
     from repro_torch.quant.int8 import quantize_int8_absmax
 
-    t, din, dout = DENSE_T, DENSE_DIN, DENSE_DOUT
-    x = torch.randn((t, din), generator=gen, device=dev)
-    g = 1e-3 * torch.randn((t, dout), generator=gen, device=dev)
+    (t, din), dout = x.shape, g.shape[1]
     shape = f"T{t} Din{din} Dout{dout}"
+    if datapath == "int8":
+        (a, sx), (b, sg) = quantize_int8_absmax(x), quantize_int8_absmax(g)
+        kw = dict(datapath="int8", scale=sx * sg)
+        kind, esz = "int8", 1
+    else:
+        a, b, kw, kind, esz = x.to(torch.float32), g, {}, "float32", 4
+    got = sgd_dw_update(a, b, None, LR, **kw)
+    ref = sgd_dw_update_plain(a, b, None, LR, **kw)
+    torch.cuda.synchronize()
+    if datapath == "int8":
+        # identical int32 sums and one identical rescale
+        tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
+        library, note = _int_mm_library(torch, a.T.contiguous(), b)
+        note += " (on a pre-transposed X)"
+    else:
+        tol, (err, ok) = F32_TOL, _f32_close(got, ref)
+        library, note = (lambda: a.T @ b), "x.T @ g (f32)"
+    require(ok, f"sgd_dw_update {variant} {shape}: max err {err} beyond "
+                f"{tol}")
+    return _record(
+        torch, flush, "sgd_dw_update", variant, shape,
+        lambda: sgd_dw_update(a, b, None, LR, **kw),
+        lambda: sgd_dw_update_plain(a, b, None, LR, **kw), err, tol,
+        esz * t * (din + dout) + 4 * din * dout, 2.0 * t * din * dout,
+        kind, library, note)
+
+
+def check_sgd_dw_update_dense(torch, dev, flush, gen):
+    """The dW-only form at the qwen1.5-0.5b MLP shape, both datapaths."""
+    x = torch.randn((DENSE_T, DENSE_DIN), generator=gen, device=dev)
+    g = 1e-3 * torch.randn((DENSE_T, DENSE_DOUT), generator=gen, device=dev)
+    return [_dw_row(torch, flush, x, g, datapath,
+                    f"{datapath}/qwen_mlp/w=None")
+            for datapath in ("emulate", "int8")]
+
+
+# the layer engine's dense units in train_lm (qwen1.5-0.5b, T = batch 8 x
+# seq 128 = 1024 tokens): (label, K, N, W's dtype) of x [T, K] @ W [K, N];
+# k and v are 1024 wide too (16 KV heads of 64); the attention output
+# projection takes W cast to the compute dtype, as the JAX package's does
+ENGINE_UNITS = (("qkv", D, D, "float32"), ("o", D, D, "bfloat16"),
+                ("gate_up", D, FF, "float32"), ("down", FF, D, "float32"))
+
+
+def check_engine_units(torch, dev, flush, gen):
+    """fxp_matmul, bp_gstep and sgd_dw_update at the shapes and types that
+    train_lm's steps give them, so that the plans those steps run (tile
+    counts, split counts, which follow from T) are the ones compared: per
+    unit the forward z = x @ W (x bf16 [T, K], W [K, N] of the unit's
+    dtype; int8 payloads by absmax, as ``kernels.ops.dense_fwd`` makes
+    them), dx = dz @ Wᵀ (``dense_bwd_dx``: bp_gstep's z=None form, dz f32
+    [T, N], emulate W widened to f32) and
+    dW = xᵀ dz (``dense_bwd_dw``: sgd_dw_update's w=None form).  int8
+    bitwise, emulate F32_TOL."""
+    from repro_torch.kernels.fxp_matmul import fxp_matmul, fxp_matmul_plain
+    from repro_torch.quant.int8 import quantize_int8_absmax
+
+    t = TRAIN_LM_BATCH * TRAIN_LM_SEQ
     rows = []
-    for datapath in ("emulate", "int8"):
-        if datapath == "int8":
-            (a, sx), (b, sg) = quantize_int8_absmax(x), quantize_int8_absmax(g)
-            kw = dict(datapath="int8", scale=sx * sg)
-            kind, esz = "int8", 1
-        else:
-            a, b, kw, kind, esz = x, g, {}, "float32", 4
-        got = sgd_dw_update(a, b, None, LR, **kw)
-        ref = sgd_dw_update_plain(a, b, None, LR, **kw)
-        torch.cuda.synchronize()
-        if datapath == "int8":
-            # identical int32 sums and one identical rescale
-            tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
-            at = a.T.contiguous()
-            library, note = _int_mm_library(torch, at, b)
-            note += " (on a pre-transposed X)"
-        else:
-            tol, (err, ok) = F32_TOL, _f32_close(got, ref)
-            library, note = (lambda: a.T @ b), "x.T @ g (f32)"
-        require(ok, f"sgd_dw_update {datapath} dense {shape}: max err {err} "
-                    f"beyond {tol}")
-        rows.append(_record(
-            torch, flush, "sgd_dw_update", f"{datapath}/qwen_mlp/w=None",
-            shape, lambda: sgd_dw_update(a, b, None, LR, **kw),
-            lambda: sgd_dw_update_plain(a, b, None, LR, **kw), err, tol,
-            esz * t * (din + dout) + 4 * din * dout, 2.0 * t * din * dout,
-            kind, library, note))
+    for label, k, n, wdt in ENGINE_UNITS:
+        x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * k ** -0.5).to(getattr(torch, wdt))
+        dz = 0.01 * torch.randn((t, n), generator=gen, device=dev)
+        for datapath in ("emulate", "int8"):
+            kw = dict(out_bits=None, act="identity", datapath=datapath)
+            if datapath == "int8":
+                (a, sx), (b, sw) = (quantize_int8_absmax(x),
+                                    quantize_int8_absmax(w))
+                kw["scale"] = sx * sw
+                kind, nbytes = "int8", t * k + k * n + 4 * t * n
+            else:
+                a, b = x, w
+                kw.update(xa_bits=None, w_bits=None)
+                # bf16 operands widened to f32 in the kernel: f32 products
+                kind = "float32"
+                nbytes = 2 * t * k + w.element_size() * k * n + 4 * t * n
+            got = fxp_matmul(a, b, **kw)
+            ref = fxp_matmul_plain(a, b, **kw)
+            torch.cuda.synchronize()
+            if datapath == "int8":
+                # identical int32 sums and one identical f32 rescale
+                tol, (err, ok) = "bitwise", _bitwise(torch, got, ref)
+                library, note = _int_mm_library(torch, a, b)
+            else:
+                tol, (err, ok) = F32_TOL, _f32_close(got, ref)
+                b16 = b.to(torch.bfloat16)
+                library = (lambda: torch.matmul(a, b16))
+                note = "torch.matmul bf16 (weights pre-cast)"
+            shape = f"{t}x{k}x{n}"
+            require(ok, f"fxp_matmul {datapath} engine_{label} {shape}: max "
+                        f"err {err} beyond {tol}")
+            rows.append(_record(
+                torch, flush, "fxp_matmul",
+                f"{datapath}/x=bfloat16/engine_{label}", shape,
+                lambda: fxp_matmul(a, b, **kw),
+                lambda: fxp_matmul_plain(a, b, **kw), err, tol, nbytes,
+                2.0 * t * k * n, kind, library, note))
+            rows.append(_gstep_row(
+                torch, flush, dz, w if datapath == "int8" else w.float(),
+                None, datapath, "identity", None,
+                quantize_int8_absmax, f"T{t} Dout{n} Din{k}",
+                f"/engine_{label}"))
+            rows.append(_dw_row(torch, flush, x, dz, datapath,
+                                f"{datapath}/engine_{label}/w=None"))
     return rows
 
 
@@ -1158,6 +1250,74 @@ def check_bp_gstep_edges(torch, dev, gen):
     return n
 
 
+# the activation rows of ROADMAP fault C2: int8 fxp_matmul (act_fn) and
+# int8 bp_fused_unit (f'(Z)) with each non-relu activation, held bitwise.
+# fxp_matmul: (M, K, N) on the decode path, the tiled path, a ragged shape
+# and the dense engine's qwen1.5-0.5b MLP gate (T 1024); bp_fused_unit:
+# (T, Din, Dout) of the LeNet frame, its head and a 2816-wide frame.
+ACT_EDGE_ACTS = ("sigmoid", "tanh", "silu", "gelu")
+ACT_EDGE_FXP = ((B, D, FF), (128, LENET_IN, LENET_H), (33, 1000, 333),
+                (1024, D, FF))
+ACT_EDGE_FUSED = ((128, LENET_H, LENET_H), (100, 48, 10), (64, 256, FF))
+
+
+def check_act_edges(torch, dev, gen):
+    """Correctness only: the int8 rows of fxp_matmul and bp_fused_unit with
+    a sigmoid, tanh, silu or gelu activation, bitwise against their plain
+    versions.  Every row is printed; a row that is not bitwise fails the
+    phase at the end with the prefix "edge C2", so that a parent tree's
+    kernels can be run past it (tools/run_smoke_tree.py --known "edge C2")
+    and the log shows each row it missed."""
+    from repro_torch.kernels import bp_fused_unit as FU
+    from repro_torch.kernels import fxp_matmul as FM
+    from repro_torch.quant.int8 import quantize_int8_absmax, quantize_int8_auto
+
+    misses, n = [], 0
+
+    def row(label, got, ref):
+        nonlocal n
+        n += 1
+        require(bool(got.isfinite().all()), f"{label}: not finite")
+        diff = int((got != ref).sum())
+        say(f"C2 row {label}: {'bitwise' if diff == 0 else 'NOT bitwise'}, "
+            f"{diff} of {ref.numel()} elements differ, max err "
+            f"{float((got - ref).abs().max()):.3g}")
+        if diff:
+            misses.append(label)
+
+    for m, k, nn in ACT_EDGE_FXP:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, nn), generator=gen, device=dev) * k ** -0.5
+        (qx, sx), (qw, sw) = quantize_int8_absmax(x), quantize_int8_absmax(w)
+        for act in ACT_EDGE_ACTS:
+            for ob in ((4, 10), None):
+                kw = dict(out_bits=ob, act=act, datapath="int8",
+                          scale=sx * sw)
+                row(f"fxp_matmul int8 {act} out_bits={ob} {m}x{k}x{nn}",
+                    FM.fxp_matmul(qx, qw, **kw),
+                    FM.fxp_matmul_plain(qx, qw, **kw))
+    bits = TABLE_I[1]
+    for t, din, dout in ACT_EDGE_FUSED:
+        g = 1e-3 * torch.randn((t, dout), generator=gen, device=dev)
+        w = torch.randn((din, dout), generator=gen, device=dev) * din ** -0.5
+        x = torch.randn((t, din), generator=gen, device=dev)
+        z = torch.randn((t, din), generator=gen, device=dev)
+        (qg, sg), (qx, sx) = (quantize_int8_auto(g, bits),
+                              quantize_int8_auto(x, bits))
+        for act in ACT_EDGE_ACTS:
+            kw = dict(g_bits=bits, w_bits=bits, w_out_bits=None, act=act,
+                      datapath="int8", g_scale=sg, x_scale=sx)
+            got = FU.bp_fused_unit(qg, w, qx, z, LR, **kw)
+            ref = FU.bp_fused_unit_plain(qg, w, qx, z, LR, **kw)
+            label = f"bp_fused_unit int8 {act} T{t} Din{din} Dout{dout}"
+            row(f"{label} G_out", got[0], ref[0])
+            row(f"{label} W_new", got[1], ref[1])
+    torch.cuda.synchronize()
+    require(not misses, f"edge C2: {len(misses)} of {n} activation rows "
+                        f"not bitwise: {misses}")
+    return n
+
+
 def check_edges(torch, dev, gen):
     """Correctness only, no timing: fxp_matmul's, bp_gstep's,
     bp_fused_unit's and decode_prologue's own checks, then sgd_dw_update and paged_attention
@@ -1175,6 +1335,7 @@ def check_edges(torch, dev, gen):
                                                    sgd_dw_update_plain)
     from repro_torch.quant.int8 import quantize_int8_absmax
 
+    n_act = check_act_edges(torch, dev, gen)
     n_fxp = check_fxp_matmul_edges(torch, dev, gen)
     n_gstep = check_bp_gstep_edges(torch, dev, gen)
     n_fused = check_bp_fused_unit_edges(torch, dev, gen)
@@ -1256,7 +1417,8 @@ def check_edges(torch, dev, gen):
     require(refused, "edge paged_attention: a pool off a vector boundary "
                      "was not refused")
     torch.cuda.synchronize()
-    say(f"edges: {n_fxp} ragged/unaligned/split cases of fxp_matmul, "
+    say(f"edges: {n_act} int8 activation rows (C2) bitwise, "
+        f"{n_fxp} ragged/unaligned/split cases of fxp_matmul, "
         f"{n_gstep} of bp_gstep, {n_fused} of bp_fused_unit, {n_pro} of decode_prologue and {n} of "
         "sgd_dw_update and paged_attention agree with their plain versions")
 
@@ -1553,12 +1715,14 @@ def decode_parity(torch, dev):
     return out
 
 
-def profile_steps(torch, step, label, backend, dev):
+def profile_steps(torch, step, label, backend, dev, cpu_ops=True):
     """Where a step's time goes: the step's wall time (host clock,
     synchronised, without the profiler, whose own overhead inflates it),
     then device time by kernel over as many steps under torch.profiler,
-    and the device's idle share.  Returns {"not measured": why} when the
-    profiler records no device activity."""
+    and the device's idle share.  ``cpu_ops=False`` records the device
+    activity only (a step of ~20k PyTorch ops makes the host events slow
+    to collect).  Returns {"not measured": why} when the profiler records
+    no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops as kops
@@ -1573,8 +1737,8 @@ def profile_steps(torch, step, label, backend, dev):
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
         # only the profiler's own calls are guarded: a failing step ends
         # the run
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if cpu_ops else []))
         try:
             prof.start()
         except RuntimeError as e:
@@ -1585,15 +1749,18 @@ def profile_steps(torch, step, label, backend, dev):
         torch.cuda.synchronize()
         try:
             prof.stop()
-            events = prof.events()
+            # the raw events: prof.events() would build the host op tree,
+            # ~100 times slower at tens of thousands of events
+            events = prof.profiler.kineto_results.events()
         except RuntimeError as e:
             say(f"profile {label}: torch.profiler failed: {e}")
             return {"not measured": f"torch.profiler failed: {e}"}
     by_name = {}
     for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation()):
+            by_name[e.name()] = (by_name.get(e.name(), 0.0)
+                                 + e.duration_ns() / 1e6)
     if not by_name:
         say(f"profile {label}: the profiler saw no device time")
         return {"not measured": "no device events in torch.profiler"}
@@ -1771,6 +1938,186 @@ def train_parity(torch, dev, bits, backend, x, y, cfg=None, profile=True):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the layer engine training full-width qwen1.5-0.5b
+# ---------------------------------------------------------------------------
+
+# the JAX train driver's defaults (src/repro/launch/train.py) with its
+# --quantize policy: qwen1.5-0.5b at full width and depth, seq 128, global
+# batch 8, momentum, lr 3e-3, QuantPolicy(grad_scale=64), default_bits.
+# Every step takes the same batch (SyntheticLMDataset seed 0, step 0): with
+# a new batch each step the loss moves more from batch to batch than 20
+# steps at lr 3e-3 move it over a vocabulary of 151936, while fitting one
+# batch descends at once
+LM_ARCH = "qwen1.5-0.5b"
+TRAIN_LM_RUNS = ("int8", "emulate")
+TRAIN_LM_STEPS, TRAIN_LM_WARM = 20, 3
+TRAIN_LM_SEQ, TRAIN_LM_BATCH = 128, 8
+TRAIN_LM_LR, TRAIN_LM_OPTIMIZER, TRAIN_LM_GRAD_SCALE = 3e-3, "momentum", 64.0
+# kernel launches per step at 24 layers: 7 dense units a layer (q, k, v, o,
+# gate, up, down), each once in the forward and once in the backward's
+# re-linearisation (fxp_matmul), with one dx (bp_gstep) and one dW
+# (sgd_dw_update) in the backward
+TRAIN_LM_LAUNCHES = {"fxp_matmul": 336, "bp_gstep": 168, "sgd_dw_update": 168,
+                     "bp_fused_unit": 0, "decode_prologue": 0,
+                     "paged_attention": 0}
+# One step of a 2-layer full-width net, card against CPU, from the same
+# params and batch: relative L2 of each parameter's update and of the loss.
+# tests/test_torch_engine.py::test_update_sensitivity_justifies_card_
+# tolerance: on the CPU alone, one f32 ulp on every master moves the int8
+# updates by up to 6.2% (an activation at an int8 rounding tie flips its
+# payload) and the emulate updates by 1.4%, and the loss by 3.2e-4;
+# reversed sum orders move emulate's by 1.2%; a swapped layer order > 100%.
+# Each backend's limit is over twice its own largest spread.
+TRAIN_LM_PARITY_TOL = {"emulate": 0.05, "int8": 0.15}
+TRAIN_LM_LOSS_TOL = 2e-3
+TRAIN_LM_PARITY_LAYERS, TRAIN_LM_PARITY_BATCH, TRAIN_LM_PARITY_SEQ = 2, 2, 64
+
+
+def _lm_step(torch, cfg, backend, dev):
+    from repro_torch.core import QuantPolicy, StepOptions, make_train_step
+    from repro_torch.optim import OptimizerConfig
+
+    ocfg = OptimizerConfig(kind=TRAIN_LM_OPTIMIZER)
+    return make_train_step(cfg, QuantPolicy(grad_scale=TRAIN_LM_GRAD_SCALE),
+                           ocfg, StepOptions(kernel_backend=backend),
+                           device=dev), ocfg
+
+
+def train_lm_runs(torch, dev):
+    """TRAIN_LM_STEPS steps of each backend from the same seeds on one
+    batch: every loss finite, the mean of the last 5 below that of the
+    first 5, the launches a step exactly TRAIN_LM_LAUNCHES; the timed
+    ms/step, tokens/s and a profile."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+
+    cfg = get_config(LM_ARCH)
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_LM_SEQ, TRAIN_LM_BATCH,
+                            seed=0)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in ds.batch_at(0).items()}
+    bits = default_bits(cfg)
+    runs = []
+    for backend in TRAIN_LM_RUNS:
+        t_run = time.perf_counter()
+        params = lm.init_params(cfg, seed=0, device=dev)
+        step, ocfg = _lm_step(torch, cfg, backend, dev)
+        state = init_train_state(params, ocfg)
+        losses, secs = [], []
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        for i in range(TRAIN_LM_STEPS):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch,
+                                    Hyper(lr=TRAIN_LM_LR, step=i), bits)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(m["loss"])
+        counts = K.launch_counts()
+        loss = torch.stack(losses).cpu()
+        require(bool(loss.isfinite().all()),
+                f"train_lm {backend}: a loss is not finite: {loss.tolist()}")
+        first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+        for name, n in counts.items():
+            want = TRAIN_LM_LAUNCHES[name] * TRAIN_LM_STEPS
+            require(n == want, f"train_lm {backend}: {name} launched {n} "
+                               f"times, expected {want}")
+        require(last < first, f"train_lm {backend}: mean loss of the first 5 "
+                              f"steps {first:.4f}, of the last 5 {last:.4f}: "
+                              "no descent")
+        ms = 1e3 * statistics.median(secs[TRAIN_LM_WARM:])
+        rec = dict(run=f"train_lm/{backend}", backend=backend, counts=counts,
+                   steps=TRAIN_LM_STEPS, ms_per_step=ms,
+                   tokens_per_s=TRAIN_LM_BATCH * TRAIN_LM_SEQ / (ms / 1e3),
+                   loss_first5=first, loss_last5=last,
+                   losses=[float(v) for v in loss],
+                   grad_norm_last=float(m["grad_norm"]),
+                   peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+        say(f"train_lm {backend}: {ms:.2f} ms/step (median after "
+            f"{TRAIN_LM_WARM} warm-up), {rec['tokens_per_s']:.0f} tokens/s, "
+            f"loss {first:.4f} -> {last:.4f}, peak memory "
+            f"{rec['peak_mem_gb']:.2f} GiB, launches {counts}")
+        t_prof = time.perf_counter()
+        rec["profile"] = profile_steps(
+            torch, lambda: step(params, state, batch,
+                                Hyper(lr=TRAIN_LM_LR, step=0), bits),
+            f"train_lm {backend}", backend, dev, cpu_ops=False)
+        say(f"train_lm {backend}: {t_prof - t_run:.1f} s to train, "
+            f"{time.perf_counter() - t_prof:.1f} s to profile")
+        runs.append(rec)
+        del params, state, step
+        torch.cuda.empty_cache()
+    return runs
+
+
+def train_lm_parity(torch, dev):
+    """One step of a TRAIN_LM_PARITY_LAYERS-layer full-width net on the
+    card and on the CPU (plain versions), from the same params and batch."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+    from repro_torch.util.tree import tree_leaves_with_path
+
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              num_layers=TRAIN_LM_PARITY_LAYERS)
+    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_LM_PARITY_SEQ,
+                               TRAIN_LM_PARITY_BATCH, seed=0).batch_at(0)
+    bits, out = default_bits(cfg), []
+    for backend in TRAIN_LM_RUNS:
+        params = lm.init_params(cfg, seed=0, device=dev)
+        params_cpu = _tree_cpu(params)
+        res = {}
+        for where, p in (("card", params), ("cpu", params_cpu)):
+            d = dev if where == "card" else "cpu"
+            step, ocfg = _lm_step(torch, cfg, backend, d)
+            t0 = time.perf_counter()
+            new, _, m = step(p, init_train_state(p, ocfg),
+                             {k: torch.from_numpy(np.ascontiguousarray(v))
+                              for k, v in batch.items()},
+                             Hyper(lr=TRAIN_LM_LR, step=0), bits)
+            res[where] = (_tree_cpu(new), float(m["loss"]),
+                          time.perf_counter() - t0)
+        (got, got_loss, t_card), (ref, ref_loss, t_cpu) = (res["card"],
+                                                           res["cpu"])
+        rel = {}
+        for (k, r), (_, g), (_, p0) in zip(*map(tree_leaves_with_path, (
+                ref, got, params_cpu))):
+            require(g.shape == r.shape and bool(g.isfinite().all()),
+                    f"train_lm parity {backend}: {k} not finite/misshapen")
+            rel[k] = float((g - r).norm() / (r - p0).norm())
+        loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+        tol = TRAIN_LM_PARITY_TOL[backend]
+        say(f"train_lm parity {backend} ({TRAIN_LM_PARITY_LAYERS} layers, "
+            f"full width): update |d|/|ref| max {max(rel.values()):.3g} "
+            f"({max(rel, key=rel.get)}; tol {tol}); loss "
+            f"{got_loss:.6f} vs {ref_loss:.6f}, rel {loss_rel:.3g} (tol "
+            f"{TRAIN_LM_LOSS_TOL}); card {t_card:.2f} s, cpu {t_cpu:.2f} s")
+        require(max(rel.values()) <= tol,
+                f"train_lm parity {backend}: update |d|/|ref| {rel} > "
+                f"{tol}")
+        require(loss_rel <= TRAIN_LM_LOSS_TOL,
+                f"train_lm parity {backend}: loss rel {loss_rel} > "
+                f"{TRAIN_LM_LOSS_TOL}")
+        out.append(dict(backend=backend, layers=TRAIN_LM_PARITY_LAYERS,
+                        update_rel_l2_err=rel, tol=tol,
+                        loss_rel_err=loss_rel, loss_tol=TRAIN_LM_LOSS_TOL))
+        del params, params_cpu, res, got, ref
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the summary line
 # ---------------------------------------------------------------------------
 
@@ -1860,6 +2207,7 @@ def main(argv=None) -> int:
         rows += check_sgd_dw_update(torch, dev, flush, gen)
         rows += check_sgd_dw_update_dense(torch, dev, flush, gen)
         rows += check_bp_fused_unit(torch, dev, flush, gen)
+        rows += check_engine_units(torch, dev, flush, gen)
         del flush
     if "edges" in phases:
         check_edges(torch, dev, gen)
@@ -1872,6 +2220,12 @@ def main(argv=None) -> int:
         train, train_par = train_runs(torch, dev)
         runs += train
         print(json.dumps({"train": train, "train_parity": train_par},
+                         default=str), flush=True)
+    if "train_lm" in phases:
+        lm_runs, lm_par = train_lm_runs(torch, dev), train_lm_parity(torch,
+                                                                     dev)
+        runs += lm_runs
+        print(json.dumps({"train_lm": lm_runs, "train_lm_parity": lm_par},
                          default=str), flush=True)
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the port pulled in jax or the JAX package")

@@ -9,8 +9,10 @@ under ``csrc/``, compiled by ``nvcc`` on first use (``_build``) and bound
 with ``ctypes``.  Each kernel wrapper runs its plain PyTorch version only for
 tensors on the CPU; a CUDA tensor launches the kernel or raises.
 
-Entry points (``launch.serve``) run on the card unless the caller asks for
-``device="cpu"``, and raise when CUDA is absent.
+Entry points (``launch.serve``, ``core.make_train_step``,
+``core.make_lenet_train_step``, ``models.lm.init_params``) run on the card
+unless the caller asks for ``device="cpu"``, and raise when CUDA is
+absent.
 """
 import torch
 

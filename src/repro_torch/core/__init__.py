@@ -1,6 +1,7 @@
-"""Training on the kernels (port of ``core/``).  So far the paper's LeNet-5
-step (``core.lenet``); the layer engine (``taxonn``, ``steps``) comes with
-the dense-engine slice."""
+"""Training on the kernels (port of ``core/``): the paper's LeNet-5 step
+(``core.lenet``) and the layer engine (``core.taxonn``: the G-chain with
+per-layer fused updates; ``core.steps``: the train step over the dense
+model family)."""
 from repro_torch.core.lenet import (
     LeNetBits,
     init_lenet_params,
@@ -10,8 +11,24 @@ from repro_torch.core.lenet import (
     make_lenet_train_step,
     params_from_numpy,
 )
+from repro_torch.core.steps import (
+    StepOptions,
+    default_bits,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from repro_torch.core.taxonn import (
+    QuantPolicy,
+    backward_stack,
+    default_bits_for,
+    forward_stack,
+)
 
 __all__ = [
-    "LeNetBits", "init_lenet_params", "lenet_bits", "lenet_bits_off",
-    "lenet_bits_table", "make_lenet_train_step", "params_from_numpy",
+    "LeNetBits", "QuantPolicy", "StepOptions", "backward_stack",
+    "default_bits", "default_bits_for", "forward_stack", "init_lenet_params",
+    "init_train_state", "lenet_bits", "lenet_bits_off", "lenet_bits_table",
+    "make_eval_step", "make_lenet_train_step", "make_train_step",
+    "params_from_numpy",
 ]

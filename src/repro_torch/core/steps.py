@@ -1,0 +1,270 @@
+"""Train/eval step builders: the TaxoNN engine against the autodiff baseline
+(port of ``core/steps.py``, dense family, single device).
+
+``make_train_step(cfg, policy, optim_cfg, options, device=None)`` returns
+
+    step(params, opt_state, batch, hyper, bits) -> (params, opt_state, metrics)
+
+engine="taxonn"   -- the paper's unrolled G-chain with per-layer fused
+                     updates (``core.taxonn``)
+engine="autodiff" -- autograd over the whole loss and one optimizer apply
+                     (the "conventional accelerator" baseline, and the
+                     engine's correctness oracle)
+
+``bits`` is a dict of BitSchedules keyed by stack name ("blocks"); they are
+runtime data, so one step object serves every schedule.  The step is
+functional: it returns new parameter and state trees and leaves its inputs
+as they were.  It runs on CUDA unless ``device`` names another device, and
+raises when CUDA is absent (``repro_torch.resolve_device``).  Pipeline
+execution, the overlap and transport options, ``bit_anneal`` and the resume
+hooks are not ported yet (ROADMAP A11, A10, A6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.taxonn import (QuantPolicy, backward_stack,
+                                     default_bits_for, forward_stack,
+                                     quantize_weight_tree)
+from repro_torch.kernels.ops import kernel_backend_ctx, resolve_backend
+from repro_torch.models import blocks as B
+from repro_torch.models import layers as L
+from repro_torch.models import lm
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import Hyper, OptimizerConfig, apply_update
+from repro_torch.optim import init_opt_state
+from repro_torch.util.tree import tree_leaves, tree_map, tree_unflatten
+
+AUX_COEF = lm.AUX_COEF
+
+STACK_KEYS = ("blocks", "enc_blocks")
+SHARED_KEYS = ("shared_attn",)
+
+
+# ---------------------------------------------------------------------------
+# Train state
+# ---------------------------------------------------------------------------
+
+def boundary_keys(params: dict):
+    return tuple(k for k in params
+                 if k not in STACK_KEYS and k not in SHARED_KEYS)
+
+
+def init_train_state(params: dict, optim_cfg: OptimizerConfig) -> dict:
+    """Optimizer state grouped like the params' top level, so the engine
+    can slice each stack's state per layer."""
+    return {k: init_opt_state(v, optim_cfg) for k, v in params.items()}
+
+
+def num_scan_units(cfg: ModelConfig) -> int:
+    """Engine-visible layers in the main stack."""
+    B._dense_only(cfg)
+    return cfg.num_layers
+
+
+def default_bits(cfg: ModelConfig, enabled: bool = True) -> dict:
+    return {"blocks": default_bits_for(num_scan_units(cfg), enabled)}
+
+
+# ---------------------------------------------------------------------------
+# The stack body and the boundary (embed / head) functions
+# ---------------------------------------------------------------------------
+
+def _make_body(cfg: ModelConfig, positions):
+    """body(params_slice, x, bits_l) -> (y, aux)."""
+    B._dense_only(cfg)
+
+    def body(p, x, b_l):
+        return B.transformer_block(p, x, cfg, positions)
+    return body
+
+
+def _embed_fn(cfg: ModelConfig, batch, policy: QuantPolicy, bits0):
+    """x0 from the boundary params; the embedding is quantized with the
+    first layer's weight format."""
+    def f(bnd):
+        emb = bnd["embed"]
+        if policy.quantize_weights:
+            emb = quantize_weight_tree(emb, bits0["w_i"], bits0["w_f"],
+                                       bits0["enabled"], True)
+        x0, _ = lm.embed_input({"embed": emb}, cfg, batch)
+        return x0
+    return f
+
+
+def _head_fn(cfg: ModelConfig, batch, policy: QuantPolicy, bits_last):
+    """(loss, metrics) from the boundary params and the stack's output; the
+    head weight (the tied embedding's transpose) is quantized with the last
+    layer's weight format."""
+    def f(bnd, xf):
+        x = L.apply_norm(bnd["final_norm"], xf, cfg)
+        w = bnd["embed"].T if cfg.tie_embeddings else bnd["lm_head"]
+        if policy.quantize_weights:
+            w = quantize_weight_tree(w, bits_last["w_i"], bits_last["w_f"],
+                                     bits_last["enabled"], True)
+        return lm.ce_from_weight(w, cfg, x, batch["labels"])
+    return f
+
+
+def _bits_edge(bits, idx) -> dict:
+    return {"w_i": bits.w_i[idx], "w_f": bits.w_f[idx],
+            "a_i": bits.a_i[idx], "a_f": bits.a_f[idx],
+            "g_i": bits.g_i[idx], "g_f": bits.g_f[idx],
+            "enabled": bits.enabled}
+
+
+def _grad_leaves(outputs, tree, seeds):
+    """Autograd of ``outputs`` (seeded by ``seeds``) into every leaf of
+    ``tree``, zeros where a leaf is not reached, as a tree."""
+    leaves = tree_leaves(tree)
+    grads = torch.autograd.grad(outputs, leaves, seeds, allow_unused=True)
+    return tree_unflatten(tree, [torch.zeros_like(w) if g is None else g
+                                 for g, w in zip(grads, leaves)])
+
+
+def _requires_grad(tree):
+    return tree_map(lambda w: w.detach().requires_grad_(), tree)
+
+
+def _sq_sum(tree, like: torch.Tensor) -> torch.Tensor:
+    total = torch.zeros((), dtype=torch.float32, device=like.device)
+    for g in tree_leaves(tree):
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The train step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StepOptions:
+    """Everything that selects how a train step executes.  ``None`` for
+    ``kernel_backend`` defers to the policy.  (The JAX package's pipeline,
+    overlap, transport and bit-anneal fields come with the slices that run
+    them: ROADMAP A11, A10.)"""
+
+    engine: str = "taxonn"
+    kernel_backend: Optional[str] = None
+
+    def __post_init__(self):
+        if self.engine not in ("taxonn", "autodiff"):
+            raise ValueError(f"engine must be 'taxonn' or 'autodiff', "
+                             f"got {self.engine!r}")
+        if self.kernel_backend not in (None, "off", "emulate", "int8", "auto"):
+            raise ValueError(f"kernel_backend must be 'off', 'emulate', "
+                             f"'int8' or 'auto', got {self.kernel_backend!r}")
+
+
+def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
+                    optim_cfg: Optional[OptimizerConfig] = None,
+                    options: Optional[StepOptions] = None, *, device=None):
+    """Build the train step described by ``options`` (a ``StepOptions``)
+    for ``device`` (CUDA unless named).  ``kernel_backend`` "auto" means
+    int8 on CUDA and off on the CPU.  (The JAX package's legacy per-knob
+    keywords are not ported.)"""
+    options = options or StepOptions()
+    dev = resolve_device(device)
+    B._dense_only(cfg)
+    policy = policy or QuantPolicy.off()
+    optim_cfg = optim_cfg or OptimizerConfig()
+    backend = resolve_backend(
+        options.kernel_backend if options.kernel_backend is not None
+        else policy.kernel_backend, dev)
+    if options.engine == "autodiff":
+        step = _autodiff_step(cfg, optim_cfg, dev)
+    else:
+        step = _taxonn_step(cfg, policy, optim_cfg, dev)
+
+    def run(params, opt_state, batch, hyper: Hyper, bits=None):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        with kernel_backend_ctx(backend, dev):
+            return step(params, opt_state, batch, hyper, bits)
+
+    run.backend, run.device = backend, dev
+    return run
+
+
+def _autodiff_step(cfg, optim_cfg, dev):
+    def step(params, opt_state, batch, hyper, bits=None):
+        pg = _requires_grad(params)
+        with torch.enable_grad():
+            loss, metrics = lm.loss_fn(pg, cfg, batch)
+            grads = _grad_leaves([loss], pg, None)
+        gsq = _sq_sum(grads, loss)
+        new_params, new_opt = {}, {}
+        for k in params:  # grouped like the engine's state layout
+            new_params[k], new_opt[k] = apply_update(
+                params[k], grads[k], opt_state[k], hyper, optim_cfg)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = torch.sqrt(gsq)
+        return new_params, new_opt, metrics
+    return step
+
+
+def _taxonn_step(cfg, policy, optim_cfg, dev):
+    scale = policy.grad_scale
+
+    def step(params, opt_state, batch, hyper, bits):
+        main_bits = bits["blocks"].to(dev)
+        bnd = {k: params[k] for k in boundary_keys(params)}
+        tokens = batch["tokens"]
+        bsz, tlen = tokens.shape
+        positions = torch.arange(tlen, device=dev).expand(bsz, tlen)
+
+        # ---- embed, kept under autograd for the input-side gradient -----
+        bnd_g = _requires_grad(bnd)
+        with torch.enable_grad():
+            x0 = _embed_fn(cfg, batch, policy, _bits_edge(main_bits, 0))(
+                bnd_g)
+
+        # ---- main stack forward, caching quantized X_i -------------------
+        body = _make_body(cfg, positions)
+        x_final, caches, aux_sum = forward_stack(
+            body, params["blocks"], x0.detach(), main_bits, policy)
+
+        # ---- head (loss), seeded with grad_scale --------------------------
+        head_f = _head_fn(cfg, batch, policy, _bits_edge(main_bits, -1))
+        with torch.enable_grad():
+            xf = x_final.detach().requires_grad_()
+            loss, metrics = head_f(bnd_g, xf)
+            seed = torch.tensor(scale, dtype=torch.float32, device=dev)
+            d_bnd_head = _grad_leaves([loss], {"b": bnd_g, "x": xf}, [seed])
+        G_final = d_bnd_head.pop("x")
+        d_bnd_head = d_bnd_head["b"]
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["aux"] = aux_sum
+        metrics["loss_total"] = metrics["loss"] + AUX_COEF * aux_sum
+
+        # ---- the G-chain: reverse loop with fused per-layer updates ------
+        G_in, new_blocks, new_blocks_opt, gsq = backward_stack(
+            body, params["blocks"], opt_state["blocks"], caches, main_bits,
+            G_final, hyper, policy, optim_cfg, AUX_COEF)
+        new_params, new_opt = dict(params), dict(opt_state)
+        new_params["blocks"], new_opt["blocks"] = new_blocks, new_blocks_opt
+
+        # ---- boundary updates (embed: head + input contributions) --------
+        with torch.enable_grad():
+            d_bnd_embed = _grad_leaves([x0], bnd_g, [G_in.to(x0.dtype)])
+        d_bnd = tree_map(lambda a, b: (a.to(torch.float32)
+                                       + b.to(torch.float32)) / scale,
+                         d_bnd_head, d_bnd_embed)
+        for k in bnd:
+            new_params[k], new_opt[k] = apply_update(
+                bnd[k], d_bnd[k], opt_state[k], hyper, optim_cfg)
+            gsq = gsq + _sq_sum(d_bnd[k], gsq)
+        metrics["grad_norm"] = torch.sqrt(gsq)
+        return new_params, new_opt, metrics
+    return step
+
+
+def make_eval_step(cfg: ModelConfig):
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = lm.loss_fn(params, cfg, batch)
+        return metrics
+    return eval_step

@@ -1,0 +1,223 @@
+"""The TaxoNN engine: SGD unrolled into an explicit per-layer G-chain (port
+of ``core/taxonn.py``, single device, blocking path).
+
+The paper's Eq. (2)-(9): back-propagation is not autograd over the whole
+model but an explicit reverse loop over layers whose carry is the paper's
+G vector:
+
+    G_i = (G_{i+1} @ W_{i+1}) * f'_i          (Eq. 8)
+    dE/dW_i = G_i  (x)  X_i                   (Eq. 9)
+    W_i <- W_i - alpha * dE/dW_i              (Eq. 1, fused: step 4)
+
+at layer granularity: each iteration takes a local VJP of one layer's body
+at its cached (quantized) input X_i, quantizes the outgoing G and applies
+that layer's update at once, so the whole-model gradient never exists
+(gradient lifetime = one layer, the paper's pipeline in Fig. 3).
+
+Memory discipline: the forward runs without autograd and keeps only each
+layer's quantized input X_i; everything else (pre-activations, f') is
+recomputed in the backward from X_i -- the paper's activation derivation
+unit executed on the fly.
+
+The JAX package runs both passes as ``lax.scan`` over stacked [L, ...]
+leaves; here they are Python loops over layer views of the same stacked
+leaves, and the X_i caches are a list.  The dense body has no operand
+shared across layers, so the JAX package's ``shared`` arguments (hybrid's
+tied attention block, encdec's encoder output) come with those families
+(A9).  The JAX package's options for the multi-device engine (the dW
+all-reduce, its codec, overlap and transports: A11), the bit anneal (A10)
+and the engine's stochastic rounding (A6) are not fields of the port's
+``QuantPolicy`` yet: each comes with the slice that runs it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.optim import Hyper, OptimizerConfig, apply_update
+from repro_torch.quant.fixed_point import (BitSchedule, make_bit_schedule,
+                                           maybe_quantize, quantize_ste)
+from repro_torch.util.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """Which tensor classes get the per-layer (I,F) treatment (static)."""
+
+    quantize_weights: bool = True
+    quantize_acts: bool = True
+    quantize_grads: bool = True
+    quantize_updates: bool = False   # strict paper mode: q(alpha*dW)
+    grad_scale: float = 1.0          # loss scaling for the low-bit G chain
+    # the dense-unit datapath: "off" (plain PyTorch), "emulate" (the
+    # kernels, f32), "int8" (int8 operands, int32 sums), "auto" (off on
+    # the CPU, int8 on CUDA)
+    kernel_backend: str = "auto"
+
+    @staticmethod
+    def off() -> "QuantPolicy":
+        return QuantPolicy(quantize_weights=False, quantize_acts=False,
+                           quantize_grads=False)
+
+
+def default_bits_for(num_units: int, enabled: bool = True) -> BitSchedule:
+    """Paper-style default: (2,12) weights/grads, (4,10) acts, ramped tail."""
+    return make_bit_schedule(num_units, weight=(2, 12), act=(4, 10),
+                             grad=(2, 12), enabled=enabled)
+
+
+# ---------------------------------------------------------------------------
+# Quantization helpers (leaf policies)
+# ---------------------------------------------------------------------------
+
+def _is_matmul_leaf(w: torch.Tensor) -> bool:
+    """Quantize matmul weights; keep vector params (norm scales) at full
+    precision -- the paper's wide accumulator registers.  Applied to one
+    layer's slice, so ``bq`` [H, hd] counts as a matrix."""
+    return w.dim() >= 2
+
+
+def quantize_weight_tree(tree, w_i, w_f, enabled, on: bool):
+    if not on:
+        return tree
+    return tree_map(
+        lambda w: maybe_quantize(w, w_i, w_f, enabled)
+        if _is_matmul_leaf(w) else w, tree)
+
+
+def _blend_quant(x: torch.Tensor, i_bits, f_bits, enabled) -> torch.Tensor:
+    """enabled * q(x) + (1 - enabled) * x in f32, cast back to x's dtype:
+    a blend, not a branch, so one step serves every schedule."""
+    xf = x.to(torch.float32)
+    q = quantize_ste(xf, i_bits, f_bits)
+    return (enabled * q + (1.0 - enabled) * xf).to(x.dtype)
+
+
+def _quant_grad(g: torch.Tensor, g_i, g_f, enabled,
+                policy: QuantPolicy) -> torch.Tensor:
+    """The G-chain's per-layer ``G <- q(G)`` (Eq. 8's low-bit signal)."""
+    if not policy.quantize_grads:
+        return g
+    return _blend_quant(g, g_i, g_f, enabled)
+
+
+def quantize_update(g: torch.Tensor, b_l: dict, enabled,
+                    policy: QuantPolicy, hyper: Hyper) -> torch.Tensor:
+    """Strict-paper mode: ``q(alpha * dW)`` in the layer's gradient (I,F)
+    format, returned in the dW domain (divided back by lr) so the
+    optimizer applies it unchanged."""
+    if not policy.quantize_updates:
+        return g
+    upd = hyper.lr * g
+    updq = quantize_ste(upd, b_l["g_i"], b_l["g_f"])
+    upd = enabled * updq + (1.0 - enabled) * upd
+    lr = hyper.lr
+    lr = torch.clamp_min(lr, 1e-20) if isinstance(lr, torch.Tensor) \
+        else max(lr, 1e-20)
+    return upd / lr
+
+
+def _bits_layer(bits: BitSchedule, i: int) -> dict:
+    """Layer i's bitwidths as the body's ``b_l`` dict."""
+    return {k: getattr(bits, k)[i]
+            for k in ("w_i", "w_f", "a_i", "a_f", "g_i", "g_f")}
+
+
+def _slice(tree, i: int):
+    return tree_map(lambda a: a[i], tree)
+
+
+def _num_units(stacked) -> int:
+    return int(tree_leaves(stacked)[0].shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Forward: the stack, caching the quantized layer inputs (the X_i registers)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
+                  bits: BitSchedule, policy: QuantPolicy):
+    """body_fn(params_slice, x, bits_layer) -> (y, aux).
+
+    Returns (x_final, caches, aux_sum): ``caches[i]`` is layer i's
+    *quantized* input, exactly what the backward re-linearises at, so the
+    forward and backward see the same numerics.  Runs without autograd.
+    """
+    enabled = bits.enabled
+    x, caches, aux_sum = x0, [], None
+    for i in range(_num_units(stacked)):
+        b_l = _bits_layer(bits, i)
+        xq = (_blend_quant(x, b_l["a_i"], b_l["a_f"], enabled)
+              if policy.quantize_acts else x)
+        wq = quantize_weight_tree(_slice(stacked, i), b_l["w_i"],
+                                  b_l["w_f"], enabled,
+                                  policy.quantize_weights)
+        x, aux = body_fn(wq, xq, b_l)
+        caches.append(xq)
+        aux_sum = aux if aux_sum is None else aux_sum + aux
+    return x, caches, aux_sum
+
+
+# ---------------------------------------------------------------------------
+# Backward: the G-chain, reverse over layers, with the fused update
+# ---------------------------------------------------------------------------
+
+def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
+                   bits: BitSchedule, G_out: torch.Tensor, hyper: Hyper,
+                   policy: QuantPolicy, optim_cfg: OptimizerConfig,
+                   aux_coef: float):
+    """The reverse loop over layers.  Per layer (the paper's steps 1-4 in
+    one TDM frame):
+
+      1. re-linearise the layer body at (q(W_i), X_i) under autograd;
+      2. dW_i, G_i <- the VJP seeded by G_{i+1};
+      3. G_i <- q(G_i), the low-bit backward signal sent upstream;
+      4. W_i <- W_i - lr * dW_i at once, before layer i-1's VJP starts.
+
+    Gradient scale: ``G_out`` arrives scaled by ``policy.grad_scale``; dW is
+    un-scaled just before the update, G stays scaled.
+
+    Returns (G_in, new_stacked, new_opt, grad_sq_sum).
+    """
+    enabled = bits.enabled
+    inv_scale = 1.0 / policy.grad_scale
+    new_stacked = tree_map(torch.empty_like, stacked)
+    new_opt = tree_map(torch.empty_like, opt_stacked)
+    gsq = torch.zeros((), dtype=torch.float32, device=G_out.device)
+    aux_seed = torch.tensor(aux_coef * policy.grad_scale, dtype=torch.float32,
+                            device=G_out.device)
+    G = G_out
+    for i in reversed(range(_num_units(stacked))):
+        b_l = _bits_layer(bits, i)
+        p_l = _slice(stacked, i)
+        with torch.enable_grad():
+            pw = tree_map(lambda w: w.detach().requires_grad_(), p_l)
+            xx = caches[i].detach().requires_grad_()
+            wq = quantize_weight_tree(pw, b_l["w_i"], b_l["w_f"], enabled,
+                                      policy.quantize_weights)
+            y, aux = body_fn(wq, xx, b_l)
+            outs, seeds = [y], [G.to(y.dtype)]
+            if aux.requires_grad:
+                outs.append(aux)
+                seeds.append(aux_seed)
+            wrt = tree_leaves(pw) + [xx]
+            grads = torch.autograd.grad(outs, wrt, seeds, allow_unused=True)
+        grads = [torch.zeros_like(w) if g is None else g
+                 for g, w in zip(grads, wrt)]
+        with torch.no_grad():
+            dW = tree_unflatten(pw, [g.to(torch.float32) * inv_scale
+                                     for g in grads[:-1]])
+            G = _quant_grad(grads[-1], b_l["g_i"], b_l["g_f"], enabled,
+                            policy)
+            dW = tree_map(lambda g: quantize_update(g, b_l, enabled, policy,
+                                                    hyper), dW)
+            new_p, new_o = apply_update(p_l, dW, _slice(opt_stacked, i),
+                                        hyper, optim_cfg)
+            tree_map(lambda dst, src: dst[i].copy_(src), new_stacked, new_p)
+            tree_map(lambda dst, src: dst[i].copy_(src), new_opt, new_o)
+            for g in tree_leaves(dW):
+                gsq = gsq + torch.sum(torch.square(g))
+    return G, new_stacked, new_opt, gsq

@@ -127,27 +127,36 @@ __device__ __forceinline__ float kq(float x, const Bits& b) {
   return k * b.step;
 }
 
-// The derivation unit f'(z) (kernels/common.py::act_deriv).
+// The derivation unit f'(z) (kernels/common.py::act_deriv), one rounding
+// per PyTorch op of the plain version, so nvcc contracts nothing into an
+// FMA that PyTorch rounds twice (a reciprocal times 1 is the division;
+// python scalars are f32 there).
 __device__ __forceinline__ float act_deriv(float z, int act) {
   switch (act) {
     case 1: return z > 0.0f ? 1.0f : 0.0f;
     case 2: {
-      float s = 1.0f / (1.0f + expf(-z));
-      return s * (1.0f - s);
+      const float s = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z)));
+      return __fmul_rn(s, __fsub_rn(1.0f, s));
     }
     case 3: {
-      float t = tanhf(z);
-      return 1.0f - t * t;
+      const float t = tanhf(z);
+      return __fsub_rn(1.0f, __fmul_rn(t, t));
     }
     case 4: {
-      float s = 1.0f / (1.0f + expf(-z));
-      return s * (1.0f + z * (1.0f - s));
+      const float s = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z)));
+      return __fmul_rn(s, __fadd_rn(1.0f, __fmul_rn(z, __fsub_rn(1.0f, s))));
     }
     case 5: {
-      float u = 0.7978845608028654f * (z + 0.044715f * z * z * z);
-      float t = tanhf(u);
-      float du = 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * z * z);
-      return 0.5f * (1.0f + t) + 0.5f * z * (1.0f - t * t) * du;
+      constexpr float C = 0.7978845608028654f, A = 0.044715f;
+      constexpr float A3 = (float)(3.0 * 0.044715);
+      const float z3 = __fmul_rn(__fmul_rn(__fmul_rn(A, z), z), z);
+      const float t = tanhf(__fmul_rn(C, __fadd_rn(z, z3)));
+      const float du =
+          __fmul_rn(C, __fadd_rn(1.0f, __fmul_rn(__fmul_rn(A3, z), z)));
+      const float left = __fmul_rn(0.5f, __fadd_rn(1.0f, t));
+      const float right = __fmul_rn(
+          __fmul_rn(__fmul_rn(0.5f, z), __fsub_rn(1.0f, __fmul_rn(t, t))), du);
+      return __fadd_rn(left, right);
     }
     default: return 1.0f;
   }

@@ -116,15 +116,20 @@ __device__ __forceinline__ float kq(float x, const Bits& b) {
   return k * b.step;
 }
 
+// The activation unit (kernels/common.py::act_fn), one rounding per
+// PyTorch op of the plain version, so nvcc contracts nothing into an FMA
+// that PyTorch rounds twice (python scalars are f32 there).
 __device__ __forceinline__ float act_fn(float z, int act) {
   switch (act) {
     case 1: return fmaxf(z, 0.0f);
-    case 2: return 1.0f / (1.0f + expf(-z));
+    case 2: return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-z)));
     case 3: return tanhf(z);
-    case 4: return z / (1.0f + expf(-z));
+    case 4: return __fdiv_rn(z, __fadd_rn(1.0f, expf(-z)));
     case 5: {
-      float u = 0.7978845608028654f * (z + 0.044715f * z * z * z);
-      return 0.5f * z * (1.0f + tanhf(u));
+      constexpr float C = 0.7978845608028654f, A = 0.044715f;
+      const float z3 = __fmul_rn(__fmul_rn(__fmul_rn(A, z), z), z);
+      const float t = tanhf(__fmul_rn(C, __fadd_rn(z, z3)));
+      return __fmul_rn(__fmul_rn(0.5f, z), __fadd_rn(1.0f, t));
     }
     default: return z;
   }

@@ -1,4 +1,5 @@
 """Data for the port (see ``data.pipeline``)."""
-from repro_torch.data.pipeline import SyntheticClassificationDataset
+from repro_torch.data.pipeline import (SyntheticClassificationDataset,
+                                       SyntheticLMDataset)
 
-__all__ = ["SyntheticClassificationDataset"]
+__all__ = ["SyntheticClassificationDataset", "SyntheticLMDataset"]

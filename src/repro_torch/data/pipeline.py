@@ -1,15 +1,49 @@
-"""Synthetic classification data (a numpy copy of the JAX package's
-``data/pipeline.py::SyntheticClassificationDataset``).
+"""Synthetic data (a numpy copy of the JAX package's ``data/pipeline.py``
+classes ``SyntheticLMDataset`` and ``SyntheticClassificationDataset``).
 
-The same seeds give the same arrays as the JAX package's class, so the card
-and the CPU tests see the same batches.  The LM token stream and the
-straggler-tolerant loader come with the train driver.
+The same seeds give the same arrays as the JAX package's classes, so the
+card and the CPU tests see the same batches.  The straggler-tolerant loader
+comes with the train driver.
 """
 from __future__ import annotations
 
 from typing import Iterator
 
 import numpy as np
+
+
+class SyntheticLMDataset:
+    """Deterministic synthetic token stream with learnable structure:
+    tokens follow a noisy Markov chain (x_{t+1} = (a*x_t + b) % V, replaced
+    by a random token with probability ``noise``), so cross-entropy is
+    reducible.  ``batch_at(step)`` is a pure function of (seed, step,
+    shard_id)."""
+
+    def __init__(self, vocab_size: int, seq_len: int, global_batch: int,
+                 seed: int = 0, shard_id: int = 0, num_shards: int = 1,
+                 noise: float = 0.1):
+        assert global_batch % num_shards == 0
+        self.vocab = vocab_size
+        self.seq = seq_len
+        self.local_batch = global_batch // num_shards
+        self.seed = seed
+        self.shard = shard_id
+        self.noise = noise
+        self.a = 31
+        self.b = 17
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + step) * 65_537 + self.shard)
+        x0 = rng.integers(0, self.vocab, size=(self.local_batch, 1))
+        toks = [x0]
+        for _ in range(self.seq):
+            nxt = (toks[-1] * self.a + self.b) % self.vocab
+            flip = rng.random((self.local_batch, 1)) < self.noise
+            rand = rng.integers(0, self.vocab, size=(self.local_batch, 1))
+            toks.append(np.where(flip, rand, nxt))
+        seq = np.concatenate(toks, axis=1).astype(np.int32)
+        return {"tokens": seq[:, :-1], "labels": seq[:, 1:]}
 
 
 class SyntheticClassificationDataset:

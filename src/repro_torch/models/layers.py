@@ -1,12 +1,12 @@
-"""Dense-family layers for serving (port of the dense subset of
-``models/layers.py``): norms, RoPE, the forward of the kernel-datapath dense
-unit, GQA attention projections and the MLP.
+"""Dense-family layers (port of the dense subset of ``models/layers.py``):
+norms, RoPE, the kernel-datapath dense unit with its backward, full-sequence
+GQA attention (materialised or chunked online softmax), the attention
+projections that serving uses, and the MLP.
 
 Parameters are nested dicts of tensors in the JAX package's layout (``wq``
 [D, H, hd], ``wo`` [H, hd, D], ...).  Initializers draw from an explicit
 ``torch.Generator`` on the target device; they match the JAX package's
-shapes and distributions, not its random bits.  Serving needs no gradient,
-so the dense unit is forward only here.
+shapes and distributions, not its random bits.
 """
 from __future__ import annotations
 
@@ -15,8 +15,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.common import act_fn
+from repro_torch.kernels.common import act_deriv, act_fn
 from repro_torch.models.config import ModelConfig
+
+ATTN_CHUNK_THRESHOLD = 8192   # online-softmax over KV blocks above this T
+ATTN_KV_BLOCK = 1024
 
 NEG_INF = -1e30  # additive mask value (finite: no NaN in masked rows)
 
@@ -79,8 +82,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# The kernel-datapath dense unit (forward)
+# The kernel-datapath dense unit (the TaxoNN PE array as an autograd op)
 # ---------------------------------------------------------------------------
+#
+# ``dense_unit(x, w, act)`` computes act(x @ w) on the kernel datapath of
+# the active backend (``kops``): the forward is ``fxp_matmul``; the backward
+# is ``bp_gstep`` (dx, Eq. 8's matmul leg) and the dW-only form of
+# ``sgd_dw_update`` (Eq. 9).  The engine's STE wrappers own the (I,F) grid
+# around this op, so the unit itself stays format-agnostic.  With the
+# backend "off" the unit is plain PyTorch under autograd.
+
+class _DenseUnit(torch.autograd.Function):
+    """The JAX package's custom VJP of ``_dense_unit``: z is kept only for
+    a non-identity activation; dz = dy·f'(z) in f32; dx is cast to x's
+    dtype and dW to w's.  Autograd is off inside both methods, so the
+    kernel calls record no graph."""
+
+    @staticmethod
+    def forward(ctx, x, w, act, backend):
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1]).contiguous()
+        z = kops.dense_fwd(x2, w, backend)                   # f32 [M, N]
+        y = act_fn(z, act).to(x.dtype).reshape(shape[:-1] + (w.shape[1],))
+        # z is a per-layer residual: under the engine's recompute-per-layer
+        # backward it lives for one layer only
+        ctx.save_for_backward(x2, w, z if act != "identity" else None)
+        ctx.act, ctx.backend, ctx.shape = act, backend, shape
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w, z = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1]).to(torch.float32).contiguous()
+        dz = dy2 if z is None else dy2 * act_deriv(z, ctx.act)
+        dx = kops.dense_bwd_dx(dz, w, ctx.backend)           # Eq. 8 leg
+        dw = kops.dense_bwd_dw(x2, dz, ctx.backend)          # Eq. 9
+        return dx.reshape(ctx.shape).to(x2.dtype), dw.to(w.dtype), None, None
+
 
 def dense_unit(x: torch.Tensor, w: torch.Tensor, act: str = "identity",
                backend: Optional[str] = None) -> torch.Tensor:
@@ -89,9 +127,7 @@ def dense_unit(x: torch.Tensor, w: torch.Tensor, act: str = "identity",
     if backend == "off":
         return act_fn((x @ w.to(x.dtype)).to(torch.float32),
                       act).to(x.dtype)
-    shape = x.shape
-    z = kops.dense_fwd(x.reshape(-1, shape[-1]), w, backend)   # f32 [M, N]
-    return act_fn(z, act).to(x.dtype).reshape(shape[:-1] + (w.shape[1],))
+    return _DenseUnit.apply(x, w.contiguous(), act, backend)
 
 
 def _proj3(x: torch.Tensor, w3: torch.Tensor, backend: str) -> torch.Tensor:
@@ -178,6 +214,103 @@ def _masked_wo(params, cfg: ModelConfig, dt) -> torch.Tensor:
     if mask is not None:
         wo = wo * mask[:, None, None]
     return wo
+
+
+def _attn_mask(t_q: int, t_kv: int, causal: bool, window: Optional[int],
+               q_offset: int = 0, device=None) -> torch.Tensor:
+    """Additive mask [t_q, t_kv]; query i sits at position i + q_offset."""
+    qpos = torch.arange(t_q, device=device)[:, None] + q_offset
+    kpos = torch.arange(t_kv, device=device)[None, :]
+    ok = torch.ones((t_q, t_kv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def _sdpa_full(q, k, v, mask, scale) -> torch.Tensor:
+    """Softmax attention with the scores materialised, in the reference's
+    order: f32 scores, additive mask, softmax, probs cast to q's dtype.
+    q, k, v: [B, T, H, hd]."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    scores = scores + mask[None, None]
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _sdpa_chunked(q, k, v, causal, window, scale) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ATTN_KV_BLOCK (memory
+    O(T * block), not O(T^2)).  K and V head dims may differ."""
+    b, t, h, hd = q.shape
+    dv = v.shape[-1]
+    blk = min(ATTN_KV_BLOCK, t)
+    nblk = (t + blk - 1) // blk
+    pad = nblk * blk - t
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qpos = torch.arange(t, device=q.device)[:, None]
+    qf = q.to(torch.float32)
+    acc = torch.zeros((b, t, h, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h, t), NEG_INF, dtype=torch.float32, device=q.device)
+    lse = torch.zeros((b, h, t), dtype=torch.float32, device=q.device)
+    for i in range(nblk):
+        kblk, vblk = k[:, i * blk:(i + 1) * blk], v[:, i * blk:(i + 1) * blk]
+        kpos = i * blk + torch.arange(blk, device=q.device)[None, :]
+        ok = kpos < t
+        if causal:
+            ok = ok & (kpos <= qpos)
+        if window is not None:
+            ok = ok & (kpos > qpos - window)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kblk.to(torch.float32)) * scale
+        s = s + torch.where(ok, 0.0, NEG_INF)[None, None]
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        lse = lse * corr + torch.sum(p, dim=-1)
+        pv = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).to(torch.float32),
+                          vblk.to(torch.float32))
+        acc = acc * corr.transpose(1, 2)[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(lse, 1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def attention(params, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor, causal: bool = True,
+              return_kv: bool = False):
+    """Full-sequence attention (training / prefill). x: [B, T, D].
+
+    ``return_kv=True`` also returns the rotated K/V before GQA expansion.
+    Scores are plain tensor products outside any kernel; the chunked path
+    runs above ATTN_CHUNK_THRESHOLD tokens (the reference's ``flash_attn``
+    perf option is not ported).
+    """
+    dt = x.dtype
+    b, t, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    groups = q.shape[2] // cfg.num_kv_heads
+    kx, vx = _expand_kv(k, groups), _expand_kv(v, groups)
+    scale = cfg.head_dim ** -0.5
+    if t > ATTN_CHUNK_THRESHOLD:
+        out = _sdpa_chunked(q, kx, vx, causal, cfg.swa_window, scale)
+    else:
+        mask = _attn_mask(t, t, causal, cfg.swa_window, device=x.device)
+        out = _sdpa_full(q, kx, vx, mask, scale)
+    wo = _masked_wo(params, cfg, dt)
+    backend = kops.current_backend()
+    if backend != "off":
+        # the output projection on the kernel datapath
+        h_, hd_, d_ = wo.shape
+        y = dense_unit(out.reshape(b, t, h_ * hd_), wo.reshape(h_ * hd_, d_),
+                       "identity", backend)
+    else:
+        y = torch.einsum("bthk,hkd->btd", out, wo)
+    if return_kv:
+        return y, (k, v)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Model parameters for the dense family (port of the serving subset of
-``models/lm.py``).
+"""Model assembly for the dense family (port of the dense subset of
+``models/lm.py``): parameters, the embedding, the layer stack, the chunked
+cross-entropy head and the loss.
 
 Parameters are a nested dict of tensors in the JAX package's layout: the
 ``blocks`` leaves are stacked on a leading layer axis, so ``wq`` is
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import blocks as B
@@ -28,9 +30,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random f32 master weights for the dense family, drawn from a
     ``torch.Generator`` on ``device`` seeded with ``seed`` (CUDA unless the
     caller names another; raises when CUDA is absent)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port covers the dense family so far, not {cfg.family}")
+    B._dense_only(cfg)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     D, V = cfg.d_model, cfg.vocab_size
@@ -67,3 +67,99 @@ def layer_params(blocks: dict, i: int) -> dict:
     """Layer ``i``'s parameters: views into the stacked ``blocks`` leaves."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
+
+
+# ---------------------------------------------------------------------------
+# Training: embedding, stack, chunked CE head, loss
+# ---------------------------------------------------------------------------
+
+AUX_COEF = 0.01  # MoE load-balance coefficient (the dense aux is zero)
+
+
+def embed_input(params, cfg: ModelConfig, batch: dict):
+    """Returns (x0 [B, T, D] in the compute dtype, positions [B, T])."""
+    tokens = batch["tokens"].long()
+    x = params["embed"].to(compute_dtype(cfg))[tokens]
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    b, t = x.shape[0], x.shape[1]
+    positions = torch.arange(t, device=x.device).expand(b, t)
+    return x, positions
+
+
+def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """The main stack, layer by layer. Returns (x_final, aux_sum)."""
+    auxs = []
+    for i in range(cfg.num_layers):
+        x, aux = B.transformer_block(layer_params(params["blocks"], i), x,
+                                     cfg, positions)
+        auxs.append(aux)
+    return x, torch.sum(torch.stack(auxs))
+
+
+def ce_loss_head(params, cfg: ModelConfig, x: torch.Tensor,
+                 labels: torch.Tensor):
+    """Chunked CE over the sequence axis; labels [B, T], -1 = ignore."""
+    return ce_from_weight(head_weight(params, cfg), cfg, x, labels)
+
+
+def _ce_chunk(xch, lch, w):
+    """(sum of per-token CE, count of valid tokens) of one chunk."""
+    logits = (xch @ w.to(xch.dtype)).to(torch.float32)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    sumexp = torch.sum(torch.exp(logits - m), dim=-1, dtype=torch.float32)
+    lse = torch.log(sumexp) + m[..., 0]
+    tgt = torch.gather(logits, -1, torch.clamp_min(lch, 0)[..., None])[..., 0]
+    valid = (lch >= 0).to(torch.float32)
+    return torch.sum((lse - tgt) * valid), torch.sum(valid)
+
+
+def ce_from_weight(w: torch.Tensor, cfg: ModelConfig, x: torch.Tensor,
+                   labels: torch.Tensor):
+    """CE head given an explicit [D, V] output weight (the engine
+    differentiates the head on its own).  Chunked over T by
+    ``cfg.logit_chunk``; each chunk runs under activation checkpointing, so
+    its [B, C, V] logits exist only while that chunk runs, forward or
+    backward.  Returns (loss, metrics)."""
+    bsz, t, _ = x.shape
+    c = min(cfg.logit_chunk, t)
+    n = (t + c - 1) // c
+    pad = n * c - t
+    labels = labels.long()
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        s, k = torch.utils.checkpoint.checkpoint(
+            _ce_chunk, x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
+            w, use_reentrant=False)
+        tot, cnt = tot + s, cnt + k
+    loss = tot / torch.clamp_min(cnt, 1.0)
+    return loss, {"loss": loss, "tokens": cnt}
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict):
+    """The autodiff path's training loss (the baseline that the TaxoNN
+    engine is validated against).  Returns (total, metrics)."""
+    x, positions = embed_input(params, cfg, batch)
+    x, aux = apply_stack(params, cfg, x, positions)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    loss, metrics = ce_loss_head(params, cfg, x, batch["labels"])
+    metrics["aux"] = aux
+    return loss + AUX_COEF * aux, metrics
+
+
+def forward_hidden(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Forward to the final hidden states (after the final norm)."""
+    x, positions = embed_input(params, cfg, batch)
+    x, _ = apply_stack(params, cfg, x, positions)
+    return L.apply_norm(params["final_norm"], x, cfg)
+
+
+def last_token_logits(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    x = forward_hidden(params, cfg, batch)
+    w = head_weight(params, cfg)
+    return (x[:, -1, :] @ w.to(x.dtype)).to(torch.float32)

@@ -70,6 +70,44 @@ def test_serve_entry_point_raises_without_cuda():
         serve.main(["--reduced", "--requests", "1", "--max-new", "1"])
 
 
+@pytest.mark.parametrize("entry", ["make_train_step", "init_params"])
+def test_train_entry_points_raise_without_cuda(entry):
+    """The layer engine's step and the model initializer run on CUDA unless
+    the caller names another device; without CUDA they raise, and with
+    device="cpu" they run."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device would run")
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_train_step
+    from repro_torch.models import lm
+    cfg = get_config("qwen1.5-0.5b")
+    small = cfg.__class__(**{**cfg.__dict__, "num_layers": 1, "d_model": 64,
+                             "num_heads": 2, "num_kv_heads": 2, "d_ff": 64,
+                             "vocab_size": 64, "head_dim": None})
+    fn = {"make_train_step": lambda **kw: make_train_step(small, **kw),
+          "init_params": lambda **kw: lm.init_params(small, **kw)}[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fn()
+    fn(device="cpu")
+
+
+def test_run_smoke_tree_passes_the_arguments_after_the_dashes(tmp_path):
+    """tools/run_smoke_tree.py hands what follows "--" to the other tree's
+    chip_smoke.py, with --known given after the tree."""
+    (tmp_path / "chip_smoke.py").write_text(
+        "class SmokeFailure(Exception): pass\n"
+        "def say(m): print(m)\n"
+        "def require(c, m): pass\n"
+        "def main(argv): print('ARGV', argv); return 0\n")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "run_smoke_tree.py"),
+         str(tmp_path), "--known", "edge C2", "--", "--phases",
+         "device,build"], env=_clean_env(), cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "ARGV ['--phases', 'device,build']" in out.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
                          env=_clean_env(), cwd=ROOT, capture_output=True,

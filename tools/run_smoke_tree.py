@@ -26,11 +26,10 @@ def main(argv=None) -> int:
     ap.add_argument("tree", help="root of the tree whose chip_smoke.py runs")
     ap.add_argument("--known", action="append", default=[],
                     help="message prefix of a failure to report, not stop at")
-    ap.add_argument("smoke_args", nargs=argparse.REMAINDER,
-                    help="-- then chip_smoke.py's arguments")
-    args = ap.parse_args(argv)
-    rest = args.smoke_args[1:] if args.smoke_args[:1] == ["--"] \
-        else args.smoke_args
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # everything after the first "--" goes to chip_smoke.py as it is
+    cut = argv.index("--") if "--" in argv else len(argv)
+    args, rest = ap.parse_args(argv[:cut]), argv[cut + 1:]
     tree = os.path.abspath(args.tree)
     os.chdir(tree)
     sys.path.insert(0, tree)

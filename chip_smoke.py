@@ -76,19 +76,32 @@ Phases (any failure exits non-zero before the result line is printed):
                first port of bp_fused_unit refused).
 5b. train_lm -- the layer engine (``core.steps.make_train_step``) on
                full-width, 24-layer qwen1.5-0.5b (f32 masters from seed 0,
-               bf16 compute): 20 momentum steps of batch 8 x seq 128 at lr
+               bf16 compute): 10 momentum steps of batch 8 x seq 128 at lr
                3e-3 on one synthetic batch, once a backend (int8, emulate);
                every loss finite, the last-5 mean below the first-5 mean,
                and exactly 336 fxp_matmul, 168 bp_gstep and 168
                sgd_dw_update launches a step; then timed ms/step, tokens/s
                and a profile of 5 steps, and one step of a 2-layer
                full-width net on the card against the CPU.
+5c. train_driver -- the port's train driver (``launch.train.main``) on
+               the same full-width qwen1.5-0.5b with --quantize, int8 on the
+               card, momentum, seq 128, batch 8, 8 steps, a checkpoint
+               every 4 (3.71 GB each: f32 params and momentum).  Run A
+               in-process: launches exactly 8 x train_lm's a step, every
+               loss finite, checkpoints 5 and 8 verify; ms/step, tokens/s,
+               the checkpoint's bytes, snapshot, write and restore seconds.
+               The flip drill: one bit of A's checkpoint 8 flipped, the
+               restore onto the card warns and recovers step 5, bitwise
+               A's by crc32.  Run B, a subprocess, is killed at step 6
+               (exit 41) after its step-5 checkpoint landed; run B' resumes
+               it from step 5 and must end with every crc32 of its
+               checkpoint 8 equal to A's and the same logged losses.
 6. summary  -- one ``{"kernels": [...]}`` line, the card's line, and last
                ``{"ok": true, "device": {...}}``.
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
-train and train_lm (for example ``--phases device,build,kernels,edges`` or
-``--phases device,train``);
+train, train_lm and train_driver (for example ``--phases
+device,build,kernels,edges`` or ``--phases device,train``);
 the result line is printed only when every phase ran.  The script imports
 nothing of JAX nor of the JAX package ``repro``.
 """
@@ -97,7 +110,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -106,7 +121,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "train",
-          "train_lm")
+          "train_lm", "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -1950,7 +1965,7 @@ def train_parity(torch, dev, bits, backend, x, y, cfg=None, profile=True):
 # batch descends at once
 LM_ARCH = "qwen1.5-0.5b"
 TRAIN_LM_RUNS = ("int8", "emulate")
-TRAIN_LM_STEPS, TRAIN_LM_WARM = 20, 3
+TRAIN_LM_STEPS, TRAIN_LM_WARM = 10, 3
 TRAIN_LM_SEQ, TRAIN_LM_BATCH = 128, 8
 TRAIN_LM_LR, TRAIN_LM_OPTIMIZER, TRAIN_LM_GRAD_SCALE = 3e-3, "momentum", 64.0
 # kernel launches per step at 24 layers: 7 dense units a layer (q, k, v, o,
@@ -2118,6 +2133,260 @@ def train_lm_parity(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the train driver, killed and resumed bitwise
+# ---------------------------------------------------------------------------
+
+# the JAX train driver's defaults with --quantize (train_lm's run, through
+# the driver): a checkpoint after step 4 (step 5) and at the end (step 8)
+DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_CRASH = 8, 4, 6
+DRIVER_RESUME = DRIVER_CKPT_EVERY + 1
+# no batch waits this long, so the loader never substitutes one and the
+# stall of run B only delays its step 5
+DRIVER_DEADLINE_S = 600.0
+DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
+               "--kernel-backend", "auto", "--optimizer", TRAIN_LM_OPTIMIZER,
+               "--seq-len", str(TRAIN_LM_SEQ),
+               "--global-batch", str(TRAIN_LM_BATCH),
+               "--steps", str(DRIVER_STEPS),
+               "--ckpt-every", str(DRIVER_CKPT_EVERY), "--log-every", "1",
+               "--deadline-s", str(DRIVER_DEADLINE_S)]
+# the driver in a fresh interpreter, with src on its path and no
+# PYTHONPATH (src/sitecustomize.py would reach for the JAX package); it
+# fails if the JAX package or JAX got imported
+DRIVER_CMD = (
+    "import sys; sys.path.insert(0, {src!r}); "
+    "from repro_torch.launch.train import main; main(sys.argv[1:]); "
+    "bad = [m for m in ('jax', 'repro') if m in sys.modules]; "
+    "sys.exit(f'imported {{bad}}' if bad else 0)")
+DRIVER_TIMEOUT_S = 900
+STEP_LINE = re.compile(r"step\s+(\d+) loss (\d+\.\d+) gnorm \S+ lr \S+ "
+                       r"(\d+\.\d+)s")
+CKPT_LINE = re.compile(r"checkpoint step (\d+): snapshot (\d+\.\d+) s, "
+                       r"write (\d+\.\d+) s")
+
+
+class _Tee:
+    """stdout that is also kept (run A's log lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def _step_lines(text: str) -> dict:
+    """{step: (loss string, seconds since the loop began)}."""
+    return {int(m[1]): (m[2], float(m[3])) for m in STEP_LINE.finditer(text)}
+
+
+def _manifest_crcs(ckpt_dir, step) -> dict:
+    from repro_torch.ckpt._msgpack import unpackb
+
+    m = unpackb((pathlib.Path(ckpt_dir) / f"step_{step:08d}"
+                 / "manifest.msgpack").read_bytes())
+    return {e["path"]: (e["crc32"], e["nbytes"]) for e in m["leaves"]}
+
+
+def _tree_crcs(tree) -> dict:
+    """{path: (crc32, nbytes)} of a (params, opt_state) tuple on the card,
+    with the checkpoint's leaf paths."""
+    import zlib
+
+    from repro_torch.util.tree import tree_leaves_with_path
+
+    out = {}
+    for path, x in tree_leaves_with_path(tree):
+        a = x.cpu().numpy()
+        out[path] = (zlib.crc32(a.tobytes()), a.nbytes)
+    return out
+
+
+def _run_driver(argv, expect: int):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "REPRO_FAULT_PLAN")}
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", DRIVER_CMD.format(src=str(SRC)), *argv],
+        capture_output=True, text=True, env=env, cwd=ROOT,
+        timeout=DRIVER_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    require(out.returncode == expect,
+            f"train_driver: {argv[-4:]} exited {out.returncode}, expected "
+            f"{expect}\nstdout: {out.stdout[-2000:]}\n"
+            f"stderr: {out.stderr[-3000:]}")
+    return out, secs
+
+
+def train_driver(torch, dev):
+    """Runs A, B, B' and the flip drill (module docstring, phase 5c)."""
+    import contextlib
+    import gc
+    import shutil
+    import tempfile
+    import warnings
+
+    from repro_torch import kernels as K
+    from repro_torch.ckpt import restore_checkpoint, verify_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import init_train_state
+    from repro_torch.ft import FAULT_EXIT_CODE, flip_one_bit
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim import OptimizerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-driver-"))
+    free_gb = shutil.disk_usage(root).free / 1e9
+    say(f"train_driver: {free_gb:.1f} GB free on the disk of {root}")
+    rec = dict(run="train_driver/int8", free_disk_gb=free_gb)
+    try:
+        # ---- run A, in-process, through the entry point a user calls ----
+        dir_a = root / "a"
+        tee = _Tee(sys.stdout)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            losses = train.main(DRIVER_ARGS + ["--ckpt-dir", str(dir_a)])
+        rec["seconds_a"] = time.perf_counter() - t0
+        counts = K.launch_counts()
+        for name, n in counts.items():
+            want = TRAIN_LM_LAUNCHES[name] * DRIVER_STEPS
+            require(n == want, f"train_driver A: {name} launched {n} times, "
+                               f"expected {want}")
+        require(len(losses) == DRIVER_STEPS
+                and all(math.isfinite(v) for v in losses),
+                f"train_driver A: losses {losses}")
+        for s in (DRIVER_RESUME, DRIVER_STEPS):
+            problems = verify_checkpoint(dir_a, s)
+            require(not problems, f"train_driver A: checkpoint {s}: "
+                                  f"{problems}")
+        log_a = _step_lines(tee.text())
+        require(sorted(log_a) == list(range(DRIVER_STEPS)),
+                f"train_driver A: logged steps {sorted(log_a)}")
+        crc_a = {s: _manifest_crcs(dir_a, s)
+                 for s in (DRIVER_RESUME, DRIVER_STEPS)}
+        nbytes = sum(n for _, n in crc_a[DRIVER_STEPS].values())
+        saves = [(int(s), float(a), float(b))
+                 for s, a, b in CKPT_LINE.findall(tee.text())]
+        require([s for s, _, _ in saves] == [DRIVER_RESUME, DRIVER_STEPS],
+                f"train_driver A: checkpoint timings {saves}")
+        # the interval after a save holds that save's snapshot
+        after_save = {s + 1 for s in range(1, DRIVER_STEPS)
+                      if s % DRIVER_CKPT_EVERY == 0}
+        gaps = [log_a[s][1] - log_a[s - 1][1]
+                for s in range(1, DRIVER_STEPS) if s not in after_save]
+        ms = 1e3 * statistics.median(gaps)
+        rec.update(counts=counts, losses=losses, ms_per_step=ms,
+                   step_gaps_s=gaps,
+                   tokens_per_s=TRAIN_LM_BATCH * TRAIN_LM_SEQ / (ms / 1e3),
+                   ckpt_bytes=nbytes, ckpt_leaves=len(crc_a[DRIVER_STEPS]),
+                   snapshot_s=[a for _, a, _ in saves],
+                   write_s=[b for _, _, b in saves])
+        say(f"train_driver A: {ms:.2f} ms/step (median of {len(gaps)} "
+            f"logged gaps without a save), {rec['tokens_per_s']:.0f} "
+            f"tokens/s, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"checkpoint {nbytes} bytes in {rec['ckpt_leaves']} leaves, "
+            f"snapshot {rec['snapshot_s']} s, write {rec['write_s']} s, "
+            f"{rec['seconds_a']:.1f} s in all, launches {counts}")
+
+        # ---- restore and verify onto the card; the flip drill ------------
+        cfg = get_config(LM_ARCH)
+        params = lm.init_params(cfg, seed=0, device=dev)
+        template = (params, init_train_state(
+            params, OptimizerConfig(kind=TRAIN_LM_OPTIMIZER)))
+        t0 = time.perf_counter()
+        tree, step, _ = restore_checkpoint(dir_a, template)
+        torch.cuda.synchronize()
+        rec["restore_verify_s"] = time.perf_counter() - t0
+        require(step == DRIVER_STEPS, f"train_driver: restored step {step}")
+        del tree
+        flipped = flip_one_bit(dir_a, DRIVER_STEPS, seed=0)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tree, step, _ = restore_checkpoint(dir_a, template)
+        require(any("failed verification" in str(w.message)
+                    for w in caught),
+                f"train_driver flip: no verification warning after "
+                f"flipping {flipped}: {[str(w.message) for w in caught]}")
+        require(step == DRIVER_RESUME,
+                f"train_driver flip: recovered step {step}, expected "
+                f"{DRIVER_RESUME}")
+        got = _tree_crcs(tree)
+        differ = [k for k, v in crc_a[DRIVER_RESUME].items()
+                  if got.get(k) != v]
+        require(set(got) == set(crc_a[DRIVER_RESUME]) and not differ,
+                f"train_driver flip: {len(differ)} leaves of the recovered "
+                f"step differ from A's: {differ[:8]}")
+        say(f"train_driver: restore+verify of checkpoint {DRIVER_STEPS} "
+            f"onto the card {rec['restore_verify_s']:.2f} s; flip drill: "
+            f"{flipped} flipped, warned, recovered step {step} bitwise")
+        del params, template, tree
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(dir_a)
+
+        # ---- run B, killed at DRIVER_CRASH; run B', resumed --------------
+        # the step-5 checkpoint (3.71 GB) takes longer to write than a step
+        # takes to run, so B's plan holds step 5's batch back for twice A's
+        # longest write: the checkpoint lands before the kill, as in a run
+        # whose steps outlast its writes
+        stall = round(2 * max(rec["write_s"]) + 5, 1)
+        require(stall < DRIVER_DEADLINE_S, f"train_driver: stall {stall} s")
+        dir_b = root / "b"
+        plan = f"stall@{DRIVER_RESUME}:{stall};crash@{DRIVER_CRASH}"
+        out_b, rec["seconds_b"] = _run_driver(
+            DRIVER_ARGS + ["--ckpt-dir", str(dir_b), "--fault-plan", plan],
+            FAULT_EXIT_CODE)
+        require(f"injected crash at step {DRIVER_CRASH}" in out_b.stderr,
+                f"train_driver B: {out_b.stderr[-2000:]}")
+        require(not (dir_b / f"step_{DRIVER_STEPS:08d}").exists(),
+                "train_driver B: the final checkpoint exists after the kill")
+        log_b = _step_lines(out_b.stdout)
+        require(sorted(log_b) == list(range(DRIVER_CRASH))
+                and all(log_b[s][0] == log_a[s][0] for s in log_b),
+                f"train_driver B: losses {log_b} against A's {log_a}")
+        out_r, rec["seconds_b_resumed"] = _run_driver(
+            DRIVER_ARGS + ["--ckpt-dir", str(dir_b), "--resume"], 0)
+        require(f"resumed from step {DRIVER_RESUME}" in out_r.stdout,
+                f"train_driver B': {out_r.stdout[-2000:]}")
+        log_r = _step_lines(out_r.stdout)
+        require(sorted(log_r) == list(range(DRIVER_RESUME, DRIVER_STEPS))
+                and all(log_r[s][0] == log_a[s][0] for s in log_r),
+                f"train_driver B': losses {log_r} against A's {log_a}")
+        crc_r = _manifest_crcs(dir_b, DRIVER_STEPS)
+        differ = sorted(k for k, v in crc_a[DRIVER_STEPS].items()
+                        if crc_r.get(k) != v)
+        require(set(crc_r) == set(crc_a[DRIVER_STEPS]) and not differ,
+                f"train_driver B': {len(differ)} of {len(crc_r)} leaves of "
+                f"checkpoint {DRIVER_STEPS} differ from A's: {differ[:8]}")
+        shutil.rmtree(dir_b)
+        rec.update(stall_s=stall, crash_step=DRIVER_CRASH,
+                   resumed_from=DRIVER_RESUME, bitwise_leaves=len(crc_r))
+        say(f"train_driver: B killed at step {DRIVER_CRASH} (exit "
+            f"{FAULT_EXIT_CODE}, step-5 batch held {stall} s, "
+            f"{rec['seconds_b']:.1f} s); B' resumed from step "
+            f"{DRIVER_RESUME} ({rec['seconds_b_resumed']:.1f} s): all "
+            f"{len(crc_r)} crc32s of checkpoint {DRIVER_STEPS} equal A's, "
+            f"losses of steps {DRIVER_RESUME}-{DRIVER_STEPS - 1} equal "
+            f"A's as strings")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"train_driver: {rec['seconds']:.1f} s")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # the summary line
 # ---------------------------------------------------------------------------
 
@@ -2227,6 +2496,10 @@ def main(argv=None) -> int:
         runs += lm_runs
         print(json.dumps({"train_lm": lm_runs, "train_lm_parity": lm_par},
                          default=str), flush=True)
+    if "train_driver" in phases:
+        drv = train_driver(torch, dev)
+        runs.append(drv)
+        print(json.dumps({"train_driver": drv}, default=str), flush=True)
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the port pulled in jax or the JAX package")
     if set(phases) != set(PHASES):

@@ -16,12 +16,14 @@ runtime data, so one step object serves every schedule.  The step is
 functional: it returns new parameter and state trees and leaves its inputs
 as they were.  It runs on CUDA unless ``device`` names another device, and
 raises when CUDA is absent (``repro_torch.resolve_device``).  Pipeline
-execution, the overlap and transport options, ``bit_anneal`` and the resume
-hooks are not ported yet (ROADMAP A11, A10, A6).
+execution, the overlap and transport options and ``bit_anneal`` are not
+ported yet (ROADMAP A11, A10).  ``capture_resume_extra`` and
+``apply_resume_extra`` carry the train driver's resume payload.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -68,6 +70,70 @@ def num_scan_units(cfg: ModelConfig) -> int:
 
 def default_bits(cfg: ModelConfig, enabled: bool = True) -> dict:
     return {"blocks": default_bits_for(num_scan_units(cfg), enabled)}
+
+
+# ---------------------------------------------------------------------------
+# Resume-state capture: everything a bitwise restart needs beyond params
+# ---------------------------------------------------------------------------
+
+RESUME_SCHEMA = 1
+
+
+def capture_resume_extra(cfg: ModelConfig, step: int, *, loader=None,
+                         user_extra: Optional[dict] = None) -> dict:
+    """The checkpoint ``extra`` payload that makes a restart BITWISE: the
+    data-pipeline step, so the step-indexed loader replays the exact batch
+    stream (the lr schedule is a function of the step too).  The keys are
+    the JAX package's; its transport and kernel tune caches are written
+    empty, since the port has no tuner (ROADMAP A8, A11).  Everything is
+    msgpack-scalar/str, so it rides the checkpoint manifest unchanged."""
+    extra = {
+        "resume_schema": RESUME_SCHEMA,
+        "arch": cfg.name,
+        "family": cfg.family,
+        "data_step": int(step),
+        "transport_cache": {},
+        "tune_cache": {},
+    }
+    if loader is not None:
+        extra["loader"] = {"served": int(loader.served),
+                           "skips": int(loader.skips),
+                           "stale_drops": int(loader.stale_drops)}
+    if user_extra:
+        extra.update(user_extra)
+    return extra
+
+
+def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int) -> int:
+    """Validate a checkpoint's resume payload and return the data step to
+    resume from (the checkpoint step for a payload from before the schema,
+    whose save convention was step == next data step).
+
+    A checkpoint of another arch is refused: restoring qwen state into
+    gemma is silent corruption the shape check alone may not catch.  A
+    JAX-written payload's transport and tune caches are not installed (the
+    port has no tuner), and a ``bit_anneal`` entry gets the JAX package's
+    mismatch warning, since the port trains without an anneal (A10)."""
+    extra = extra or {}
+    arch = extra.get("arch")
+    if arch is not None and arch != cfg.name:
+        raise ValueError(
+            f"checkpoint was written by arch {arch!r}; refusing to resume "
+            f"it as {cfg.name!r}")
+    ckpt_anneal = extra.get("bit_anneal")
+    if ckpt_anneal is not None:
+        warnings.warn(
+            f"bit-anneal mismatch at resume: checkpoint={ckpt_anneal!r} "
+            f"current=None — the effective bit schedule changes at the "
+            f"restart boundary", RuntimeWarning, stacklevel=2)
+    caches = {k: len(extra.get(k) or {})
+              for k in ("transport_cache", "tune_cache")}
+    if any(caches.values()):
+        print(f"[train] checkpoint carries {caches['transport_cache']} "
+              f"transport-cache and {caches['tune_cache']} tune-cache "
+              f"decision(s); the port has no tuner and does not install "
+              f"them", flush=True)
+    return int(extra.get("data_step", ckpt_step))
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,6 @@ copy-on-write run.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -26,35 +25,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.launch.train import _reduce
 from repro_torch.models import lm
 from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
                                  ServeConfig, paged_supported)
-
-
-def _reduce(cfg):
-    """Small same-family twin for CPU runs (--reduced), as the JAX package's
-    ``launch/train.py::_reduce``."""
-    changes = dict(num_layers=min(cfg.num_layers, 4), d_model=128,
-                   vocab_size=512, compute_dtype="float32")
-    if cfg.num_heads:
-        kv = cfg.num_kv_heads if cfg.num_kv_heads == cfg.num_heads else 2
-        changes.update(num_heads=4, num_kv_heads=min(kv, 4), head_dim=32)
-    if cfg.d_ff:
-        changes.update(d_ff=256)
-    if cfg.family == "moe":
-        changes.update(num_experts=4, experts_per_token=2, moe_d_ff=64)
-    if cfg.use_mla:
-        changes.update(kv_lora_rank=32, qk_nope_dim=32, qk_rope_dim=16,
-                       v_head_dim=32)
-    if cfg.family in ("ssm", "hybrid"):
-        changes.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=32)
-    if cfg.family == "hybrid":
-        changes.update(num_layers=4, attn_every=2)
-    if cfg.family == "encdec":
-        changes.update(num_encoder_layers=2, encoder_seq=32)
-    if cfg.family == "vlm":
-        changes.update(num_patches=8)
-    return dataclasses.replace(cfg, **changes)
 
 
 def make_prompts(rng: np.random.Generator, n: int, vocab: int, lo: int,

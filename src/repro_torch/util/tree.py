@@ -1,8 +1,10 @@
-"""Nested-dict parameter trees: the port's stand-in for ``jax.tree``.
+"""Parameter trees: the port's stand-in for ``jax.tree``.
 
 Parameters, gradients and optimizer state are nested dicts whose leaves
-are tensors; these helpers walk them in key order, as ``jax.tree`` walks a
-dict pytree (sorted keys).
+are tensors (the train driver checkpoints the tuple ``(params,
+opt_state)``); these helpers walk them in key order, as ``jax.tree`` walks
+a dict pytree (sorted keys), and lists and tuples in index order.
+``tree_map`` and ``tree_unzip`` take dicts only.
 """
 from __future__ import annotations
 
@@ -18,20 +20,33 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def _children(tree):
+    """(key, subtree) pairs of a dict (sorted keys) or a list/tuple (index
+    order), or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
 def tree_leaves(tree) -> list:
     """The leaves in sorted-key order (the order of ``jax.tree.leaves``)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    return [tree]
+    kids = _children(tree)
+    if kids is None:
+        return [tree]
+    return [x for _, v in kids for x in tree_leaves(v)]
 
 
 def tree_leaves_with_path(tree, pre: str = "") -> list:
     """(path, leaf) pairs in ``tree_leaves`` order; a path joins the keys
-    with "/"."""
-    if isinstance(tree, dict):
-        return [kv for k in sorted(tree)
-                for kv in tree_leaves_with_path(tree[k], f"{pre}{k}/")]
-    return [(pre[:-1], tree)]
+    and sequence indices with "/", as the JAX package's checkpoints name
+    ``jax.tree_util.tree_leaves_with_path``'s keys."""
+    kids = _children(tree)
+    if kids is None:
+        return [(pre[:-1], tree)]
+    return [kv for k, v in kids
+            for kv in tree_leaves_with_path(v, f"{pre}{k}/")]
 
 
 def tree_unflatten(tree, leaves: list):
@@ -41,6 +56,8 @@ def tree_unflatten(tree, leaves: list):
     def build(t):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
         return next(it)
     return build(tree)
 

@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points refuse to run quietly on the CPU when CUDA is absent."""
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+``msgpack`` (the card's machine lacks it; the checkpoint manifest has the
+port's own codec), and its entry points refuse to run quietly on the CPU
+when CUDA is absent."""
 import ast
 import os
 import pathlib
@@ -11,7 +13,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted((ROOT / "tools").glob("*.py")))
@@ -68,6 +70,16 @@ def test_serve_entry_point_raises_without_cuda():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduced", "--requests", "1", "--max-new", "1"])
+
+
+def test_train_driver_raises_without_cuda():
+    """The train driver runs on CUDA unless ``--device`` names another
+    device: without CUDA it raises before it trains or writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device would run")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--reduced", "--steps", "1"])
 
 
 @pytest.mark.parametrize("entry", ["make_train_step", "init_params"])

@@ -60,6 +60,15 @@ Phases (any failure exits non-zero before the result line is printed):
                CPU (plain versions) from the same pool, the logits are
                compared, and torch.profiler splits a few more decode steps
                into device time by kernel, wall time and idle share.
+               Then contiguous mode (``--mode contiguous``): 8 slots, 8
+               prompts of 128 tokens admitted together, 32 new tokens,
+               bf16 KV, the int8 backend; launches exactly 168 fxp_matmul a
+               prefill and 24 decode_prologue + 72 fxp_matmul (no
+               paged_attention) a decode step; one decode step card against
+               CPU; a profile of 5 decode steps; and in both modes a
+               snapshot after 8 decode steps, through the checkpoint layer,
+               restored into a fresh scheduler, whose streams must equal
+               the uninterrupted run's.
 5. train    -- the port's LeNet-5 train step (``core.lenet``), the paper's
                Fig. 3 network at full width (784-256-256-256-256-10), f32
                masters from seed 0, Table-I MNIST (I,F) points, on the
@@ -74,6 +83,11 @@ Phases (any failure exits non-zero before the result line is printed):
                device time by kernel, wall time and idle share; and one
                such step of a net with 2048-wide hidden layers (frames the
                first port of bp_fused_unit refused).
+5a. noise  -- util/prng.py (JAX's threefry2x32 in int64 PyTorch ops) on the
+               card against the CPU, bit for bit: keys and fold chains of
+               seeds 0, 1 and 2^32-1, bits and uniforms, the per-row form at
+               offsets 0 and 3, and one full [8, 128, 1024] G draw; the
+               device time of that draw and of the stochastic rounding.
 5b. train_lm -- the layer engine (``core.steps.make_train_step``) on
                full-width, 24-layer qwen1.5-0.5b (f32 masters from seed 0,
                bf16 compute): 10 momentum steps of batch 8 x seq 128 at lr
@@ -82,9 +96,16 @@ Phases (any failure exits non-zero before the result line is printed):
                and exactly 336 fxp_matmul, 168 bp_gstep and 168
                sgd_dw_update launches a step; then timed ms/step, tokens/s
                and a profile of 5 steps, and one step of a 2-layer
-               full-width net on the card against the CPU.
+               full-width net on the card against the CPU.  Then the int8
+               step with stochastic rounding under the JAX driver's keys:
+               3 steps at exactly those launches, every loss finite, a
+               second run from the same params and keys bitwise equal, a
+               profile of 5 steps with the noise ops as their own group
+               ("prng") beside the round-to-nearest profile, and the
+               2-layer step card against CPU.
 5c. train_driver -- the port's train driver (``launch.train.main``) on
-               the same full-width qwen1.5-0.5b with --quantize, int8 on the
+               the same full-width qwen1.5-0.5b with --quantize and
+               --stochastic, int8 on the
                card, momentum, seq 128, batch 8, 8 steps, a checkpoint
                every 4 (3.71 GB each: f32 params and momentum).  Run A
                in-process: launches exactly 8 x train_lm's a step, every
@@ -100,7 +121,7 @@ Phases (any failure exits non-zero before the result line is printed):
                ``{"ok": true, "device": {...}}``.
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
-train, train_lm and train_driver (for example ``--phases
+train, noise, train_lm and train_driver (for example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
 the result line is printed only when every phase ran.  The script imports
 nothing of JAX nor of the JAX package ``repro``.
@@ -120,7 +141,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "edges", "serve", "train",
+PHASES = ("device", "build", "kernels", "edges", "serve", "train", "noise",
           "train_lm", "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
@@ -1627,6 +1648,17 @@ PROFILE_GROUPS = (("fxp_matmul", "fxp_"), ("decode_prologue", "prologue_"),
                   ("paged_attention", "paged_attention_"),
                   ("bp_gstep", "gstep_"), ("sgd_dw_update", "sgd_dw_"),
                   ("bp_fused_unit", "fused_unit_"))
+# the noise ops of stochastic rounding (util/prng.py's threefry2x32): the
+# PyTorch elementwise kernels of int64 ("long") adds, bitwise and/or/xor
+# and shifts.  Few other int64 kernels of these kinds run in a step (the
+# round-to-nearest step's "prng" group shows how few)
+NOISE_TAGS = ("Bitwise", "shift_kernel", "CUDAFunctor_add")
+
+
+def _profile_group(name: str) -> str:
+    if "long" in name and any(t in name for t in NOISE_TAGS):
+        return "prng"
+    return next((k for k, tag in PROFILE_GROUPS if tag in name), "other")
 
 
 def serve_runs(torch):
@@ -1730,6 +1762,206 @@ def decode_parity(torch, dev):
     return out
 
 
+# contiguous serving (PR 21): 8 slots, 8 equal-length prompts admitted
+# together (the scheduler's one decode position is defined for them only),
+# bf16 KV, the int8 decode backend.  The prefill runs under engine.prefill's
+# own "auto", int8 on the card: 7 fxp_matmul launches a layer (q, k, v, o,
+# gate, up, down); a decode step runs the fused prologue and the MLP's three
+# units on the kernels, the o-projection and the attention in plain
+# PyTorch, as the JAX package does
+CONT_PROMPT, CONT_NEW = 128, 32
+CONT_MAX_LEN = CONT_PROMPT + CONT_NEW
+CONT_ARGS = ["--arch", "qwen1.5-0.5b", "--device", "cuda", "--seed", "0",
+             "--mode", "contiguous", "--slots", str(B), "--requests", str(B),
+             "--prompt-len", str(CONT_PROMPT), "--max-new", str(CONT_NEW),
+             "--max-len", str(CONT_MAX_LEN), "--cache-dtype", "bfloat16",
+             "--kernel-backend", "int8"]
+CONT_PREFILL_LAUNCHES = {"fxp_matmul": 168, "bp_gstep": 0, "sgd_dw_update": 0,
+                         "bp_fused_unit": 0, "decode_prologue": 0,
+                         "paged_attention": 0}
+CONT_DECODE_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=72,
+                            decode_prologue=24)
+# the decode step after which the scheduler is snapshotted and restored
+SNAPSHOT_AFTER = 8
+
+
+def _cont_prompts(torch, cfg, seed=11):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, size=(CONT_PROMPT,))
+            .astype(np.int32) for _ in range(B)]
+
+
+def serve_contiguous(torch, dev):
+    """The serve CLI in contiguous mode (launches of the whole serve:
+    B prefills and the decode steps), then, from the engine's own entry
+    points: each prefill's and one decode step's launches exactly, that
+    step's logits on the card against the CPU, and a profile of
+    PROFILE_STEPS decode steps."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serving import engine as E
+
+    K.reset_launch_counts()
+    report = serve.main(CONT_ARGS)
+    counts = K.launch_counts()
+    steps = report["decode_steps"]
+    require(report["mode"] == "contiguous" and len(report["finished"]) == B
+            and all(len(r.generated) == CONT_NEW
+                    for r in report["finished"]),
+            f"serve contiguous: {len(report['finished'])}/{B} finished")
+    want = {k: B * CONT_PREFILL_LAUNCHES[k] + steps * CONT_DECODE_LAUNCHES[k]
+            for k in counts}
+    require(steps == CONT_NEW - 1 and counts == want,
+            f"serve contiguous: {steps} decode steps, launches {counts}, "
+            f"expected {want}")
+    rec = dict(run="serve/contiguous/int8/bfloat16", backend="int8",
+               cache="bfloat16", counts=counts, tokens=report["tokens"],
+               seconds=report["seconds"],
+               tokens_per_s=report["tokens"] / report["seconds"],
+               decode_steps=steps,
+               ms_per_decode_step=1e3 * report["decode_seconds"]
+               / max(steps, 1))
+    say(f"serve contiguous int8/bfloat16: {rec['tokens']} tokens in "
+        f"{rec['seconds']:.2f} s = {rec['tokens_per_s']:.1f} tok/s, {steps} "
+        f"decode steps at {rec['ms_per_decode_step']:.2f} ms/step, launches "
+        f"{counts}")
+
+    cfg = get_config("qwen1.5-0.5b")
+    params = lm.init_params(cfg, seed=1, device=dev)
+    state = E.init_decode_state(cfg, B, CONT_MAX_LEN, torch.bfloat16, dev)
+    toks = torch.zeros((B, 1), dtype=torch.int32)
+    for i, p in enumerate(_cont_prompts(torch, cfg)):
+        K.reset_launch_counts()
+        logits, one = E.prefill(params, cfg,
+                                {"tokens": torch.from_numpy(p[None])},
+                                CONT_MAX_LEN, torch.bfloat16)
+        torch.cuda.synchronize()
+        require(K.launch_counts() == CONT_PREFILL_LAUNCHES,
+                f"contiguous prefill {i}: launches {K.launch_counts()}, "
+                f"expected {CONT_PREFILL_LAUNCHES}")
+        for k, dst in state["caches"].items():
+            dst[:, i] = one["caches"][k][:, 0]
+        state["pos"] = one["pos"]
+        toks[i, 0] = int(torch.argmax(logits[0]))
+    state_cpu = {"caches": {k: v.cpu() for k, v in state["caches"].items()},
+                 "pos": state["pos"].clone()}
+    K.reset_launch_counts()
+    with kops.kernel_backend_ctx("int8", dev):
+        got, _ = E.decode_step(params, cfg, state, toks.to(dev))
+    torch.cuda.synchronize()
+    require(K.launch_counts() == CONT_DECODE_LAUNCHES,
+            f"contiguous decode: launches {K.launch_counts()}, expected "
+            f"{CONT_DECODE_LAUNCHES}")
+    with kops.kernel_backend_ctx("int8", "cpu"):
+        ref, _ = E.decode_step(_tree_cpu(params), cfg, state_cpu, toks)
+    got = got.cpu()
+    require(tuple(got.shape) == (B, cfg.vocab_size)
+            and bool(got.isfinite().all()),
+            f"contiguous decode parity: logits {tuple(got.shape)} not finite "
+            "or of the wrong shape")
+    rel = float((got - ref).norm() / ref.norm())
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    tol = PARITY_TOL["int8"]
+    say(f"contiguous decode parity int8/bfloat16: |d|/|ref| {rel:.4g} (tol "
+        f"{tol}), argmax agreement {agree:.3f}; launches a prefill "
+        f"{CONT_PREFILL_LAUNCHES['fxp_matmul']} fxp_matmul, a decode step "
+        f"{CONT_DECODE_LAUNCHES['decode_prologue']} decode_prologue + "
+        f"{CONT_DECODE_LAUNCHES['fxp_matmul']} fxp_matmul, 0 "
+        "paged_attention")
+    require(rel <= tol, f"contiguous decode parity: |d|/|ref| {rel} > {tol}")
+    # the profile writes the same position again with the same tokens
+    rec["parity"] = dict(rel_l2_err=rel, tol=f"|d|/|ref| <= {tol}",
+                         argmax_agreement=agree)
+    rec["profile"] = profile_steps(
+        torch, lambda: E.decode_step(params, cfg, state, toks.to(dev)),
+        "decode contiguous int8", "int8", dev)
+    rec["snapshot"] = [snapshot_restore(torch, dev, params, cfg, mode)
+                       for mode in ("contiguous", "paged")]
+    del params, state, state_cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _numpy_tree(tree):
+    """A snapshot's ints and bools as 0-d arrays: a checkpoint template."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_numpy_tree(v) for v in tree]
+    return np.asarray(tree)
+
+
+def snapshot_restore(torch, dev, params, cfg, mode):
+    """B equal-length prompts to the end, uninterrupted; then again,
+    snapshotted after SNAPSHOT_AFTER decode steps, written and read back
+    through the port's checkpoint layer, and restored into a fresh
+    scheduler on the card: the streams must be equal."""
+    import shutil
+    import tempfile
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
+                                     ServeConfig)
+
+    serve = ServeConfig(num_slots=B, eos_id=None, max_len=CONT_MAX_LEN,
+                        mode=mode, block_size=BS, prefill_chunk=CONT_PROMPT,
+                        cache_dtype="bfloat16", attn_impl="kernel",
+                        kernel_backend="int8")
+    prompts = _cont_prompts(torch, cfg, seed=12)
+
+    def start():
+        sched = BatchScheduler(serve, EngineHooks.for_model(params, cfg,
+                                                            serve))
+        reqs = [Request(uid=i, prompt=p.copy(), max_new_tokens=CONT_NEW)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            sched.submit(r)
+        return sched, reqs
+
+    sched, reqs = start()
+    sched.run_until_drained()
+    ref = {r.uid: list(r.generated) for r in reqs}
+    del sched
+    sched, reqs = start()
+    while sched.steps_run < SNAPSHOT_AFTER:
+        sched.step()
+    t0 = time.perf_counter()
+    snap = sched.snapshot()
+    snap_s = time.perf_counter() - t0
+    del sched
+    root = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-serve-"))
+    try:
+        save_checkpoint(root, SNAPSHOT_AFTER, snap)
+        loaded, _, _ = restore_checkpoint(root, _numpy_tree(snap))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    resumed = BatchScheduler.restore(
+        loaded, hooks=EngineHooks.for_model(params, cfg, serve))
+    restore_s = time.perf_counter() - t0
+    done = {r.uid: list(r.generated) for r in reqs if r.done}
+    done.update({r.uid: list(r.generated)
+                 for r in resumed.run_until_drained()})
+    require(done == ref and len(ref) == B
+            and all(len(v) == CONT_NEW for v in ref.values()),
+            f"snapshot/restore {mode}: continued streams differ from the "
+            f"uninterrupted run's")
+    res = dict(mode=mode, after_decode_steps=SNAPSHOT_AFTER,
+               streams_equal=True, snapshot_s=snap_s, restore_s=restore_s)
+    say(f"snapshot/restore {mode}: snapshot after {SNAPSHOT_AFTER} decode "
+        f"steps ({snap_s:.3f} s), through the checkpoint layer, restored "
+        f"into a fresh scheduler ({restore_s:.3f} s): all {B} streams of "
+        f"{CONT_NEW} tokens equal the uninterrupted run's")
+    return res
+
+
 def profile_steps(torch, step, label, backend, dev, cpu_ops=True):
     """Where a step's time goes: the step's wall time (host clock,
     synchronised, without the profiler, whose own overhead inflates it),
@@ -1770,10 +2002,11 @@ def profile_steps(torch, step, label, backend, dev, cpu_ops=True):
         except RuntimeError as e:
             say(f"profile {label}: torch.profiler failed: {e}")
             return {"not measured": f"torch.profiler failed: {e}"}
-    by_name = {}
+    by_name, n_kernels = {}, 0
     for e in events:
         if (e.device_type() == torch.autograd.DeviceType.CUDA
                 and not e.is_user_annotation()):
+            n_kernels += 1
             by_name[e.name()] = (by_name.get(e.name(), 0.0)
                                  + e.duration_ns() / 1e6)
     if not by_name:
@@ -1781,18 +2014,19 @@ def profile_steps(torch, step, label, backend, dev, cpu_ops=True):
         return {"not measured": "no device events in torch.profiler"}
     groups = {}
     for name, ms in by_name.items():
-        key = next((k for k, tag in PROFILE_GROUPS if tag in name), "other")
+        key = _profile_group(name)
         groups[key] = groups.get(key, 0.0) + ms / PROFILE_STEPS
     busy = sum(groups.values())
     top = sorted(((ms / PROFILE_STEPS, n[:60]) for n, ms in by_name.items()
-                  if not any(tag in n for _, tag in PROFILE_GROUPS)),
-                 reverse=True)[:6]
+                  if _profile_group(n) == "other"), reverse=True)[:6]
     res = {"wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+           "device_ops_per_step": n_kernels / PROFILE_STEPS,
            "device_ms_by_group": groups,
            "top_other_ms": [[n, ms] for ms, n in top]}
     say(f"profile {label}: {wall_ms:.2f} ms/step wall, device busy "
-        f"{busy:.2f} ms ({100 * res['idle_share']:.1f}% idle); by group "
+        f"{busy:.2f} ms ({100 * res['idle_share']:.1f}% idle) in "
+        f"{res['device_ops_per_step']:.0f} device ops a step; by group "
         + ", ".join(f"{k} {v:.2f}" for k, v in sorted(groups.items()))
         + "; top other: "
         + ", ".join(f"{n} {ms:.2f}" for ms, n in top[:4]))
@@ -1986,16 +2220,111 @@ TRAIN_LM_LAUNCHES = {"fxp_matmul": 336, "bp_gstep": 168, "sgd_dw_update": 168,
 TRAIN_LM_PARITY_TOL = {"emulate": 0.05, "int8": 0.15}
 TRAIN_LM_LOSS_TOL = 2e-3
 TRAIN_LM_PARITY_LAYERS, TRAIN_LM_PARITY_BATCH, TRAIN_LM_PARITY_SEQ = 2, 2, 64
+TRAIN_LM_LAYERS = 24
 
 
-def _lm_step(torch, cfg, backend, dev):
+# stochastic rounding (the JAX driver's --stochastic, no --quantize-updates):
+# G rounded with noise keyed fold_in(fold_in(fold_in(key(1), step), layer),
+# row), the JAX driver's keys, drawn by util/prng.py in plain int64 PyTorch
+# ops (JAX computes them in XLA outside any Pallas kernel).  The launches a
+# step are train_lm's: the rounding runs after each layer's VJP
+TRAIN_LM_STOCH_STEPS = 3
+NOISE_SEEDS = (0, 1, 2 ** 32 - 1)
+NOISE_FOLDS = ((), (7,), (7, 3, 5), (2 ** 32 - 1, 0))
+NOISE_SHAPES = ((), (5,), (4, 129, 33))
+NOISE_ROW_SHAPE, NOISE_OFFSETS = (8, 6, 7), (0, 3)
+# one layer's G in train_lm: [batch, seq, d_model] f32
+NOISE_G_SHAPE = (TRAIN_LM_BATCH, TRAIN_LM_SEQ, D)
+
+
+def _lm_step(torch, cfg, backend, dev, stochastic=False):
     from repro_torch.core import QuantPolicy, StepOptions, make_train_step
     from repro_torch.optim import OptimizerConfig
 
     ocfg = OptimizerConfig(kind=TRAIN_LM_OPTIMIZER)
-    return make_train_step(cfg, QuantPolicy(grad_scale=TRAIN_LM_GRAD_SCALE),
+    return make_train_step(cfg, QuantPolicy(grad_scale=TRAIN_LM_GRAD_SCALE,
+                                            stochastic=stochastic),
                            ocfg, StepOptions(kernel_backend=backend),
                            device=dev), ocfg
+
+
+def _step_key(step: int):
+    """The JAX driver's key of ``step``: fold_in(key(1), step)."""
+    from repro_torch.util import prng
+
+    return prng.fold_in(prng.key(1), step)
+
+
+def _same_bits(torch, a, b) -> bool:
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def check_noise(torch, dev):
+    """util/prng.py on the card against the same draws on the CPU, bit for
+    bit: keys and fold chains of NOISE_SEEDS, bits and uniforms of
+    NOISE_SHAPES, the row form at NOISE_OFFSETS, and one full layer's G
+    draw; then the time of that draw and of the G rounding it feeds, as
+    the engine calls them (CUDA events, cold L2: ~170 small launches, so
+    the host's enqueue shows; the profile of train_lm's stochastic step
+    gives their device time)."""
+    from repro_torch.quant import fixed_point as FP
+    from repro_torch.util import prng
+
+    n = 0
+    for seed in NOISE_SEEDS:
+        for folds in NOISE_FOLDS:
+            kc, kd = prng.key(seed), prng.key(seed, dev)
+            for d in folds:
+                kc, kd = prng.fold_in(kc, d), prng.fold_in(kd, d)
+            require(kd.cpu().tolist() == kc.tolist(),
+                    f"noise: key {seed} folds {folds}: card {kd.tolist()} "
+                    f"cpu {kc.tolist()}")
+            for shape in NOISE_SHAPES:
+                require(_same_bits(torch, prng.random_bits(kd, shape),
+                                   prng.random_bits(kc, shape))
+                        and _same_bits(torch, prng.uniform(kd, shape),
+                                       prng.uniform(kc, shape)),
+                        f"noise: draws of {shape} under key {seed} folds "
+                        f"{folds} differ between the card and the CPU")
+                n += 2
+            for off in NOISE_OFFSETS:
+                require(_same_bits(
+                    torch, prng.uniform_rows(kd, NOISE_ROW_SHAPE, off),
+                    prng.uniform_rows(kc, NOISE_ROW_SHAPE, off)),
+                    f"noise: rows at offset {off} under key {seed} folds "
+                    f"{folds} differ")
+                n += 1
+    # layer 23's G key of step 0, as the engine folds it (on the host)
+    kc = prng.fold_in(_step_key(0), TRAIN_LM_LAYERS - 1)
+    require(_same_bits(torch, prng.uniform_rows(kc, NOISE_G_SHAPE, 0,
+                                                device=dev),
+                       prng.uniform_rows(kc, NOISE_G_SHAPE, 0)),
+            f"noise: the {NOISE_G_SHAPE} G draw differs between the card "
+            "and the CPU")
+    n += 1
+    g = torch.randn(NOISE_G_SHAPE, device=dev) * 0.01
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    draw_ms = time_ms(lambda: prng.uniform_rows(kc, NOISE_G_SHAPE, 0,
+                                                device=dev), torch, flush)
+    round_ms = time_ms(lambda: FP.stochastic_round_batched(g, 2, 12, kc, 0),
+                       torch, flush)
+    rtn_ms = time_ms(lambda: FP.quantize(g, 2, 12), torch, flush)
+    elems = math.prod(NOISE_G_SHAPE)
+    # each draw reads nothing and writes 4 bytes an element; the rounding
+    # reads G and writes q(G)
+    draw_bound, _ = bound(4 * elems, 0, "int8")
+    res = dict(bitwise_checks=n, g_shape=list(NOISE_G_SHAPE),
+               draw_ms=draw_ms, round_stochastic_ms=round_ms,
+               round_nearest_ms=rtn_ms, draw_bound_ms=draw_bound,
+               per_step_draw_ms=draw_ms * TRAIN_LM_LAYERS)
+    say(f"noise: {n} draws bitwise equal on the card and the CPU; one "
+        f"{NOISE_G_SHAPE} G draw {draw_ms:.4f} ms (bound {draw_bound:.5f} "
+        f"ms), stochastic rounding of G {round_ms:.4f} ms against "
+        f"round-to-nearest {rtn_ms:.4f} ms; x{TRAIN_LM_LAYERS} layers = "
+        f"{res['per_step_draw_ms']:.2f} ms of draws a step")
+    return res
 
 
 def train_lm_runs(torch, dev):
@@ -2071,9 +2400,109 @@ def train_lm_runs(torch, dev):
     return runs
 
 
+def train_lm_stochastic(torch, dev):
+    """The int8 step with stochastic rounding, keyed as the JAX driver keys
+    it: TRAIN_LM_STOCH_STEPS steps from seed-0 params on train_lm's batch,
+    every loss finite and exactly TRAIN_LM_LAUNCHES a step; the same steps
+    again from the same params, which must end on bitwise the same params;
+    then profiles of 5 round-to-nearest and 5 stochastic int8 steps, in
+    turns, from the same params and state (wall times move between runs,
+    so the two are compared within one)."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+    from repro_torch.util.tree import tree_leaves_with_path
+
+    cfg = get_config(LM_ARCH)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in SyntheticLMDataset(cfg.vocab_size, TRAIN_LM_SEQ,
+                                            TRAIN_LM_BATCH, seed=0)
+             .batch_at(0).items()}
+    bits = default_bits(cfg)
+    step, ocfg = _lm_step(torch, cfg, "int8", dev, stochastic=True)
+    finals, total = [], {}
+    for run in range(2):
+        params = lm.init_params(cfg, seed=0, device=dev)
+        state = init_train_state(params, ocfg)
+        losses, secs = [], []
+        for i in range(TRAIN_LM_STOCH_STEPS):
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch,
+                                    Hyper(lr=TRAIN_LM_LR, step=i), bits,
+                                    _step_key(i))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = K.launch_counts()
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            require(counts == TRAIN_LM_LAUNCHES,
+                    f"train_lm stochastic: step {i} launched {counts}, "
+                    f"expected {TRAIN_LM_LAUNCHES}")
+            losses.append(float(m["loss"]))
+        require(all(math.isfinite(v) for v in losses),
+                f"train_lm stochastic: losses {losses}")
+        finals.append(([x.cpu() for _, x in tree_leaves_with_path(params)],
+                       losses, secs))
+        if run == 0:
+            last = (params, state)
+        else:
+            del params, state
+    (a, loss_a, secs_a), (b, loss_b, _) = finals
+    differ = sum(not _same_bits(torch, x, y) for x, y in zip(a, b))
+    require(differ == 0 and loss_a == loss_b,
+            f"train_lm stochastic: two runs from the same params and keys "
+            f"differ in {differ} of {len(a)} leaves, losses {loss_a} vs "
+            f"{loss_b}")
+    params, state = last
+    rec = dict(run="train_lm/int8/stochastic", backend="int8", counts=total,
+               steps=TRAIN_LM_STOCH_STEPS, losses=loss_a,
+               ms_per_step_timed=[1e3 * t for t in secs_a],
+               bitwise_leaves=len(a))
+    say(f"train_lm stochastic int8: {TRAIN_LM_STOCH_STEPS} steps, "
+        f"{TRAIN_LM_LAUNCHES['fxp_matmul']}/{TRAIN_LM_LAUNCHES['bp_gstep']}/"
+        f"{TRAIN_LM_LAUNCHES['sgd_dw_update']} launches each, losses "
+        f"{loss_a}, step ms {[round(1e3 * t, 2) for t in secs_a]}; a second "
+        f"run from the same params and keys equal bitwise on all {len(a)} "
+        f"leaves")
+    del finals, a, b
+    rtn_step, _ = _lm_step(torch, cfg, "int8", dev)
+    rtn = profile_steps(
+        torch, lambda: rtn_step(params, state, batch,
+                                Hyper(lr=TRAIN_LM_LR, step=0), bits),
+        "train_lm int8 round-to-nearest", "int8", dev, cpu_ops=False)
+    rec["profile"] = prof = profile_steps(
+        torch, lambda: step(params, state, batch,
+                            Hyper(lr=TRAIN_LM_LR, step=0), bits,
+                            _step_key(0)),
+        "train_lm int8 stochastic", "int8", dev, cpu_ops=False)
+    rec["profile_round_to_nearest"] = rtn
+    if "device_ms_by_group" in prof and "device_ms_by_group" in rtn:
+        rec["against_round_to_nearest"] = dict(
+            wall_ms=[rtn["wall_ms_per_step"], prof["wall_ms_per_step"]],
+            device_ms=[rtn["device_ms_per_step"], prof["device_ms_per_step"]],
+            prng_ms=[rtn["device_ms_by_group"].get("prng", 0.0),
+                     prof["device_ms_by_group"].get("prng", 0.0)])
+        say(f"train_lm int8 round-to-nearest -> stochastic: wall "
+            f"{rtn['wall_ms_per_step']:.2f} -> {prof['wall_ms_per_step']:.2f}"
+            f" ms/step, device {rtn['device_ms_per_step']:.2f} -> "
+            f"{prof['device_ms_per_step']:.2f} ms, prng group "
+            f"{rec['against_round_to_nearest']['prng_ms'][0]:.2f} -> "
+            f"{rec['against_round_to_nearest']['prng_ms'][1]:.2f} ms")
+    del params, state, last, step, rtn_step
+    torch.cuda.empty_cache()
+    return rec
+
+
 def train_lm_parity(torch, dev):
     """One step of a TRAIN_LM_PARITY_LAYERS-layer full-width net on the
-    card and on the CPU (plain versions), from the same params and batch."""
+    card and on the CPU (plain versions), from the same params and batch:
+    each backend, and int8 with stochastic rounding under step 0's key."""
     import dataclasses
 
     import numpy as np
@@ -2090,18 +2519,20 @@ def train_lm_parity(torch, dev):
     batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_LM_PARITY_SEQ,
                                TRAIN_LM_PARITY_BATCH, seed=0).batch_at(0)
     bits, out = default_bits(cfg), []
-    for backend in TRAIN_LM_RUNS:
+    for backend, stochastic in [(b, False) for b in TRAIN_LM_RUNS] + [
+            ("int8", True)]:
         params = lm.init_params(cfg, seed=0, device=dev)
         params_cpu = _tree_cpu(params)
         res = {}
         for where, p in (("card", params), ("cpu", params_cpu)):
             d = dev if where == "card" else "cpu"
-            step, ocfg = _lm_step(torch, cfg, backend, d)
+            step, ocfg = _lm_step(torch, cfg, backend, d, stochastic)
             t0 = time.perf_counter()
             new, _, m = step(p, init_train_state(p, ocfg),
                              {k: torch.from_numpy(np.ascontiguousarray(v))
                               for k, v in batch.items()},
-                             Hyper(lr=TRAIN_LM_LR, step=0), bits)
+                             Hyper(lr=TRAIN_LM_LR, step=0), bits,
+                             _step_key(0) if stochastic else None)
             res[where] = (_tree_cpu(new), float(m["loss"]),
                           time.perf_counter() - t0)
         (got, got_loss, t_card), (ref, ref_loss, t_cpu) = (res["card"],
@@ -2114,18 +2545,20 @@ def train_lm_parity(torch, dev):
             rel[k] = float((g - r).norm() / (r - p0).norm())
         loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
         tol = TRAIN_LM_PARITY_TOL[backend]
-        say(f"train_lm parity {backend} ({TRAIN_LM_PARITY_LAYERS} layers, "
+        label = backend + (" stochastic" if stochastic else "")
+        say(f"train_lm parity {label} ({TRAIN_LM_PARITY_LAYERS} layers, "
             f"full width): update |d|/|ref| max {max(rel.values()):.3g} "
             f"({max(rel, key=rel.get)}; tol {tol}); loss "
             f"{got_loss:.6f} vs {ref_loss:.6f}, rel {loss_rel:.3g} (tol "
             f"{TRAIN_LM_LOSS_TOL}); card {t_card:.2f} s, cpu {t_cpu:.2f} s")
         require(max(rel.values()) <= tol,
-                f"train_lm parity {backend}: update |d|/|ref| {rel} > "
+                f"train_lm parity {label}: update |d|/|ref| {rel} > "
                 f"{tol}")
         require(loss_rel <= TRAIN_LM_LOSS_TOL,
-                f"train_lm parity {backend}: loss rel {loss_rel} > "
+                f"train_lm parity {label}: loss rel {loss_rel} > "
                 f"{TRAIN_LM_LOSS_TOL}")
-        out.append(dict(backend=backend, layers=TRAIN_LM_PARITY_LAYERS,
+        out.append(dict(backend=backend, stochastic=stochastic,
+                        layers=TRAIN_LM_PARITY_LAYERS,
                         update_rel_l2_err=rel, tol=tol,
                         loss_rel_err=loss_rel, loss_tol=TRAIN_LM_LOSS_TOL))
         del params, params_cpu, res, got, ref
@@ -2136,15 +2569,17 @@ def train_lm_parity(torch, dev):
 # phase 7: the train driver, killed and resumed bitwise
 # ---------------------------------------------------------------------------
 
-# the JAX train driver's defaults with --quantize (train_lm's run, through
-# the driver): a checkpoint after step 4 (step 5) and at the end (step 8)
+# the JAX train driver's defaults with --quantize and --stochastic (train_lm's
+# stochastic run, through the driver, as the JAX package's kill drill runs
+# it; round-to-nearest stays driven by train_lm): a checkpoint after step 4
+# (step 5) and at the end (step 8)
 DRIVER_STEPS, DRIVER_CKPT_EVERY, DRIVER_CRASH = 8, 4, 6
 DRIVER_RESUME = DRIVER_CKPT_EVERY + 1
 # no batch waits this long, so the loader never substitutes one and the
 # stall of run B only delays its step 5
 DRIVER_DEADLINE_S = 600.0
 DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
-               "--kernel-backend", "auto", "--optimizer", TRAIN_LM_OPTIMIZER,
+               "--stochastic", "--kernel-backend", "auto", "--optimizer", TRAIN_LM_OPTIMIZER,
                "--seq-len", str(TRAIN_LM_SEQ),
                "--global-batch", str(TRAIN_LM_BATCH),
                "--steps", str(DRIVER_STEPS),
@@ -2248,7 +2683,7 @@ def train_driver(torch, dev):
     root = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-driver-"))
     free_gb = shutil.disk_usage(root).free / 1e9
     say(f"train_driver: {free_gb:.1f} GB free on the disk of {root}")
-    rec = dict(run="train_driver/int8", free_disk_gb=free_gb)
+    rec = dict(run="train_driver/int8/stochastic", free_disk_gb=free_gb)
     try:
         # ---- run A, in-process, through the entry point a user calls ----
         dir_a = root / "a"
@@ -2483,6 +2918,8 @@ def main(argv=None) -> int:
     if "serve" in phases:
         runs = serve_runs(torch)
         parity = decode_parity(torch, dev)
+        cont = serve_contiguous(torch, dev)
+        runs.append(cont)
         print(json.dumps({"serve": runs, "decode_parity": parity},
                          default=str), flush=True)
     if "train" in phases:
@@ -2490,9 +2927,12 @@ def main(argv=None) -> int:
         runs += train
         print(json.dumps({"train": train, "train_parity": train_par},
                          default=str), flush=True)
+    if "noise" in phases:
+        print(json.dumps({"noise": check_noise(torch, dev)}), flush=True)
     if "train_lm" in phases:
-        lm_runs, lm_par = train_lm_runs(torch, dev), train_lm_parity(torch,
-                                                                     dev)
+        lm_runs = train_lm_runs(torch, dev)
+        lm_runs.append(train_lm_stochastic(torch, dev))
+        lm_par = train_lm_parity(torch, dev)
         runs += lm_runs
         print(json.dumps({"train_lm": lm_runs, "train_lm_parity": lm_par},
                          default=str), flush=True)

@@ -3,7 +3,8 @@
 
 ``make_train_step(cfg, policy, optim_cfg, options, device=None)`` returns
 
-    step(params, opt_state, batch, hyper, bits) -> (params, opt_state, metrics)
+    step(params, opt_state, batch, hyper, bits, rng=None)
+        -> (params, opt_state, metrics)
 
 engine="taxonn"   -- the paper's unrolled G-chain with per-layer fused
                      updates (``core.taxonn``)
@@ -15,10 +16,16 @@ engine="autodiff" -- autograd over the whole loss and one optimizer apply
 runtime data, so one step object serves every schedule.  The step is
 functional: it returns new parameter and state trees and leaves its inputs
 as they were.  It runs on CUDA unless ``device`` names another device, and
-raises when CUDA is absent (``repro_torch.resolve_device``).  Pipeline
-execution, the overlap and transport options and ``bit_anneal`` are not
-ported yet (ROADMAP A11, A10).  ``capture_resume_extra`` and
-``apply_resume_extra`` carry the train driver's resume payload.
+raises when CUDA is absent (``repro_torch.resolve_device``).  ``rng`` keys
+the engine's stochastic rounding (``QuantPolicy.stochastic``): a port key
+(``util.prng``) or a JAX key's raw ``uint32[2]`` data as numpy, so both
+packages fold the same key stream; the autodiff step accepts it and
+ignores it, as JAX's does.  Pipeline execution (with its
+``grad_tap_stochastic``), the overlap and transport options and
+``bit_anneal`` are not ported yet (ROADMAP A11, A10).
+``capture_resume_extra`` and ``apply_resume_extra`` carry the train
+driver's resume payload; the noise depends only on the step, so the
+payload needs no PRNG state.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Hyper, OptimizerConfig, apply_update
 from repro_torch.optim import init_opt_state
+from repro_torch.util import prng
 from repro_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 
 AUX_COEF = lm.AUX_COEF
@@ -246,17 +254,19 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
     else:
         step = _taxonn_step(cfg, policy, optim_cfg, dev)
 
-    def run(params, opt_state, batch, hyper: Hyper, bits=None):
+    def run(params, opt_state, batch, hyper: Hyper, bits=None, rng=None):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        if rng is not None:
+            rng = prng.as_key(rng)
         with kernel_backend_ctx(backend, dev):
-            return step(params, opt_state, batch, hyper, bits)
+            return step(params, opt_state, batch, hyper, bits, rng)
 
     run.backend, run.device = backend, dev
     return run
 
 
 def _autodiff_step(cfg, optim_cfg, dev):
-    def step(params, opt_state, batch, hyper, bits=None):
+    def step(params, opt_state, batch, hyper, bits=None, rng=None):
         pg = _requires_grad(params)
         with torch.enable_grad():
             loss, metrics = lm.loss_fn(pg, cfg, batch)
@@ -275,7 +285,7 @@ def _autodiff_step(cfg, optim_cfg, dev):
 def _taxonn_step(cfg, policy, optim_cfg, dev):
     scale = policy.grad_scale
 
-    def step(params, opt_state, batch, hyper, bits):
+    def step(params, opt_state, batch, hyper, bits, rng=None):
         main_bits = bits["blocks"].to(dev)
         bnd = {k: params[k] for k in boundary_keys(params)}
         tokens = batch["tokens"]
@@ -309,7 +319,7 @@ def _taxonn_step(cfg, policy, optim_cfg, dev):
         # ---- the G-chain: reverse loop with fused per-layer updates ------
         G_in, new_blocks, new_blocks_opt, gsq = backward_stack(
             body, params["blocks"], opt_state["blocks"], caches, main_bits,
-            G_final, hyper, policy, optim_cfg, AUX_COEF)
+            G_final, hyper, policy, optim_cfg, AUX_COEF, base_key=rng)
         new_params, new_opt = dict(params), dict(opt_state)
         new_params["blocks"], new_opt["blocks"] = new_blocks, new_blocks_opt
 

@@ -19,14 +19,21 @@ layer's quantized input X_i; everything else (pre-activations, f') is
 recomputed in the backward from X_i -- the paper's activation derivation
 unit executed on the fly.
 
+Stochastic rounding (``QuantPolicy.stochastic`` with a ``base_key``):
+layer i's key is ``fold_in(base_key, i)``; G is rounded with noise drawn
+per batch row from ``fold_in(layer key, b)``, and strict mode's update
+``q(lr * dW)`` with noise drawn from the layer key itself, the same key for
+every leaf of the layer, as the JAX package's ``tree_map`` does.  The keys
+are JAX's and so are the draws (``util.prng``).
+
 The JAX package runs both passes as ``lax.scan`` over stacked [L, ...]
 leaves; here they are Python loops over layer views of the same stacked
 leaves, and the X_i caches are a list.  The dense body has no operand
 shared across layers, so the JAX package's ``shared`` arguments (hybrid's
 tied attention block, encdec's encoder output) come with those families
 (A9).  The JAX package's options for the multi-device engine (the dW
-all-reduce, its codec, overlap and transports: A11), the bit anneal (A10)
-and the engine's stochastic rounding (A6) are not fields of the port's
+all-reduce, its codec, overlap and transports, ``grad_tap_stochastic``:
+A11) and the bit anneal (A10) are not fields of the port's
 ``QuantPolicy`` yet: each comes with the slice that runs it.
 """
 from __future__ import annotations
@@ -38,7 +45,10 @@ import torch
 
 from repro_torch.optim import Hyper, OptimizerConfig, apply_update
 from repro_torch.quant.fixed_point import (BitSchedule, make_bit_schedule,
-                                           maybe_quantize, quantize_ste)
+                                           maybe_quantize, quantize_ste,
+                                           quantize_stochastic,
+                                           stochastic_round_batched)
+from repro_torch.util import prng
 from repro_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -51,6 +61,9 @@ class QuantPolicy:
     quantize_grads: bool = True
     quantize_updates: bool = False   # strict paper mode: q(alpha*dW)
     grad_scale: float = 1.0          # loss scaling for the low-bit G chain
+    # stochastic rounding of G (and of the update in strict mode), keyed
+    # per (layer, batch row) from the step's ``rng``
+    stochastic: bool = False
     # the dense-unit datapath: "off" (plain PyTorch), "emulate" (the
     # kernels, f32), "int8" (int8 operands, int32 sums), "auto" (off on
     # the CPU, int8 on CUDA)
@@ -95,23 +108,35 @@ def _blend_quant(x: torch.Tensor, i_bits, f_bits, enabled) -> torch.Tensor:
     return (enabled * q + (1.0 - enabled) * xf).to(x.dtype)
 
 
-def _quant_grad(g: torch.Tensor, g_i, g_f, enabled,
-                policy: QuantPolicy) -> torch.Tensor:
-    """The G-chain's per-layer ``G <- q(G)`` (Eq. 8's low-bit signal)."""
+def _quant_grad(g: torch.Tensor, g_i, g_f, enabled, policy: QuantPolicy,
+                key=None) -> torch.Tensor:
+    """The G-chain's per-layer ``G <- q(G)`` (Eq. 8's low-bit signal), in
+    f32; with ``policy.stochastic`` and a layer ``key``, stochastically
+    rounded with noise keyed per (layer key, batch row)."""
     if not policy.quantize_grads:
         return g
-    return _blend_quant(g, g_i, g_f, enabled)
+    gf = g.to(torch.float32)
+    if policy.stochastic and key is not None:
+        q = stochastic_round_batched(gf, g_i, g_f, key, 0)
+    else:
+        q = quantize_ste(gf, g_i, g_f)
+    return (enabled * q + (1.0 - enabled) * gf).to(g.dtype)
 
 
-def quantize_update(g: torch.Tensor, b_l: dict, enabled,
+def quantize_update(g: torch.Tensor, b_l: dict, key, enabled,
                     policy: QuantPolicy, hyper: Hyper) -> torch.Tensor:
     """Strict-paper mode: ``q(alpha * dW)`` in the layer's gradient (I,F)
     format, returned in the dW domain (divided back by lr) so the
-    optimizer applies it unchanged."""
+    optimizer applies it unchanged.  With ``policy.stochastic`` and the
+    layer ``key``, the rounding is stochastic with noise drawn from that
+    key (every leaf of a layer draws from the same key)."""
     if not policy.quantize_updates:
         return g
     upd = hyper.lr * g
-    updq = quantize_ste(upd, b_l["g_i"], b_l["g_f"])
+    if policy.stochastic and key is not None:
+        updq = quantize_stochastic(upd, b_l["g_i"], b_l["g_f"], key)
+    else:
+        updq = quantize_ste(upd, b_l["g_i"], b_l["g_f"])
     upd = enabled * updq + (1.0 - enabled) * upd
     lr = hyper.lr
     lr = torch.clamp_min(lr, 1e-20) if isinstance(lr, torch.Tensor) \
@@ -168,7 +193,7 @@ def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
 def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
                    bits: BitSchedule, G_out: torch.Tensor, hyper: Hyper,
                    policy: QuantPolicy, optim_cfg: OptimizerConfig,
-                   aux_coef: float):
+                   aux_coef: float, base_key=None):
     """The reverse loop over layers.  Per layer (the paper's steps 1-4 in
     one TDM frame):
 
@@ -178,7 +203,10 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
       4. W_i <- W_i - lr * dW_i at once, before layer i-1's VJP starts.
 
     Gradient scale: ``G_out`` arrives scaled by ``policy.grad_scale``; dW is
-    un-scaled just before the update, G stays scaled.
+    un-scaled just before the update, G stays scaled.  With
+    ``policy.stochastic``, layer i rounds with the key ``fold_in(base_key,
+    i)`` (a port key, ``util.prng``); without a ``base_key`` it rounds to
+    nearest, as the JAX package does.
 
     Returns (G_in, new_stacked, new_opt, grad_sq_sum).
     """
@@ -192,6 +220,8 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
     G = G_out
     for i in reversed(range(_num_units(stacked))):
         b_l = _bits_layer(bits, i)
+        key = (prng.fold_in(base_key, i)
+               if base_key is not None and policy.stochastic else None)
         p_l = _slice(stacked, i)
         with torch.enable_grad():
             pw = tree_map(lambda w: w.detach().requires_grad_(), p_l)
@@ -211,9 +241,9 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
             dW = tree_unflatten(pw, [g.to(torch.float32) * inv_scale
                                      for g in grads[:-1]])
             G = _quant_grad(grads[-1], b_l["g_i"], b_l["g_f"], enabled,
-                            policy)
-            dW = tree_map(lambda g: quantize_update(g, b_l, enabled, policy,
-                                                    hyper), dW)
+                            policy, key)
+            dW = tree_map(lambda g: quantize_update(g, b_l, key, enabled,
+                                                    policy, hyper), dW)
             new_p, new_o = apply_update(p_l, dW, _slice(opt_stacked, i),
                                         hyper, optim_cfg)
             tree_map(lambda dst, src: dst[i].copy_(src), new_stacked, new_p)

@@ -1,19 +1,27 @@
-"""Serving entry point: continuous-batching decode over the paged slot scheduler.
+"""Serving entry point: continuous-batching decode over the slot scheduler,
+paged or contiguous.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --slots 8 --requests 16 --prompt-len 64 --prompt-len-max 192 \
         --shared-prefix 64 --max-new 32 --max-len 512 --block-size 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode contiguous \
+        --slots 8 --requests 8 --prompt-len 128 --max-new 32 --max-len 160
 
-Port of ``repro/launch/serve.py`` in paged mode.  It runs on the card unless
-``--device cpu`` is given, and raises when CUDA is absent.  Its defaults
-differ from the JAX package's serve CLI on purpose: the kernel backend defaults to
-``auto`` (int8 on CUDA, off on the CPU) and ``--attn-impl`` to ``kernel``,
-because on the card the kernels are the serving path (the JAX CLI kept
-them opt-in, as on the CPU they only ran in interpret mode).  Weights are
-random f32 masters from a seeded generator; prompts are random tokens, of
-lengths drawn in [--prompt-len, --prompt-len-max], and every other request
-starts with one common --shared-prefix tokens so that prefix sharing and
-copy-on-write run.
+Port of ``repro/launch/serve.py``.  ``--mode auto`` is paged where
+``paged_supported`` holds and contiguous otherwise; the port serves the
+dense family (no MLA, no sliding window), and the other families wait for
+ROADMAP A9.  Contiguous mode keeps the JAX scheduler's one decode position
+for the whole batch, so this CLI runs it only on equal-length prompts with
+no ``--eos-id`` (requests admitted together finish together).  It runs on
+the card unless ``--device cpu`` is given, and raises when CUDA is absent.
+Its defaults differ from the JAX package's serve CLI on purpose: the
+kernel backend defaults to ``auto`` (int8 on CUDA, off on the CPU) and
+``--attn-impl`` to ``kernel``, because on the card the kernels are the
+serving path (the JAX CLI kept them opt-in, as on the CPU they only ran in
+interpret mode).  Weights are random f32 masters from a seeded generator;
+prompts are random tokens, of lengths drawn in [--prompt-len,
+--prompt-len-max], and every other request starts with one common
+--shared-prefix tokens so that prefix sharing and copy-on-write run.
 """
 from __future__ import annotations
 
@@ -29,6 +37,7 @@ from repro_torch.launch.train import _reduce
 from repro_torch.models import lm
 from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
                                  ServeConfig, paged_supported)
+from repro_torch.serving.engine import require_dense
 
 
 def make_prompts(rng: np.random.Generator, n: int, vocab: int, lo: int,
@@ -55,6 +64,10 @@ def _parser() -> argparse.ArgumentParser:
                          "PyTorch versions of the kernels)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
+    ap.add_argument("--mode", default="auto",
+                    choices=["auto", "paged", "contiguous"],
+                    help="auto: paged where the family supports it, "
+                         "contiguous otherwise")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=12)
@@ -85,27 +98,36 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Serve random prompts to completion.  Returns a report: the finished
     requests, the scheduler's stats, tokens, decode steps and times."""
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    hi = args.prompt_len_max or args.prompt_len
+    if args.mode == "contiguous" and (hi != args.prompt_len
+                                      or args.eos_id is not None):
+        ap.error("--mode contiguous decodes the whole batch at one position: "
+                 "give equal-length prompts (no --prompt-len-max) and no "
+                 "--eos-id")
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = _reduce(cfg)
-    if not paged_supported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves the paged families only")
+    require_dense(cfg)
+    mode = args.mode
+    if mode == "auto":
+        mode = "paged" if paged_supported(cfg) else "contiguous"
     params = lm.init_params(cfg, seed=args.seed, device=device)
 
     cache_dtype = args.cache_dtype or (
         "bfloat16" if cfg.compute_dtype == "bfloat16" else "float32")
     serve = ServeConfig(num_slots=args.slots, eos_id=args.eos_id,
-                        max_len=args.max_len, mode="paged",
+                        max_len=args.max_len, mode=mode,
                         block_size=args.block_size,
                         prefill_chunk=args.prefill_chunk,
                         cache_dtype=cache_dtype,
                         attn_impl=args.attn_impl,
                         kernel_backend=args.kernel_backend)
     print(f"[serve] {cfg.name} ({cfg.family}) on {device} slots={args.slots} "
-          f"cache={cache_dtype} kernel_backend={args.kernel_backend} "
+          f"mode={mode} cache={cache_dtype} "
+          f"kernel_backend={args.kernel_backend} "
           f"attn_impl={args.attn_impl}", flush=True)
 
     hooks = EngineHooks.for_model(params, cfg, serve)
@@ -123,7 +145,6 @@ def main(argv=None) -> dict:
     sched = BatchScheduler(serve, hooks)
 
     rng = np.random.default_rng(args.seed)
-    hi = args.prompt_len_max or args.prompt_len
     prompts = make_prompts(rng, args.requests, cfg.vocab_size,
                            args.prompt_len, hi, args.shared_prefix)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=args.max_new)
@@ -138,17 +159,20 @@ def main(argv=None) -> dict:
     finished = [r for r in reqs if r.done]
     tok = sum(len(r.generated) for r in finished)
     steps = sched.steps_run
+    extra = ""
+    if mode == "paged":
+        extra = (f", {sched.stats['prefix_hits']} prefix hits, "
+                 f"{sched.stats['cow_copies']} COW copies")
     print(f"[serve] {len(finished)}/{args.requests} requests, {tok} tokens "
           f"in {dt:.2f}s ({tok / dt:.1f} tok/s), {steps} decode steps "
-          f"({1e3 * decode_s[0] / max(steps, 1):.2f} ms/step), "
-          f"{sched.stats['prefix_hits']} prefix hits, "
-          f"{sched.stats['cow_copies']} COW copies", flush=True)
+          f"({1e3 * decode_s[0] / max(steps, 1):.2f} ms/step){extra}",
+          flush=True)
     for r in finished[:3]:
         print(f"  req {r.uid}: {r.generated[:8]}...", flush=True)
     return {"finished": finished, "requests": args.requests,
             "stats": dict(sched.stats), "tokens": tok, "seconds": dt,
             "decode_steps": steps, "decode_seconds": decode_s[0],
-            "device": str(device)}
+            "device": str(device), "mode": mode}
 
 
 if __name__ == "__main__":

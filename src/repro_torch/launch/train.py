@@ -17,10 +17,14 @@ checkpoint IO/fsync/rename failures, straggler stalls, post-save bit flips
 the newest valid checkpoint with a loud warning.  The checkpoint format is
 the JAX package's, so either driver resumes the other's checkpoints.
 
+``--stochastic`` rounds G (and, with ``--quantize-updates``, the update)
+stochastically with the JAX driver's keys, ``fold_in(key(1), step)`` a
+step, so the noise is JAX's and depends only on the step: the resume
+payload carries no PRNG state and a resumed run draws the same noise.
+
 The JAX driver's mesh, pipeline, overlap, transport and dW-compression
-flags wait for multi-GPU (ROADMAP A11), ``--bit-search`` and
-``--bit-anneal`` for ``search/`` (A10), and ``--stochastic`` for the
-engine's stochastic mode (A6b); argparse refuses them.
+flags wait for multi-GPU (ROADMAP A11), and ``--bit-search`` and
+``--bit-anneal`` for ``search/`` (A10); argparse refuses them.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ from repro_torch.data import SyntheticLMDataset, StragglerTolerantLoader
 from repro_torch.ft import FaultPlan
 from repro_torch.models import lm
 from repro_torch.optim import Hyper, OptimizerConfig, cosine_schedule
+from repro_torch.util import prng
 
 
 def _reduce(cfg):
@@ -86,6 +91,11 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["auto", "off", "emulate", "int8"],
                     help="dense-unit datapath (auto = int8 on CUDA, off on "
                          "the CPU)")
+    ap.add_argument("--stochastic", action="store_true",
+                    help="stochastic rounding for the quantized G chain "
+                         "(and updates with --quantize-updates); noise is "
+                         "keyed per (step, layer, batch row), as the JAX "
+                         "driver keys it")
     ap.add_argument("--quantize-updates", action="store_true",
                     help="strict paper mode: quantize q(alpha*dW) in the "
                          "layer's gradient (I,F) format before the update")
@@ -126,6 +136,7 @@ def main(argv=None):
     policy = (QuantPolicy(grad_scale=64.0) if args.quantize
               else QuantPolicy.off())
     policy = dataclasses.replace(policy, kernel_backend=args.kernel_backend,
+                                 stochastic=args.stochastic,
                                  quantize_updates=args.quantize_updates)
     bits = default_bits(cfg, enabled=args.quantize)
     sched = cosine_schedule(args.lr, warmup=max(10, args.steps // 20),
@@ -190,9 +201,11 @@ def main(argv=None):
                 plan.check_crash(step)
             # the lr in f32, as the JAX driver hands it to its step
             hyper = Hyper(lr=float(np.float32(sched(step))), step=step)
+            rng = (prng.fold_in(prng.key(1), step) if args.stochastic
+                   else None)
             params, opt_state, metrics = step_fn(params, opt_state,
                                                  loader.get(step), hyper,
-                                                 bits)
+                                                 bits, rng)
             losses.append(float(metrics["loss"]))
             if prof is not None and step - start_step + 1 >= args.profile:
                 prof.stop()

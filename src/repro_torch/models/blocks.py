@@ -1,11 +1,13 @@
 """Transformer blocks of the dense family (port of ``models/blocks.py``):
-the initializer and the full-sequence block the training engine runs.
-Serving runs its own block body (``serving.engine._paged_block``).  MoE and
-MLA blocks are not ported yet and raise."""
+the initializer, the full-sequence block the training engine runs, and the
+contiguous cache's prefill and one-token decode blocks.  Paged serving
+runs its own block body (``serving.engine._paged_block``).  MoE and MLA
+blocks are not ported yet and raise (ROADMAP A9)."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_prologue as DP
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -36,3 +38,50 @@ def transformer_block(params, x: torch.Tensor, cfg: ModelConfig,
     h = L.apply_norm(params["mlp_norm"], x, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + L.mlp(params["mlp"], h, cfg), aux
+
+
+def init_block_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     dtype=torch.bfloat16, device=None) -> dict:
+    _dense_only(cfg)
+    return L.init_kv_cache(cfg, batch, max_len, dtype, device)
+
+
+def transformer_block_decode(params, x: torch.Tensor, cfg: ModelConfig,
+                             cache: dict, pos: int):
+    """One decode token per row against the block's contiguous cache
+    (written in place); ``pos`` is the batch's one write position.  With a
+    kernel backend installed, the fused decode-prologue kernel computes
+    RMSNorm + QKV + RoPE, and the MLP runs on ``fxp_matmul``."""
+    _dense_only(cfg)
+    if DP.prologue_active(cfg, x):
+        q, k, v = DP.decode_prologue(
+            params["attn_norm"], params["attn"], x, cfg,
+            torch.full((x.shape[0],), pos, dtype=torch.int32,
+                       device=x.device))
+        attn_out, cache = L.attention_decode_tail(
+            params["attn"], q, k, v, x.dtype, cfg, cache, pos)
+    else:
+        h = L.apply_norm(params["attn_norm"], x, cfg)
+        attn_out, cache = L.attention_decode(params["attn"], h, cfg, cache,
+                                             pos)
+    x = x + attn_out
+    h = L.apply_norm(params["mlp_norm"], x, cfg)
+    return x + L.mlp(params["mlp"], h, cfg), cache
+
+
+def transformer_block_prefill(params, x: torch.Tensor, cfg: ModelConfig,
+                              positions: torch.Tensor, cache_len: int,
+                              cache_dtype=torch.bfloat16):
+    """The full-sequence block that also seeds the decode cache from this
+    layer's K/V (placed by ``fill_ring``, cast to ``cache_dtype``)."""
+    _dense_only(cfg)
+    h = L.apply_norm(params["attn_norm"], x, cfg)
+    attn_out, (k, v) = L.attention(params["attn"], h, cfg, positions,
+                                   causal=True, return_kv=True)
+    length = (cache_len if cfg.swa_window is None
+              else min(cfg.swa_window, cache_len))
+    cache = {"k": L.fill_ring(k, length).to(cache_dtype),
+             "v": L.fill_ring(v, length).to(cache_dtype)}
+    x = x + attn_out
+    h = L.apply_norm(params["mlp_norm"], x, cfg)
+    return x + L.mlp(params["mlp"], h, cfg), cache

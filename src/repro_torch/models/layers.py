@@ -1,7 +1,8 @@
 """Dense-family layers (port of the dense subset of ``models/layers.py``):
 norms, RoPE, the kernel-datapath dense unit with its backward, full-sequence
 GQA attention (materialised or chunked online softmax), the attention
-projections that serving uses, and the MLP.
+projections that serving uses, the MLP, and the contiguous KV cache's
+ring buffer with its one-token decode attention.
 
 Parameters are nested dicts of tensors in the JAX package's layout (``wq``
 [D, H, hd], ``wo`` [H, hd, D], ...).  Initializers draw from an explicit
@@ -311,6 +312,75 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
     if return_kv:
         return y, (k, v)
     return y
+
+
+def fill_ring(k: torch.Tensor, length: int) -> torch.Tensor:
+    """Place a [B, T, ...] sequence into a ring buffer of ``length`` slots
+    so that the token at absolute position p sits at slot p % length (as
+    ``attention_decode`` indexes it).  Keeps the last ``length`` tokens."""
+    t = k.shape[1]
+    if t <= length:
+        pad = [0, 0] * (k.dim() - 2) + [0, length - t]
+        return torch.nn.functional.pad(k, pad)
+    tail = k[:, t - length:]
+    idx = (torch.arange(length, device=k.device) - t) % length
+    return torch.index_select(tail, 1, idx)
+
+
+# ---------------------------------------------------------------------------
+# Decode with a contiguous KV cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None) -> dict:
+    """Ring-buffer KV cache.  For SWA archs the buffer is min(window,
+    max_len) long."""
+    length = (max_len if cfg.swa_window is None
+              else min(cfg.swa_window, max_len))
+    shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: dict,
+                     pos: int):
+    """One-token decode. x: [B, 1, D]; ``pos``: the position every row's
+    token is written at (one for the whole batch, as in the JAX package)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    return attention_decode_tail(params, q, k, v, x.dtype, cfg, cache, pos)
+
+
+def attention_decode_tail(params, q, k, v, dt, cfg: ModelConfig,
+                          cache: dict, pos: int):
+    """Cache write + ring-masked softmax + output projection: everything
+    after the prologue, shared by the unfused path and the fused
+    decode-prologue kernel.  Writes the cache IN PLACE (K/V cast to the
+    cache's dtype, with no scale for an int8 cache, as the JAX package
+    casts) and returns (y [B, 1, D], cache)."""
+    length = cache["k"].shape[1]
+    slot = pos % length
+    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    groups = q.shape[2] // cfg.num_kv_heads
+    kk = _expand_kv(cache["k"].to(dt), groups)
+    vv = _expand_kv(cache["v"].to(dt), groups)
+    scale = cfg.head_dim ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                     kk.to(torch.float32)) * scale
+    # valid slots: the absolute position last written to slot i is
+    # pos - ((slot - i) mod length); it must lie in [0, pos]
+    idx = torch.arange(length, device=q.device)
+    abs_pos = pos - (slot - idx) % length
+    ok = (abs_pos >= 0) & (abs_pos <= pos)
+    if cfg.swa_window is not None:
+        ok &= abs_pos > pos - cfg.swa_window
+    s = s + torch.where(ok, 0.0, NEG_INF)[None, None, None, :]
+    p = torch.softmax(s, dim=-1).to(dt)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv)
+    y = torch.einsum("bthk,hkd->btd", out, _masked_wo(params, cfg, dt))
+    return y, cache
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,10 @@ so per-layer bit schedules are runtime data: one train step serves every
 schedule, as one TaxoNN chip serves every (I,F) configuration loaded into
 its registers.
 
-Randomness: PyTorch cannot reproduce JAX's threefry draws, so the
-stochastic quantizers take their uniform noise ``u`` (the shape of ``x``,
-in [0, 1)) as an argument instead of a PRNG key.
+Randomness: the stochastic quantizers take either a PRNG key, from which
+they draw JAX's own threefry noise (``util.prng``: the same key gives the
+same bits as ``jax.random``), or the uniform noise ``u`` itself (the shape
+of ``x``, in [0, 1)).
 """
 from __future__ import annotations
 
@@ -22,6 +23,8 @@ from typing import Union
 
 import numpy as np
 import torch
+
+from repro_torch.util import prng
 
 IntLike = Union[int, torch.Tensor]
 
@@ -128,6 +131,18 @@ def _stochastic_value(x, i_bits, f_bits, u) -> torch.Tensor:
     return torch.clamp(k, qmin, qmax) * step
 
 
+def _is_noise(noise) -> bool:
+    """A floating tensor is the uniform draw itself; anything else a key."""
+    return isinstance(noise, torch.Tensor) and noise.is_floating_point()
+
+
+def _require_f32(x: torch.Tensor):
+    """JAX draws the noise in ``x``'s dtype; the port draws f32 only."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"a keyed stochastic rounding draws f32 noise; cast "
+                        f"x ({x.dtype}) to float32 first, as the engine does")
+
+
 class _QuantizeStochastic(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, i_bits, f_bits, u):
@@ -141,20 +156,32 @@ class _QuantizeStochastic(torch.autograd.Function):
 
 
 def quantize_stochastic(x: torch.Tensor, i_bits, f_bits,
-                        u: torch.Tensor) -> torch.Tensor:
+                        noise) -> torch.Tensor:
     """Stochastically rounded quantization with an STE backward: ``k`` is
     ``floor(x / 2^-F)``, plus one where ``u`` is below the fraction, so
-    E[q(x)] = x for in-range x.  ``u``: uniform noise of ``x``'s shape."""
+    E[q(x)] = x for in-range x.  ``noise``: a PRNG key (``util.prng``),
+    from which ``u = uniform(key, x.shape)`` is drawn as
+    ``jax.random.uniform`` draws it, or ``u`` itself (floating, of
+    ``x``'s shape)."""
+    if not _is_noise(noise):
+        _require_f32(x)
+        noise = prng.uniform(noise, x.shape, device=x.device)
     return _QuantizeStochastic.apply(x, _int32(i_bits, x.device),
-                                     _int32(f_bits, x.device), u)
+                                     _int32(f_bits, x.device), noise)
 
 
-def stochastic_round_batched(x: torch.Tensor, i_bits, f_bits,
-                             u: torch.Tensor) -> torch.Tensor:
-    """Stochastic rounding, value only.  The JAX package draws row ``b``'s
-    noise from ``fold_in(key, offset + b)``; here ``u`` holds those draws,
-    row by row, so a slice of the leading axis takes the slice of ``u``."""
-    return _stochastic_value(x, i_bits, f_bits, u)
+def stochastic_round_batched(x: torch.Tensor, i_bits, f_bits, noise,
+                             offset=0) -> torch.Tensor:
+    """Stochastic rounding, value only, with noise drawn per row of the
+    leading axis: with a key, row ``b`` draws from ``fold_in(key, offset +
+    b)`` (``util.prng.uniform_rows``), as the JAX package does, so a slice
+    of the rows with its global ``offset`` reproduces the full batch's
+    draws.  ``noise`` may instead be those draws, row by row (floating,
+    ``x``'s shape; ``offset`` unused)."""
+    if not _is_noise(noise):
+        _require_f32(x)
+        noise = prng.uniform_rows(noise, x.shape, offset, device=x.device)
+    return _stochastic_value(x, i_bits, f_bits, noise)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,12 @@
 from repro_torch.serving.engine import (
+    decode_step,
+    greedy_generate,
+    init_decode_state,
     init_paged_state,
     paged_decode_step,
     paged_prefill_chunk,
     paged_supported,
+    prefill,
     quant_kv_rows,
 )
 from repro_torch.serving.paging import BlockPool, PoolExhausted, PrefixIndex
@@ -13,7 +17,8 @@ from repro_torch.serving.scheduler import (
     ServeConfig,
 )
 
-__all__ = ["init_paged_state", "paged_decode_step", "paged_prefill_chunk",
+__all__ = ["decode_step", "greedy_generate", "init_decode_state",
+           "prefill", "init_paged_state", "paged_decode_step", "paged_prefill_chunk",
            "paged_supported", "quant_kv_rows", "BlockPool", "PoolExhausted",
            "PrefixIndex", "BatchScheduler", "EngineHooks", "Request",
            "ServeConfig"]

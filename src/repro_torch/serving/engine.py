@@ -1,4 +1,19 @@
-"""Paged-KV serving engine (port of the paged subset of ``serving/engine.py``).
+"""Serving engine of the dense family (port of ``serving/engine.py``):
+prefill + one-token decode against a contiguous per-slot KV cache, and the
+paged KV pool.
+
+Contiguous cache: every layer's K/V ring buffers stacked on a leading
+layer axis, {"caches": {"k", "v": [L, B, len, kv_heads, head_dim]},
+"pos": int32 scalar}.  ``pos`` is ONE position for the whole slot batch,
+as in the JAX package: ``decode_step`` writes every slot's token at
+``pos`` and attends over positions <= ``pos``, so the batch is well
+defined only for equal-length prompts admitted together (the scheduler's
+contiguous mode).  ``pos`` stays a host tensor, the caches live on the
+device and ``decode_step`` writes them IN PLACE.  ``prefill`` installs
+``kernel_backend or "auto"`` (int8 on CUDA) around the prompt's forward;
+``decode_step`` runs under the caller's backend.  The other families'
+caches (MLA latents, SSM state, hybrid groups, cross-attention) and SWA
+rings wait for ROADMAP A9 and raise.
 
 The pool stores every layer's K/V in fixed-size blocks on a leading block
 axis: [L, N_blocks, block, kv_heads, head_dim].  A request owns an ordered
@@ -20,12 +35,109 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
 from repro_torch import resolve_device
 from repro_torch.kernels import decode_prologue as DP
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels.ops import kernel_backend_ctx
+from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+
+# ---------------------------------------------------------------------------
+# Contiguous cache: init, decode step, prefill
+# ---------------------------------------------------------------------------
+
+def require_dense(cfg: ModelConfig) -> None:
+    """Raise unless the port serves ``cfg``: the dense family, with no MLA
+    and no sliding window (the rest waits for ROADMAP A9)."""
+    B._dense_only(cfg)
+    if cfg.swa_window is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window (ring) caches are not ported yet "
+            f"(ROADMAP A9)")
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      cache_dtype=torch.bfloat16, device=None) -> dict:
+    """The zeroed contiguous decode state on ``device`` (CUDA unless the
+    caller names another)."""
+    device = resolve_device(device)
+    require_dense(cfg)
+    one = B.init_block_cache(cfg, batch, max_len, cache_dtype, device)
+    caches = {k: torch.zeros((cfg.num_layers,) + v.shape, dtype=v.dtype,
+                             device=device) for k, v in one.items()}
+    return {"caches": caches, "pos": torch.zeros((), dtype=torch.int32)}
+
+
+@torch.no_grad()
+def decode_step(params, cfg: ModelConfig, state: dict, tokens):
+    """One decode step. tokens: [B, 1] int32.  Returns (logits [B, V] f32,
+    state), the caches written in place and ``pos`` advanced by one."""
+    dt = lm.compute_dtype(cfg)
+    pos = int(state["pos"])
+    caches = state["caches"]
+    x = _embed_tokens(params, cfg, tokens, dt)
+    for i in range(cfg.num_layers):
+        x, _ = B.transformer_block_decode(
+            lm.layer_params(params["blocks"], i), x, cfg,
+            {k: t[i] for k, t in caches.items()}, pos)
+    logits = _logits(params, cfg, x)[:, 0, :]
+    return logits, {"caches": caches,
+                    "pos": torch.tensor(pos + 1, dtype=torch.int32)}
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,
+            cache_dtype=torch.bfloat16, kernel_backend: Optional[str] = None):
+    """Run the full-context forward, returning (last_logits [B, V] f32,
+    decode state).  ``kernel_backend`` selects the dense-unit datapath of
+    the prefill matmuls (None = "auto": off on the CPU, int8 on CUDA)."""
+    device = params["embed"].device
+    with kernel_backend_ctx(kernel_backend or "auto", device):
+        return _prefill_impl(params, cfg, batch, max_len, cache_dtype)
+
+
+@torch.no_grad()
+def _prefill_impl(params, cfg: ModelConfig, batch: dict, max_len: int,
+                  cache_dtype=torch.bfloat16):
+    require_dense(cfg)
+    device = params["embed"].device
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    x, positions = lm.embed_input(params, cfg, batch)
+    t = x.shape[1]
+    layers = []
+    for i in range(cfg.num_layers):
+        x, c = B.transformer_block_prefill(
+            lm.layer_params(params["blocks"], i), x, cfg, positions, max_len,
+            cache_dtype)
+        layers.append(c)
+    caches = {k: torch.stack([c[k] for c in layers]) for k in layers[0]}
+    logits = _logits(params, cfg, x)[:, -1, :]
+    return logits, {"caches": caches,
+                    "pos": torch.tensor(t, dtype=torch.int32)}
+
+
+def greedy_generate(params, cfg: ModelConfig, batch: dict, max_len: int,
+                    num_steps: int, cache_dtype=torch.bfloat16,
+                    kernel_backend: Optional[str] = None) -> torch.Tensor:
+    """Prefill + greedy decode loop (the reference serving driver).
+    Returns the generated tokens [B, num_steps] int32."""
+    logits, state = prefill(params, cfg, batch, max_len, cache_dtype,
+                            kernel_backend=kernel_backend)
+    out = []
+    tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    for _ in range(num_steps):
+        out.append(tok)
+        logits, state = decode_step(params, cfg, state, tok)
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+    return torch.cat(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV pool
+# ---------------------------------------------------------------------------
 
 PAGED_FAMILIES = ("dense", "moe", "vlm")
 

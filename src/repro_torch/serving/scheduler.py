@@ -1,20 +1,42 @@
-"""Continuous batching over a fixed slot batch with a paged KV pool (port of
-the paged mode of ``serving/scheduler.py``).
+"""Continuous batching over a fixed slot batch, contiguous or paged KV (port
+of ``serving/scheduler.py``).
 
 The scheduler is host-side control logic around the engine's device steps.
-Prompts prefill in per-tick token budgets (chunked prefill) interleaved
-with one batched decode step; admission is FIFO or priority against
-free-block accounting; shared prompt prefixes reuse blocks copy-on-write
-through the prefix index, with LRU eviction of cold prefixes when admission
-runs short of blocks.
+Two cache regimes share one driver:
 
-``ServeConfig`` keeps the JAX package's fields and defaults.  The JAX
-package's contiguous mode, its legacy positional constructor and
-``snapshot``/``restore`` are not ported yet.
+  * ``mode="contiguous"``: whole-prompt prefill into a per-slot contiguous
+    cache, then batched decode.  As in the JAX package, ``merge`` sets the
+    batch's ONE decode position to the last prefilled prompt's length and
+    ``decode_step`` writes every slot there, so this mode is defined only
+    for equal-length prompts admitted together (and finishing together);
+    the port mirrors that and does not correct it.
+  * ``mode="paged"``: a block pool (``serving.paging``) replaces per-slot
+    caches.  Prompts prefill in per-tick token budgets (chunked prefill)
+    interleaved with one batched decode step; admission is FIFO or
+    priority against free-block accounting; shared prompt prefixes reuse
+    blocks copy-on-write through the prefix index, with LRU eviction of
+    cold prefixes when admission runs short of blocks.
+
+API: ``BatchScheduler(ServeConfig(...), EngineHooks(...))``.  The legacy
+positional ``BatchScheduler(num_slots, prefill_fn, decode_fn, merge_fn,
+init_state, eos_id=...)`` still works through an adapter that emits a
+DeprecationWarning, as does the ``eos_id=-1`` "never matches" sentinel.
+
+``snapshot()`` captures queue state and the device cache as host numpy
+arrays (in paged mode also the pool, the block accounting, the per-slot
+tables and the prefix index), in the JAX package's format, so it rides
+either package's checkpoint layer and either package's
+``BatchScheduler.restore`` continues the stream with identical outputs.
+numpy has no bfloat16: a bf16 cache is snapshotted widened to f32
+(exactly) and restored into the hooks' cache dtype.  The kernel tuners are
+not ported (ROADMAP A8), so a paged snapshot's ``tune_cache`` is written
+empty and a JAX snapshot's decisions are not installed.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import warnings
 from collections import deque
 from typing import Any, Callable, Deque, List, Optional
 
@@ -59,6 +81,11 @@ class ServeConfig:
     #   prefix-shared block bytes are chunk-invariant)
 
     def __post_init__(self):
+        if self.eos_id == -1:
+            warnings.warn(
+                "eos_id=-1 was the legacy 'never matches' sentinel; pass "
+                "eos_id=None explicitly", DeprecationWarning, stacklevel=3)
+            object.__setattr__(self, "eos_id", None)
         if self.mode not in ("paged", "contiguous"):
             raise ValueError(f"mode must be 'paged' or 'contiguous', "
                              f"got {self.mode!r}")
@@ -113,15 +140,24 @@ class ServeConfig:
 
 @dataclasses.dataclass
 class EngineHooks:
-    """The device-step surface the scheduler drives (paged mode):
+    """The device-step surface the scheduler drives.
 
+    contiguous mode:
+      prefill(tokens [1,T]) -> (logits [1,V], slot_state)
+      decode(state, tokens [B,1]) -> (logits [B,V], state)
+      merge(state, slot_state, i) -> state
+      init_state: the batched decode state
+    paged mode:
       decode(pool, tables [B,M], lens [B], tokens [B,1]) -> (logits, pool)
       prefill_chunk(pool, table [1,M], tokens [1,C], start) -> (logits, pool)
       copy_block(pool, src, dst) -> pool      (COW block copy on device)
       init_state: the block pool (dict of tensors)
-      device: where the pool lives; the scheduler puts its inputs there
+    device: where the state lives; the scheduler hands the hooks int32
+    tensors there.
     """
+    prefill: Optional[Callable] = None
     decode: Optional[Callable] = None
+    merge: Optional[Callable] = None
     prefill_chunk: Optional[Callable] = None
     copy_block: Optional[Callable] = None
     init_state: Any = None
@@ -129,54 +165,140 @@ class EngineHooks:
 
     @classmethod
     def for_model(cls, params, cfg, serve: ServeConfig) -> "EngineHooks":
-        """Closures over (params, cfg).  The pool goes on the params' device;
-        ``serve.kernel_backend`` is installed around the DECODE hook only."""
+        """Closures over (params, cfg) for either mode; the state goes on
+        the params' device.  ``serve.kernel_backend`` is installed around
+        the DECODE hook only (the fused decode-prologue and the MLP's
+        ``fxp_matmul``).  The paged prefill stays unfused, so prefix-shared
+        block bytes do not depend on chunking; the contiguous prefill runs
+        under ``engine.prefill``'s own "auto" (int8 on CUDA), as the JAX
+        package's does."""
         from repro_torch.kernels import ops as kops
         from repro_torch.serving import engine as E
 
-        if serve.mode != "paged":
-            raise NotImplementedError(
-                "the port serves in paged mode; contiguous mode is not "
-                "ported yet")
         device = params["embed"].device
-        pool = E.init_paged_state(cfg, serve.resolved_num_blocks,
-                                  serve.block_size, serve.torch_cache_dtype(),
-                                  device)
+        dtype = serve.torch_cache_dtype()
 
-        def decode(pool, tables, lens, toks):
+        def _decode_backend(fn):
             if serve.kernel_backend is None:
+                return fn
+
+            def wrapped(*args):
+                with kops.kernel_backend_ctx(serve.kernel_backend, device):
+                    return fn(*args)
+            return wrapped
+
+        if serve.mode == "paged":
+            pool = E.init_paged_state(cfg, serve.resolved_num_blocks,
+                                      serve.block_size, dtype, device)
+
+            def decode(pool, tables, lens, toks):
                 return E.paged_decode_step(params, cfg, pool, tables, lens,
                                            toks, serve.attn_impl)
-            with kops.kernel_backend_ctx(serve.kernel_backend, device):
-                return E.paged_decode_step(params, cfg, pool, tables, lens,
-                                           toks, serve.attn_impl)
 
-        def chunk(pool, table, toks, start):
-            return E.paged_prefill_chunk(params, cfg, pool, table, toks, start)
+            def chunk(pool, table, toks, start):
+                return E.paged_prefill_chunk(params, cfg, pool, table, toks,
+                                             start)
 
-        def copy(pool, src, dst):
-            # in place: every layer's block dst becomes a copy of block src
-            for x in pool.values():
-                x[:, dst] = x[:, src]
-            return pool
+            def copy(pool, src, dst):
+                # in place: every layer's block dst becomes a copy of src
+                for x in pool.values():
+                    x[:, dst] = x[:, src]
+                return pool
 
-        return cls(decode=decode, prefill_chunk=chunk, copy_block=copy,
-                   init_state=pool, device=device)
+            return cls(decode=_decode_backend(decode), prefill_chunk=chunk,
+                       copy_block=copy, init_state=pool, device=device)
+
+        state = E.init_decode_state(cfg, serve.num_slots, serve.max_len,
+                                    dtype, device)
+
+        def prefill_one(tokens):
+            return E.prefill(params, cfg, {"tokens": tokens}, serve.max_len,
+                             dtype)
+
+        def decode(state, toks):
+            return E.decode_step(params, cfg, state, toks)
+
+        def merge(state, slot_state, i):
+            # in place: slot i's cache rows become the prompt's; the batch's
+            # one position becomes this prompt's length (JAX's legacy pos)
+            for k, dst in state["caches"].items():
+                dst[:, i] = slot_state["caches"][k][:, 0]
+            return {"caches": state["caches"], "pos": slot_state["pos"]}
+
+        return cls(prefill=prefill_one, decode=_decode_backend(decode),
+                   merge=merge, init_state=state, device=device)
+
+
+_LEGACY_CTOR_MSG = (
+    "BatchScheduler(num_slots, prefill_fn, decode_fn, merge_fn, init_state) "
+    "is deprecated; use BatchScheduler(ServeConfig(...), EngineHooks(...))")
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _to_host(tree):
+    """A state tree as fresh host numpy arrays (a copy: on the CPU
+    ``Tensor.numpy()`` shares memory with the tensor the run goes on
+    writing); bf16 widened to f32, which holds it exactly."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    t = tree.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.to("cpu", copy=True).numpy()
+
+
+def _to_device(tree, like, device):
+    """Host arrays as fresh tensors, on the device and in the dtype of the
+    matching tensor of ``like`` where there is one (the hooks' own state:
+    a bf16 cache comes back bf16, ``pos`` to the host), else on
+    ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, like.get(k) if isinstance(like, dict)
+                              else None, device) for k, v in tree.items()}
+    t = torch.tensor(np.asarray(tree))
+    if isinstance(like, torch.Tensor):
+        return t.to(device=like.device, dtype=like.dtype)
+    return t.to(device)
 
 
 class BatchScheduler:
-    """Drives ``EngineHooks`` over a fixed slot batch in paged mode."""
+    """Drives ``EngineHooks`` over a fixed slot batch (see the module
+    docstring for the contiguous/paged split and the legacy adapter)."""
 
-    def __init__(self, config: ServeConfig, hooks: EngineHooks):
-        if not isinstance(config, ServeConfig) \
-                or not isinstance(hooks, EngineHooks):
-            raise TypeError("BatchScheduler takes (ServeConfig, EngineHooks)")
-        if config.mode != "paged":
-            raise NotImplementedError("the port schedules paged mode only")
-        if hooks.decode is None or hooks.prefill_chunk is None \
-                or hooks.copy_block is None:
-            raise ValueError("paged mode needs decode, prefill_chunk and "
-                             "copy_block hooks")
+    def __init__(self, config, hooks=None, decode_fn=None, merge_fn=None,
+                 init_state=None, eos_id=-1):
+        if isinstance(config, ServeConfig):
+            if not isinstance(hooks, EngineHooks):
+                raise TypeError("new-style BatchScheduler takes "
+                                "(ServeConfig, EngineHooks)")
+        else:
+            # legacy positional ctor: (num_slots, prefill, decode, merge,
+            # init_state, eos_id=-1)
+            warnings.warn(_LEGACY_CTOR_MSG, DeprecationWarning, stacklevel=2)
+            num_slots = int(config)
+            if eos_id == -1:
+                warnings.warn(
+                    "eos_id=-1 was the legacy 'never matches' sentinel; "
+                    "pass an explicit eos_id (or None)",
+                    DeprecationWarning, stacklevel=2)
+                eos = None
+            else:
+                eos = eos_id
+            config = ServeConfig(num_slots=num_slots, eos_id=eos,
+                                 mode="contiguous")
+            leaves = _tensors(init_state)
+            hooks = EngineHooks(prefill=hooks, decode=decode_fn,
+                                merge=merge_fn, init_state=init_state,
+                                device=(leaves[0].device if leaves
+                                        else "cpu"))
+        self._setup(config, hooks)
+
+    def _setup(self, config: ServeConfig, hooks: EngineHooks):
         self.config = config
         self.hooks = hooks
         self.device = torch.device(hooks.device)
@@ -190,25 +312,85 @@ class BatchScheduler:
         self.stats = {"prefix_hits": 0, "reused_tokens": 0, "cow_copies": 0,
                       "prefill_tokens": 0, "prefix_evictions": 0,
                       "evicted_blocks": 0}
-        self.pool = hooks.init_state
-        self.block_pool = BlockPool(config.resolved_num_blocks)
-        self.prefix: Optional[PrefixIndex] = (
-            PrefixIndex() if config.prefix_sharing else None)
-        self._tables: List[List[int]] = [[] for _ in range(self.num_slots)]
-        self._pos = np.zeros(self.num_slots, np.int64)
-        self._prefilling = np.zeros(self.num_slots, bool)
+        if config.mode == "paged":
+            if hooks.decode is None or hooks.prefill_chunk is None \
+                    or hooks.copy_block is None:
+                raise ValueError("paged mode needs decode, prefill_chunk and "
+                                 "copy_block hooks")
+            self.pool = hooks.init_state
+            self.block_pool = BlockPool(config.resolved_num_blocks)
+            self.prefix: Optional[PrefixIndex] = (
+                PrefixIndex() if config.prefix_sharing else None)
+            self._tables: List[List[int]] = [[] for _ in range(self.num_slots)]
+            self._pos = np.zeros(self.num_slots, np.int64)
+            self._prefilling = np.zeros(self.num_slots, bool)
+        else:
+            self.state = hooks.init_state
+
+    # legacy attribute aliases (the old ctor stored the callables directly)
+    @property
+    def prefill_fn(self):
+        return self.hooks.prefill
+
+    @property
+    def decode_fn(self):
+        return self.hooks.decode
+
+    @property
+    def merge_fn(self):
+        return self.hooks.merge
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def submit(self, req: Request):
-        total = len(req.prompt) + req.max_new_tokens
-        if total > self.config.max_len:
-            raise ValueError(
-                f"request {req.uid}: prompt+max_new ({total}) exceeds "
-                f"max_len ({self.config.max_len})")
+        if self.config.mode == "paged":
+            total = len(req.prompt) + req.max_new_tokens
+            if total > self.config.max_len:
+                raise ValueError(
+                    f"request {req.uid}: prompt+max_new ({total}) exceeds "
+                    f"max_len ({self.config.max_len})")
         self.pending.append(req)
 
+    # ------------------------------------------------------------------
+    # contiguous mode (the JAX package's legacy behavior)
+    # ------------------------------------------------------------------
+
+    def _fill_slots(self):
+        for i in range(self.num_slots):
+            if self.slots[i] is None and self.pending:
+                req = self.pending.popleft()
+                logits, slot_state = self.hooks.prefill(
+                    self._dev(np.asarray(req.prompt, np.int32)[None, :]))
+                self.state = self.hooks.merge(self.state, slot_state, i)
+                tok = int(torch.argmax(logits[0]))
+                req.generated.append(tok)
+                self.next_tokens[i, 0] = tok
+                self.slots[i] = req
+
+    def _step_contiguous(self) -> int:
+        self._fill_slots()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        logits, self.state = self.hooks.decode(
+            self.state, self._dev(self.next_tokens))
+        toks = torch.argmax(logits, dim=-1).cpu().numpy()
+        for i in active:
+            req = self.slots[i]
+            tok = int(toks[i])
+            req.generated.append(tok)
+            self.next_tokens[i, 0] = tok
+            if (self.eos_id is not None and tok == self.eos_id) \
+                    or len(req.generated) >= req.max_new_tokens:
+                req.done = True
+                self.slots[i] = None
+        self.steps_run += 1
+        return len(active)
+
+    # ------------------------------------------------------------------
+    # paged mode
+    # ------------------------------------------------------------------
     def _ensure_block(self, slot: int, bi: int):
         """Make the slot's table cover block index ``bi`` with an exclusively
         owned block: append a fresh one past the end, or copy-on-write a
@@ -372,9 +554,7 @@ class BatchScheduler:
         self.steps_run += 1
         return len(active)
 
-    def step(self) -> int:
-        """One scheduler tick.  Returns the number of slots that made
-        progress (decoded or still prefilling); 0 means idle."""
+    def _step_paged(self) -> int:
         self._admit()
         pre = self._prefill_tick()
         n = self._decode_tick()
@@ -392,8 +572,155 @@ class BatchScheduler:
 
     def release_prefix_cache(self):
         """Drop every prefix-index entry, releasing its block references."""
-        if self.prefix is not None:
+        if self.config.mode == "paged" and self.prefix is not None:
             self.prefix.drop(self.block_pool)
+
+    def step(self) -> int:
+        """One scheduler tick.  Returns the number of slots that made
+        progress (decoded or still prefilling); 0 means idle."""
+        if self.config.mode == "paged":
+            return self._step_paged()
+        return self._step_contiguous()
+
+    # -- checkpointability ------------------------------------------------
+
+    @staticmethod
+    def _pack(r: Request) -> dict:
+        return {"uid": int(r.uid),
+                "prompt": np.asarray(r.prompt, np.int32).copy(),
+                "max_new_tokens": int(r.max_new_tokens),
+                "generated": np.asarray(r.generated, np.int32),
+                "done": bool(r.done),
+                "priority": int(r.priority)}
+
+    @staticmethod
+    def _unpack(d: dict) -> Request:
+        return Request(uid=int(d["uid"]),
+                       prompt=np.asarray(d["prompt"], np.int32),
+                       max_new_tokens=int(d["max_new_tokens"]),
+                       generated=[int(t) for t in
+                                  np.asarray(d["generated"]).ravel()],
+                       done=bool(d["done"]),
+                       priority=int(d.get("priority", 0)))
+
+    def snapshot(self) -> dict:
+        """Host-side copy of the whole scheduler state (numpy arrays, ints
+        and bools, in the JAX package's layout), so it rides either
+        package's ``save_checkpoint`` as it is.  Paged mode adds the pool,
+        the block accounting, per-slot tables and the prefix index."""
+        eos_enc = -1 if self.eos_id is None else int(self.eos_id)
+        base = {
+            "num_slots": int(self.num_slots),
+            "eos_id": eos_enc,
+            "steps_run": int(self.steps_run),
+            "next_tokens": np.asarray(self.next_tokens).copy(),
+            # slot occupancy: occupied slots packed with their index, so
+            # the tree has no None leaves
+            "slot_idx": np.asarray(
+                [i for i, r in enumerate(self.slots) if r is not None],
+                np.int32),
+            "slot_reqs": [self._pack(r) for r in self.slots if r is not None],
+            "pending": [self._pack(r) for r in self.pending],
+        }
+        if self.config.mode == "contiguous":
+            base["state"] = _to_host(self.state)
+            return base
+        c = self.config
+        for req, i in zip(base["slot_reqs"], base["slot_idx"]):
+            req["table"] = np.asarray(self._tables[int(i)], np.int32)
+            req["pos"] = int(self._pos[int(i)])
+            req["prefilling"] = bool(self._prefilling[int(i)])
+        base["serve"] = {
+            "max_len": int(c.max_len),
+            "block_size": int(c.block_size),
+            "num_blocks": int(c.resolved_num_blocks),
+            "prefill_chunk": int(c.chunk_tokens),
+            "prefix_sharing": int(c.prefix_sharing),
+            "admission_priority": int(c.admission == "priority"),
+            # 0 = unset, else 1 + index into _KERNEL_BACKENDS (ints only, as
+            # the JAX format keeps the serve dict)
+            "kernel_backend": (0 if c.kernel_backend is None else
+                               1 + _KERNEL_BACKENDS.index(c.kernel_backend)),
+        }
+        # the JAX format's tune-cache decisions, as JSON bytes; the port
+        # has no tuner (ROADMAP A8), so there are none
+        base["tune_cache"] = np.frombuffer(json.dumps({}).encode(),
+                                           np.uint8).copy()
+        base["pool"] = _to_host(self.pool)
+        base["block_pool"] = self.block_pool.snapshot()
+        base["prefix"] = (self.prefix.snapshot() if self.prefix is not None
+                          else {"tokens": [], "blocks": []})
+        return base
+
+    @classmethod
+    def restore(cls, snap: dict, prefill_fn: Optional[Callable] = None,
+                decode_fn: Optional[Callable] = None,
+                merge_fn: Optional[Callable] = None, *,
+                hooks: Optional[EngineHooks] = None) -> "BatchScheduler":
+        """Rebuild a scheduler from ``snapshot()`` output (the port's or the
+        JAX package's); the continued stream is identical to the
+        uninterrupted one (the hooks are stateless: only the snapshot
+        carries state).  The state is copied into fresh tensors on the
+        hooks' device, in the hooks' own state's dtypes where they carry
+        one.  Contiguous snapshots accept the legacy positional callables
+        (state on the CPU); paged snapshots need ``hooks=`` (decode /
+        prefill_chunk / copy_block)."""
+        eos = int(snap["eos_id"])
+        eos = None if eos == -1 else eos
+        if "pool" in snap:
+            if hooks is None:
+                raise ValueError("restoring a paged snapshot requires "
+                                 "hooks=EngineHooks(...)")
+            s = snap["serve"]
+            kbi = int(s.get("kernel_backend", 0))
+            kb = None if kbi == 0 else _KERNEL_BACKENDS[kbi - 1]
+            pool = _to_device(snap["pool"], hooks.init_state, hooks.device)
+            config = ServeConfig(
+                num_slots=int(snap["num_slots"]), eos_id=eos, mode="paged",
+                max_len=int(s["max_len"]), block_size=int(s["block_size"]),
+                num_blocks=int(s["num_blocks"]),
+                prefill_chunk=int(s["prefill_chunk"]),
+                cache_dtype=str(pool["k"].dtype).replace("torch.", ""),
+                prefix_sharing=bool(int(s["prefix_sharing"])),
+                admission=("priority" if int(s["admission_priority"])
+                           else "fifo"),
+                kernel_backend=kb)
+            tc = snap.get("tune_cache")
+            if tc is not None and np.asarray(tc).size:
+                n = len(json.loads(np.asarray(tc, np.uint8).tobytes()
+                                   .decode()))
+                if n:
+                    print(f"[serve] snapshot carries {n} tune-cache "
+                          f"decision(s); the port has no tuner and does not "
+                          f"install them", flush=True)
+            sched = cls(config, dataclasses.replace(hooks, init_state=pool))
+            sched.block_pool = BlockPool.restore(snap["block_pool"])
+            if config.prefix_sharing:
+                sched.prefix = PrefixIndex.restore(snap["prefix"])
+            for i, rd in zip(np.asarray(snap["slot_idx"]).ravel(),
+                             snap["slot_reqs"]):
+                i = int(i)
+                sched.slots[i] = cls._unpack(rd)
+                sched._tables[i] = [int(b) for b in
+                                    np.asarray(rd["table"]).ravel()]
+                sched._pos[i] = int(rd["pos"])
+                sched._prefilling[i] = bool(rd["prefilling"])
+        else:
+            if hooks is None:
+                hooks = EngineHooks(prefill=prefill_fn, decode=decode_fn,
+                                    merge=merge_fn)
+            config = ServeConfig(num_slots=int(snap["num_slots"]),
+                                 eos_id=eos, mode="contiguous")
+            state = _to_device(snap["state"], hooks.init_state, hooks.device)
+            sched = cls(config, dataclasses.replace(hooks, init_state=state))
+            for i, rd in zip(np.asarray(snap["slot_idx"]).ravel(),
+                             snap["slot_reqs"]):
+                sched.slots[int(i)] = cls._unpack(rd)
+        sched.steps_run = int(snap["steps_run"])
+        sched.next_tokens = np.asarray(snap["next_tokens"], np.int32).copy()
+        for rd in snap["pending"]:
+            sched.pending.append(cls._unpack(rd))
+        return sched
 
     def run_until_drained(self, max_steps: int = 10_000) -> List[Request]:
         finished: dict = {}

@@ -370,10 +370,10 @@ def test_update_sensitivity_justifies_card_tolerance():
 @pytest.mark.parametrize("policy_kw", [
     dict(dw_psum_axes=("data",)), dict(compress_dw=True),
     dict(overlap="on"), dict(dw_transport="ring"),
-    dict(bit_anneal="0:16"), dict(stochastic=True)])
+    dict(bit_anneal="0:16")])
 def test_unported_policy_options_raise(policy_kw):
-    """The JAX policy's multi-device, anneal and stochastic options are not
-    fields of the port's policy yet: asking for one fails at once."""
+    """The JAX policy's multi-device and anneal options are not fields of
+    the port's policy yet: asking for one fails at once."""
     with pytest.raises(TypeError, match="unexpected keyword"):
         QuantPolicy(**policy_kw)
 

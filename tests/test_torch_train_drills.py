@@ -4,7 +4,9 @@ subprocess with an injected fault plan and holds it to the checkpoint
 layer's contract.  Here: a kill at a seeded-random step and a restart
 resume **bitwise** -- the final checkpoint's crc32s and the logged losses
 equal an uninterrupted run's (the data stream and the lr schedule are
-step-indexed), on the plain path and on the plain int8 datapath.  The
+step-indexed), on the plain path and on the plain int8 datapath, and with
+``--stochastic`` (as ``tests/test_recovery_drills.py`` runs it: the noise
+is keyed by the step, so the resumed run draws the same noise).  The
 other drills are in ``tests/test_torch_train_faults.py``; the elastic
 drill (a restart on another device count) waits for multi-GPU (ROADMAP
 A11).
@@ -28,8 +30,17 @@ def manifest_crcs(ck, step):
 
 @pytest.mark.parametrize("backend", ["off", "int8"])
 def test_kill_at_seeded_step_resumes_bitwise(tmp_path, backend):
+    _kill_and_resume(tmp_path, backend)
+
+
+def test_stochastic_kill_at_seeded_step_resumes_bitwise(tmp_path):
+    _kill_and_resume(tmp_path, "int8", "--stochastic")
+
+
+def _kill_and_resume(tmp_path, backend, *flags):
     common = ("--steps", "12", "--ckpt-every", "4", "--quantize",
-              "--lr", "3e-2", "--log-every", "1", "--kernel-backend", backend)
+              "--lr", "3e-2", "--log-every", "1", "--kernel-backend", backend,
+              *flags)
     ref_ck, ck = tmp_path / "ref", tmp_path / "ck"
 
     ref0 = run_driver(*common, "--ckpt-dir", str(ref_ck))

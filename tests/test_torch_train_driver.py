@@ -80,7 +80,7 @@ def test_quantized_training_converges():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--stochastic"], ["--bit-search", "2"], ["--bit-anneal", "0:16"],
+    ["--bit-search", "2"], ["--bit-anneal", "0:16"],
     ["--data", "2"], ["--model", "2"], ["--pipe", "2"],
     ["--pipeline-schedule", "gpipe"], ["--overlap", "on"],
     ["--transport", "ring"], ["--compress-dw"]])

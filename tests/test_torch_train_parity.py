@@ -8,7 +8,9 @@ state, ``capture_resume_extra(cfg, 0)``), copies it into a directory for
 each driver, and runs ``repro.launch.train.main`` and
 ``repro_torch.launch.train.main`` in-process with ``--resume`` on their
 copies: the reduced qwen1.5-0.5b (f32), ``--quantize``, backend off, 6
-steps of the same data and lr schedule.
+steps of the same data and lr schedule; and once more with
+``--stochastic``, where both drivers key the noise ``fold_in(key(1),
+step)`` and draw it bit for bit alike.
 
 Tolerance: the losses agree within LOSS_RTOL (relative).  The two sides
 sum in other orders; where a value sits at an (I,F) rounding tie, one f32
@@ -65,29 +67,39 @@ def _rel(a, b) -> float:
     return float(np.max(np.abs(a - b) / np.abs(b)))
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    root = tmp_path_factory.mktemp("parity")
+def _three_runs(root, *flags):
+    """(root, JAX's losses, the port's, the port's from the nudged
+    checkpoint), each from its own copy of the step-0 checkpoint."""
     _step0_checkpoint(root / "step0")
     _step0_checkpoint(root / "nudged", nudge=True)
     for d in ("jax", "port"):
         shutil.copytree(root / "step0", root / d)
+    args = COMMON + list(flags)
     try:
-        jax_losses = j_train.main(COMMON + ["--data", "1", "--model", "1",
-                                            "--ckpt-dir", str(root / "jax"),
-                                            "--ckpt-every", "3"])
+        jax_losses = j_train.main(args + ["--data", "1", "--model", "1",
+                                          "--ckpt-dir", str(root / "jax"),
+                                          "--ckpt-every", "3"])
     finally:
         clear_tune_cache()
         clear_transport_cache()
-    port = train.main(COMMON + ["--device", "cpu",
-                                "--ckpt-dir", str(root / "port")])
-    nudged = train.main(COMMON + ["--device", "cpu",
-                                  "--ckpt-dir", str(root / "nudged")])
+    port = train.main(args + ["--device", "cpu",
+                              "--ckpt-dir", str(root / "port")])
+    nudged = train.main(args + ["--device", "cpu",
+                                "--ckpt-dir", str(root / "nudged")])
     return root, jax_losses, port, nudged
 
 
-def test_driver_losses_match_the_jax_driver(runs):
-    _, jax_losses, port, nudged = runs
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return _three_runs(tmp_path_factory.mktemp("parity"))
+
+
+@pytest.fixture(scope="module")
+def stochastic_runs(tmp_path_factory):
+    return _three_runs(tmp_path_factory.mktemp("stochastic"), "--stochastic")
+
+
+def _check_losses(jax_losses, port, nudged):
     assert len(port) == len(jax_losses) == STEPS
     spread = _rel(nudged, port)
     err = _rel(port, jax_losses)
@@ -95,6 +107,18 @@ def test_driver_losses_match_the_jax_driver(runs):
           f"tol {LOSS_RTOL}")
     assert 2 * spread <= LOSS_RTOL, (spread, LOSS_RTOL)
     assert err <= LOSS_RTOL, (port, jax_losses)
+
+
+def test_driver_losses_match_the_jax_driver(runs):
+    _check_losses(*runs[1:])
+
+
+def test_stochastic_driver_losses_match_the_jax_driver(runs,
+                                                       stochastic_runs):
+    """The same rule with ``--stochastic``; the noise moved the losses
+    away from the round-to-nearest run's."""
+    _check_losses(*stochastic_runs[1:])
+    assert stochastic_runs[2] != runs[2]
 
 
 def test_port_resumes_a_jax_checkpoint_of_step_4(runs, tmp_path, capsys):

@@ -42,7 +42,8 @@ Phases (any failure exits non-zero before the result line is printed):
                times one PyTorch call that computes the same function, as a
                yardstick; the port never calls it.
 3b. edges   -- untimed: fxp_matmul, bp_gstep, sgd_dw_update,
-               bp_fused_unit, decode_prologue and paged_attention at ragged
+               bp_fused_unit, decode_prologue (int8 bitwise equal to its
+               plain version) and paged_attention at ragged
                and unaligned shapes, fxp_matmul and decode_prologue at
                every split count, bp_gstep on both of its paths, at every
                row count of the short one and every split count of the
@@ -103,9 +104,28 @@ Phases (any failure exits non-zero before the result line is printed):
                profile of 5 steps with the noise ops as their own group
                ("prng") beside the round-to-nearest profile, and the
                2-layer step card against CPU.
-5c. train_driver -- the port's train driver (``launch.train.main``) on
-               the same full-width qwen1.5-0.5b with --quantize and
-               --stochastic, int8 on the
+5c. search -- the bitwidth search (``search/``), in four parts:
+               (1) the LeNet-5 sweep at the JAX defaults (784-256x4-10, 3
+               groups, the 6-point grid, 120 probe steps of batch 128 at
+               lr 0.05, seed 0; plain PyTorch, no kernel launch) on the
+               card and on the CPU from the same weights: every probe loss
+               finite, the same plan, the gated losses within
+               SEARCH_LENET_LOSS_TOL (a differing decision nearer the
+               threshold than that is printed, not failed); (2) the
+               driver's --bit-search at full width (24 layers, int8, 2
+               groups, 3 steps a probe, then 2 training steps): the sweep's
+               log and plan, both JSON files load back, the parity line
+               OK, every probe loss finite, and exactly (probes x 3 + 2) x
+               train_lm's launches a step plus one decode_prologue; (3) a
+               2-layer full-width sweep (SEARCH_LM_SWEEP, int8) card
+               against CPU, to SEARCH_LM_LOSS_TOL; (4)
+               ``verify_train_serve_parity`` on the card for (2)'s plan and
+               the JAX suite's EXPORT_PLAN: ok, every diff 0, one
+               decode_prologue launch each.  Probes, seconds and ms a
+               probe step printed.
+5d. train_driver -- the port's train driver (``launch.train.main``) on
+               the same full-width qwen1.5-0.5b with --quantize,
+               --stochastic and --bit-anneal 0:16,3:14,6:12, int8 on the
                card, momentum, seq 128, batch 8, 8 steps, a checkpoint
                every 4 (3.71 GB each: f32 params and momentum).  Run A
                in-process: launches exactly 8 x train_lm's a step, every
@@ -114,14 +134,16 @@ Phases (any failure exits non-zero before the result line is printed):
                The flip drill: one bit of A's checkpoint 8 flipped, the
                restore onto the card warns and recovers step 5, bitwise
                A's by crc32.  Run B, a subprocess, is killed at step 6
-               (exit 41) after its step-5 checkpoint landed; run B' resumes
-               it from step 5 and must end with every crc32 of its
-               checkpoint 8 equal to A's and the same logged losses.
+               (exit 41) after its step-5 checkpoint landed; run B'' resumes
+               it with --bit-anneal 0:16,3:12 and must exit 1 ("annealed
+               under") before a step; run B' resumes it from step 5 and
+               must end with every crc32 of its checkpoint 8 equal to A's
+               and the same logged losses.
 6. summary  -- one ``{"kernels": [...]}`` line, the card's line, and last
                ``{"ok": true, "device": {...}}``.
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
-train, noise, train_lm and train_driver (for example ``--phases
+train, noise, train_lm, search and train_driver (for example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
 the result line is printed only when every phase ran.  The script imports
 nothing of JAX nor of the JAX package ``repro``.
@@ -142,7 +164,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "train", "noise",
-          "train_lm", "train_driver")
+          "train_lm", "search", "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -496,6 +518,12 @@ def check_decode_prologue(torch, dev, flush, gen):
             err, ok = _prologue_close(got, ref, atol, rtol)
             require(ok, f"decode_prologue {datapath} {dt} {shape}: max err "
                         f"{err} beyond {tol}")
+            # int8: exact sums, and the plain version norms the rows in the
+            # rows kernel's order, so the two are equal bit for bit
+            require(datapath != "int8" or all(
+                torch.equal(g_, r_) for g_, r_ in zip(got, ref)),
+                f"decode_prologue int8 {dt} {shape}: not bitwise equal to "
+                f"its plain version (max err {err})")
             unfused = _unfused_prologue(torch, x, nscale, ws, biases, pos,
                                         datapath, shp)
             u_err, u_ok = _prologue_close(
@@ -1169,7 +1197,8 @@ def check_decode_prologue_edges(torch, dev, gen):
     """Correctness only, no timing: the prologue at PROLOGUE_EDGES, both
     compute dtypes and both datapaths, at every split count ``_plan`` can
     take (forced through ``splits``), each within the phase-3 row's
-    tolerance of plain; int8 bitwise equal to the split-1 launch."""
+    tolerance of plain; int8 bitwise equal to plain and to the split-1
+    launch."""
     from repro_torch.kernels import decode_prologue as DP
     from repro_torch.kernels.common import sm_count
     from repro_torch.quant.int8 import quantize_int8_absmax
@@ -1209,6 +1238,10 @@ def check_decode_prologue_edges(torch, dev, gen):
                     require(ok, f"edge decode_prologue {label} S={s}: max "
                                 f"err {err} beyond {tol}")
                     if datapath == "int8":
+                        require(all(torch.equal(g_, r_)
+                                    for g_, r_ in zip(got, ref)),
+                                f"edge decode_prologue {label} S={s}: not "
+                                "bitwise equal to plain")
                         if first is None:
                             require(s == 1, f"edge decode_prologue {label}: "
                                             "no split-1 plan")
@@ -2578,8 +2611,13 @@ DRIVER_RESUME = DRIVER_CKPT_EVERY + 1
 # no batch waits this long, so the loader never substitutes one and the
 # stall of run B only delays its step 5
 DRIVER_DEADLINE_S = 600.0
+# an F-bit anneal (search/anneal.py) whose ramp crosses B's kill at step 6
+# and B''s resume from step 5; B'' resumes B's checkpoint under another
+# spec and must be refused before its first step
+DRIVER_ANNEAL, DRIVER_ANNEAL_OTHER = "0:16,3:14,6:12", "0:16,3:12"
 DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
-               "--stochastic", "--kernel-backend", "auto", "--optimizer", TRAIN_LM_OPTIMIZER,
+               "--stochastic", "--bit-anneal", DRIVER_ANNEAL,
+               "--kernel-backend", "auto", "--optimizer", TRAIN_LM_OPTIMIZER,
                "--seq-len", str(TRAIN_LM_SEQ),
                "--global-batch", str(TRAIN_LM_BATCH),
                "--steps", str(DRIVER_STEPS),
@@ -2661,7 +2699,8 @@ def _run_driver(argv, expect: int):
 
 
 def train_driver(torch, dev):
-    """Runs A, B, B' and the flip drill (module docstring, phase 5c)."""
+    """Runs A, B, B'', B' and the flip drill (module docstring, phase
+    5d)."""
     import contextlib
     import gc
     import shutil
@@ -2683,7 +2722,8 @@ def train_driver(torch, dev):
     root = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-driver-"))
     free_gb = shutil.disk_usage(root).free / 1e9
     say(f"train_driver: {free_gb:.1f} GB free on the disk of {root}")
-    rec = dict(run="train_driver/int8/stochastic", free_disk_gb=free_gb)
+    rec = dict(run="train_driver/int8/stochastic/anneal",
+               anneal=DRIVER_ANNEAL, free_disk_gb=free_gb)
     try:
         # ---- run A, in-process, through the entry point a user calls ----
         dir_a = root / "a"
@@ -2790,6 +2830,17 @@ def train_driver(torch, dev):
         require(sorted(log_b) == list(range(DRIVER_CRASH))
                 and all(log_b[s][0] == log_a[s][0] for s in log_b),
                 f"train_driver B: losses {log_b} against A's {log_a}")
+        other = [DRIVER_ANNEAL_OTHER if a == DRIVER_ANNEAL else a
+                 for a in DRIVER_ARGS]
+        out_x, rec["seconds_b_refused"] = _run_driver(
+            other + ["--ckpt-dir", str(dir_b), "--resume"], 1)
+        require(f"checkpoint was annealed under {DRIVER_ANNEAL!r}"
+                in out_x.stderr and not _step_lines(out_x.stdout),
+                f"train_driver B'': stdout {out_x.stdout[-1500:]}\n"
+                f"stderr {out_x.stderr[-1500:]}")
+        say(f"train_driver: B'' (--bit-anneal {DRIVER_ANNEAL_OTHER}) refused "
+            f"B's checkpoint before a step ({rec['seconds_b_refused']:.1f} "
+            f"s): annealed under {DRIVER_ANNEAL!r}")
         out_r, rec["seconds_b_resumed"] = _run_driver(
             DRIVER_ARGS + ["--ckpt-dir", str(dir_b), "--resume"], 0)
         require(f"resumed from step {DRIVER_RESUME}" in out_r.stdout,
@@ -2819,6 +2870,314 @@ def train_driver(torch, dev):
     rec["seconds"] = time.perf_counter() - t_phase
     say(f"train_driver: {rec['seconds']:.1f} s")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the bitwidth search (search/)
+# ---------------------------------------------------------------------------
+
+# the LeNet sweep (run_sweep(SweepConfig()): 784-256x4-10, 3 groups, the
+# 6-point DEFAULT_GRID, 120 probe steps of batch 128 at lr 0.05, seed 0) on
+# the card and on the CPU from the same weights.  Its gated losses (the
+# baseline, each group's chosen probe, the final plan's) lie within this of
+# the CPU's (absolute), and a decision nearer its threshold than this may
+# differ: on the CPU alone one f32 ulp on every weight with every sum
+# reversed moves the gated losses by under 2e-3 and the probe that decides
+# the escalation ((1,5) in every group, 0.011 above its threshold) by up to
+# 0.0111; the limit is over twice that
+# (tests/test_torch_search.py::test_probe_spread_justifies_card_tolerances)
+SEARCH_LENET_LOSS_TOL = 0.025
+# the 2-layer full-width LM sweep, card against CPU (int8 on both), from
+# one set of weights: each loss within train_lm's one-step loss limit
+# (relative), which the CPU's spread of this sweep stays under half of
+SEARCH_LM_SWEEP = dict(num_groups=2, grid=((2, 6), (2, 12)), probe_steps=2,
+                       batch=TRAIN_LM_PARITY_BATCH, lr=TRAIN_LM_LR)
+SEARCH_LM_LOSS_TOL = TRAIN_LM_LOSS_TOL
+# part 2: the driver's --bit-search at full width (24 layers, int8),
+# train_driver's shapes, 3 steps a probe, 2 training steps, no checkpoint
+SEARCH_DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
+                      "--kernel-backend", "auto",
+                      "--optimizer", TRAIN_LM_OPTIMIZER,
+                      "--seq-len", str(TRAIN_LM_SEQ),
+                      "--global-batch", str(TRAIN_LM_BATCH),
+                      "--bit-search", "2", "--bit-probe-steps", "3",
+                      "--steps", "2", "--log-every", "1"]
+SEARCH_PROBE_STEPS, SEARCH_TRAIN_STEPS = 3, 2
+# part 4: the JAX suite's EXPORT_PLAN (tests/test_bit_search.py)
+EXPORT_FORMATS = ((2, 5), (1, 6), (2, 12), (4, 10))
+PLAN_LINE = re.compile(r"\[train\] bit-search \((\d+) probes, "
+                       r"(\d+\.\d+)s\): (.*)")
+PROBE_LOSS = re.compile(r"(?:loss|->) (\S+)")
+NO_LAUNCHES = {name: 0 for name in SOURCES}
+
+
+def _recording_sweep(sensitivity, make_probe, sweep, num_layers_of):
+    """select_plan over ``make_probe()``'s probe, recording every probe's
+    schedule (per-layer formats and enabled) and full-precision loss."""
+    probe = make_probe()
+    record = []
+
+    def rec(schedule):
+        loss = probe(schedule)
+        record.append(((tuple(zip(schedule.w_i.tolist(),
+                                  schedule.w_f.tolist())),
+                        float(schedule.enabled)), loss))
+        return loss
+    t0 = time.perf_counter()
+    plan = sensitivity.select_plan(rec, num_layers_of, sweep)
+    return plan, record, time.perf_counter() - t0
+
+
+def _same_plan(label, card, cpu, rec_card, rec_cpu, tol, rel: bool):
+    """Gate two sweeps' plans: the same formats, the baseline, each group's
+    chosen loss and the final loss within ``tol`` (relative if ``rel``).
+    Where the formats differ, the first probe on which the two sides
+    decided differently must lie nearer the threshold than ``tol`` on the
+    CPU: then it is printed, not failed.  Returns the largest difference
+    and what the comparison found."""
+    def diff(a, b):
+        return abs(a - b) / abs(b) if rel else abs(a - b)
+    worst = diff(card.baseline_loss, cpu.baseline_loss)
+    require(worst <= tol, f"{label}: baseline {card.baseline_loss} vs CPU "
+                          f"{cpu.baseline_loss} beyond {tol}")
+    thr_cpu = cpu.baseline_loss + cpu.target
+    thr_card = card.baseline_loss + card.target
+    if card.formats() != cpu.formats():
+        for (s_a, l_a), (s_b, l_b) in zip(rec_card, rec_cpu):
+            require(s_a == s_b, f"{label}: the sweeps probed {s_a} on the "
+                                f"card against {s_b} on the CPU before any "
+                                f"decision differed")
+            if (l_a <= thr_card) != (l_b <= thr_cpu):
+                margin = diff(l_b, thr_cpu)
+                require(margin < tol,
+                        f"{label}: plans differ ({card.formats()} against "
+                        f"{cpu.formats()}) at {s_b}: card {l_a}, CPU {l_b}, "
+                        f"threshold {thr_cpu}, margin {margin} >= {tol}")
+                say(f"{label}: plans differ at {s_b}, a decision "
+                    f"{margin:.3g} from the threshold {thr_cpu:.6f} (tol "
+                    f"{tol}): card {l_a:.6f}, CPU {l_b:.6f}; not gated")
+                return worst, "near-threshold decision"
+        raise SmokeFailure(f"{label}: plans differ with no differing "
+                           f"decision")
+    for g_a, g_b in zip(card.groups, cpu.groups):
+        d = diff(g_a.probe_loss, g_b.probe_loss)
+        require(d <= tol, f"{label}: group {g_a.group} loss "
+                          f"{g_a.probe_loss} vs CPU {g_b.probe_loss} beyond "
+                          f"{tol}")
+        worst = max(worst, d)
+    d = diff(card.final_loss, cpu.final_loss)
+    require(d <= tol, f"{label}: final loss {card.final_loss} vs CPU "
+                      f"{cpu.final_loss} beyond {tol}")
+    margins = [diff(l, thr_cpu) for _, l in rec_cpu[1:]]
+    return max(worst, d), f"equal plans; least CPU margin {min(margins):.3g}"
+
+
+def search_lenet(torch, dev):
+    """Part 1: the LeNet-5 sweep at the JAX defaults, card and CPU."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.lenet5 import CONFIG
+    from repro_torch.search import sensitivity as S
+
+    sweep = S.SweepConfig()
+    out = {}
+    for where in ("card", "cpu"):
+        K.reset_launch_counts()
+        out[where] = _recording_sweep(
+            S, lambda: S.make_lenet_probe(
+                sweep, device=dev if where == "card" else "cpu")[0], sweep,
+            CONFIG.num_layers - 2)
+        if where == "card":
+            counts = K.launch_counts()
+            require(counts == NO_LAUNCHES, f"search LeNet: the plain probes "
+                                           f"launched {counts}")
+    (card, rec_card, t_card), (cpu, rec_cpu, t_cpu) = out["card"], out["cpu"]
+    for (s, l) in rec_card:
+        require(math.isfinite(l), f"search LeNet: probe {s} loss {l}")
+    worst, found = _same_plan("search LeNet", card, cpu, rec_card, rec_cpu,
+                              SEARCH_LENET_LOSS_TOL, rel=False)
+    say(f"search LeNet (784-256x4-10, {card.num_layers} groups, grid "
+        f"{len(sweep.grid)}, {sweep.probe_steps} steps a probe): card "
+        f"{card.describe()}; CPU {cpu.describe()}; {card.probes} probes on "
+        f"the card in {t_card:.2f} s, {cpu.probes} on the CPU in "
+        f"{t_cpu:.2f} s; largest gated |d| {worst:.3g} (tol "
+        f"{SEARCH_LENET_LOSS_TOL}); {found}")
+    return dict(run="search/lenet", counts=counts, probes=card.probes,
+                probes_cpu=cpu.probes, seconds=t_card, seconds_cpu=t_cpu,
+                ms_per_probe_step=1e3 * t_card / (card.probes
+                                                  * sweep.probe_steps),
+                plan=card.to_json(), plan_cpu=cpu.to_json(),
+                probe_losses=[l for _, l in rec_card],
+                probe_losses_cpu=[l for _, l in rec_cpu],
+                max_gated_diff=worst, tol=SEARCH_LENET_LOSS_TOL,
+                comparison=found)
+
+
+def search_driver(torch, dev):
+    """Part 2: ``launch.train.main`` with --bit-search at full width, in a
+    temporary working directory (the plans land under its artifacts/)."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+    from repro_torch.search.export import load_serve_plan
+    from repro_torch.search.plan import BitPlan
+
+    work = pathlib.Path(tempfile.mkdtemp(prefix="chip-smoke-search-"))
+    cwd = os.getcwd()
+    tee = _Tee(sys.stdout)
+    try:
+        os.chdir(work)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            losses = train.main(SEARCH_DRIVER_ARGS)
+        seconds = time.perf_counter() - t0
+        counts = K.launch_counts()
+        plan = BitPlan.load(str(work / "artifacts" / "bit_plan.json"))
+        serve_plan = load_serve_plan(str(work / "artifacts"
+                                         / "bit_plan_serve.json"))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    text = tee.text()
+    m = PLAN_LINE.search(text)
+    require(m is not None and "[bit-search] baseline loss" in text,
+            f"search driver: no sweep log or plan line: {text[-2000:]}")
+    probes, sweep_s = int(m[1]), float(m[2])
+    require(plan.probes == probes and plan.describe() == m[3].strip(),
+            f"search driver: bit_plan.json {plan.describe()} ({plan.probes} "
+            f"probes) against the log's {m[3]} ({probes})")
+    require(len(serve_plan.layers) == plan.num_layers == TRAIN_LM_LAYERS,
+            f"search driver: serve plan of {len(serve_plan.layers)} layers")
+    require("[train] train<->serve int8 parity: OK" in text,
+            f"search driver: parity line {text[-1500:]}")
+    probe_losses = [float(v) for line in text.splitlines()
+                    if line.startswith("[bit-search]")
+                    for v in PROBE_LOSS.findall(line)]
+    require(len(probe_losses) == probes
+            and all(math.isfinite(v) for v in probe_losses),
+            f"search driver: probe losses {probe_losses} ({probes} probes)")
+    require(len(losses) == SEARCH_TRAIN_STEPS
+            and all(math.isfinite(v) for v in losses),
+            f"search driver: training losses {losses}")
+    steps = probes * SEARCH_PROBE_STEPS + SEARCH_TRAIN_STEPS
+    want = {name: TRAIN_LM_LAUNCHES[name] * steps for name in SOURCES}
+    want["decode_prologue"] = 1   # the export's prologue check
+    require(counts == want, f"search driver: launches {counts}, expected "
+                            f"{want} ({probes} probes x "
+                            f"{SEARCH_PROBE_STEPS} + {SEARCH_TRAIN_STEPS})")
+    ms = 1e3 * sweep_s / (probes * SEARCH_PROBE_STEPS)
+    say(f"search driver (qwen1.5-0.5b, 24 layers, int8, --bit-search 2, "
+        f"{SEARCH_PROBE_STEPS} steps a probe): {plan.describe()}; probes "
+        f"{probes}, sweep {sweep_s:.1f} s, {ms:.1f} ms a probe step, "
+        f"{seconds:.1f} s in all; parity OK; launches {counts}")
+    return dict(run="search/driver", counts=counts, probes=probes,
+                sweep_seconds=sweep_s, ms_per_probe_step=ms, seconds=seconds,
+                plan=plan.to_json(), probe_losses=probe_losses,
+                losses=losses), plan
+
+
+def search_lm(torch, dev):
+    """Part 3: a 2-layer full-width LM sweep, card against CPU (int8)."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.search import sensitivity as S
+
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              num_layers=TRAIN_LM_PARITY_LAYERS)
+    sweep = S.SweepConfig(**SEARCH_LM_SWEEP)
+    params0 = lm.init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else "cpu"
+
+        def make_probe(d=d):
+            return S.make_lm_probe(
+                cfg, OptimizerConfig(kind=TRAIN_LM_OPTIMIZER), sweep,
+                seq_len=TRAIN_LM_PARITY_SEQ, device=d, params0=params0,
+                kernel_backend="int8")[0]
+        K.reset_launch_counts()
+        out[where] = _recording_sweep(S, make_probe, sweep, cfg.num_layers)
+        if where == "card":
+            counts = K.launch_counts()
+    (card, rec_card, t_card), (cpu, rec_cpu, t_cpu) = out["card"], out["cpu"]
+    for (s, l) in rec_card:
+        require(math.isfinite(l), f"search LM: probe {s} loss {l}")
+    per_step = {k: v * TRAIN_LM_PARITY_LAYERS // TRAIN_LM_LAYERS
+                for k, v in TRAIN_LM_LAUNCHES.items()}
+    want = {k: v * card.probes * sweep.probe_steps
+            for k, v in per_step.items()}
+    require(counts == want, f"search LM: launches {counts}, expected {want}")
+    worst, found = _same_plan("search LM", card, cpu, rec_card, rec_cpu,
+                              SEARCH_LM_LOSS_TOL, rel=True)
+    say(f"search LM (qwen1.5-0.5b, {TRAIN_LM_PARITY_LAYERS} layers, full "
+        f"width, int8): card {card.describe()}; CPU {cpu.describe()}; "
+        f"{card.probes} probes on the card in {t_card:.2f} s, {cpu.probes} "
+        f"on the CPU in {t_cpu:.2f} s; largest gated rel "
+        f"{worst:.3g} (tol {SEARCH_LM_LOSS_TOL}); {found}; launches {counts}")
+    return dict(run="search/lm2", counts=counts, probes=card.probes,
+                probes_cpu=cpu.probes, seconds=t_card, seconds_cpu=t_cpu,
+                ms_per_probe_step=1e3 * t_card / (card.probes
+                                                  * sweep.probe_steps),
+                plan=card.to_json(), plan_cpu=cpu.to_json(),
+                probe_losses=[l for _, l in rec_card],
+                probe_losses_cpu=[l for _, l in rec_cpu],
+                max_gated_rel_diff=worst, tol=SEARCH_LM_LOSS_TOL,
+                comparison=found)
+
+
+def search_export(torch, dev, plans):
+    """Part 4: ``verify_train_serve_parity`` on the card, once a plan."""
+    from repro_torch import kernels as K
+    from repro_torch.search.export import verify_train_serve_parity
+
+    out = []
+    for label, plan in plans:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = verify_train_serve_parity(plan, device=dev)
+        secs = time.perf_counter() - t0
+        counts = K.launch_counts()
+        diffs = {k: v for k, v in res.items() if k.endswith("_diff")}
+        require(res["ok"] and all(v == 0 for v in diffs.values()),
+                f"search export {label}: {res}")
+        require(counts == dict(NO_LAUNCHES, decode_prologue=1),
+                f"search export {label}: launches {counts}")
+        say(f"search export {label} ({plan.num_layers} layers): ok, every "
+            f"diff 0 {diffs}, {secs:.3f} s, launches {counts}")
+        out.append(dict(run=f"search/export/{label}", counts=counts,
+                        seconds=secs, result=res))
+    return out
+
+
+def search_phase(torch, dev):
+    """Parts 1-4 of the search phase (module docstring); part 5 runs in
+    ``train_driver``."""
+    import gc
+
+    from repro_torch.search.plan import plan_from_formats
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = [search_lenet(torch, dev)]
+    drv, plan = search_driver(torch, dev)
+    runs.append(drv)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs.append(search_lm(torch, dev))
+    runs += search_export(torch, dev, [
+        ("driver-plan", plan),
+        ("EXPORT_PLAN", plan_from_formats(list(EXPORT_FORMATS)))])
+    secs = time.perf_counter() - t0
+    say(f"search: {secs:.1f} s")
+    return runs, secs
 
 
 # ---------------------------------------------------------------------------
@@ -2935,6 +3294,11 @@ def main(argv=None) -> int:
         lm_par = train_lm_parity(torch, dev)
         runs += lm_runs
         print(json.dumps({"train_lm": lm_runs, "train_lm_parity": lm_par},
+                         default=str), flush=True)
+    if "search" in phases:
+        search_runs, search_s = search_phase(torch, dev)
+        runs += search_runs
+        print(json.dumps({"search": search_runs, "seconds": search_s},
                          default=str), flush=True)
     if "train_driver" in phases:
         drv = train_driver(torch, dev)

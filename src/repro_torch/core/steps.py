@@ -20,18 +20,22 @@ raises when CUDA is absent (``repro_torch.resolve_device``).  ``rng`` keys
 the engine's stochastic rounding (``QuantPolicy.stochastic``): a port key
 (``util.prng``) or a JAX key's raw ``uint32[2]`` data as numpy, so both
 packages fold the same key stream; the autodiff step accepts it and
-ignores it, as JAX's does.  Pipeline execution (with its
-``grad_tap_stochastic``), the overlap and transport options and
-``bit_anneal`` are not ported yet (ROADMAP A11, A10).
+ignores it, as JAX's does.  ``StepOptions.bit_anneal`` (or the policy's)
+ramps the F bits with the step (``search.anneal``): the taxonn step
+applies the ramp to ``bits`` at ``hyper.step``, the autodiff step accepts
+it and ignores it, and the returned step exposes it as ``.bit_anneal``.
+Pipeline execution (with its ``grad_tap_stochastic``) and the overlap and
+transport options wait for multi-GPU (ROADMAP A11).
 ``capture_resume_extra`` and ``apply_resume_extra`` carry the train
-driver's resume payload; the noise depends only on the step, so the
-payload needs no PRNG state.
+driver's resume payload; the noise and the anneal depend only on the
+step, so the payload needs no PRNG state, and the anneal spec rides along
+only to guard against resuming under another ramp.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -46,6 +50,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Hyper, OptimizerConfig, apply_update
 from repro_torch.optim import init_opt_state
+from repro_torch.search.anneal import AnnealSchedule
 from repro_torch.util import prng
 from repro_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -88,13 +93,18 @@ RESUME_SCHEMA = 1
 
 
 def capture_resume_extra(cfg: ModelConfig, step: int, *, loader=None,
-                         user_extra: Optional[dict] = None) -> dict:
+                         user_extra: Optional[dict] = None,
+                         anneal=None) -> dict:
     """The checkpoint ``extra`` payload that makes a restart BITWISE: the
     data-pipeline step, so the step-indexed loader replays the exact batch
     stream (the lr schedule is a function of the step too).  The keys are
     the JAX package's; its transport and kernel tune caches are written
-    empty, since the port has no tuner (ROADMAP A8, A11).  Everything is
-    msgpack-scalar/str, so it rides the checkpoint manifest unchanged."""
+    empty, since the port has no tuner (ROADMAP A8, A11).  ``anneal`` (a
+    spec or an ``AnnealSchedule``) is recorded as its canonical spec: the
+    annealed bits are a function of the step, so resume is bitwise
+    anyway, and the spec only guards against resuming under another ramp.
+    Everything is msgpack-scalar/str, so it rides the checkpoint manifest
+    unchanged."""
     extra = {
         "resume_schema": RESUME_SCHEMA,
         "arch": cfg.name,
@@ -103,6 +113,8 @@ def capture_resume_extra(cfg: ModelConfig, step: int, *, loader=None,
         "transport_cache": {},
         "tune_cache": {},
     }
+    if anneal is not None:
+        extra["bit_anneal"] = AnnealSchedule.parse(anneal).spec
     if loader is not None:
         extra["loader"] = {"served": int(loader.served),
                            "skips": int(loader.skips),
@@ -112,7 +124,8 @@ def capture_resume_extra(cfg: ModelConfig, step: int, *, loader=None,
     return extra
 
 
-def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int) -> int:
+def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int, *,
+                       anneal=None) -> int:
     """Validate a checkpoint's resume payload and return the data step to
     resume from (the checkpoint step for a payload from before the schema,
     whose save convention was step == next data step).
@@ -120,8 +133,9 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int) -> int:
     A checkpoint of another arch is refused: restoring qwen state into
     gemma is silent corruption the shape check alone may not catch.  A
     JAX-written payload's transport and tune caches are not installed (the
-    port has no tuner), and a ``bit_anneal`` entry gets the JAX package's
-    mismatch warning, since the port trains without an anneal (A10)."""
+    port has no tuner).  A payload annealed under another spec than
+    ``anneal`` is refused; a spec on one side only warns, since the
+    effective bits change at the restart boundary."""
     extra = extra or {}
     arch = extra.get("arch")
     if arch is not None and arch != cfg.name:
@@ -129,11 +143,19 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int) -> int:
             f"checkpoint was written by arch {arch!r}; refusing to resume "
             f"it as {cfg.name!r}")
     ckpt_anneal = extra.get("bit_anneal")
-    if ckpt_anneal is not None:
+    cur_anneal = (AnnealSchedule.parse(anneal).spec if anneal is not None
+                  else None)
+    if ckpt_anneal is not None and cur_anneal is not None \
+            and ckpt_anneal != cur_anneal:
+        raise ValueError(
+            f"checkpoint was annealed under {ckpt_anneal!r}; resuming with "
+            f"{cur_anneal!r} would change the bit ramp mid-run (pass the "
+            f"same --bit-anneal spec to resume)")
+    if (ckpt_anneal is None) != (cur_anneal is None):
         warnings.warn(
             f"bit-anneal mismatch at resume: checkpoint={ckpt_anneal!r} "
-            f"current=None — the effective bit schedule changes at the "
-            f"restart boundary", RuntimeWarning, stacklevel=2)
+            f"current={cur_anneal!r} — the effective bit schedule changes "
+            f"at the restart boundary", RuntimeWarning, stacklevel=2)
     caches = {k: len(extra.get(k) or {})
               for k in ("transport_cache", "tune_cache")}
     if any(caches.values()):
@@ -218,17 +240,28 @@ def _sq_sum(tree, like: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class StepOptions:
     """Everything that selects how a train step executes.  ``None`` for
-    ``kernel_backend`` defers to the policy.  (The JAX package's pipeline,
-    overlap, transport and bit-anneal fields come with the slices that run
-    them: ROADMAP A11, A10.)"""
+    ``kernel_backend`` or ``bit_anneal`` defers to the policy;
+    ``bit_anneal`` takes a spec string (normalised to an
+    ``AnnealSchedule``) or an ``AnnealSchedule``.  (The JAX package's
+    pipeline, overlap and transport fields come with multi-GPU: ROADMAP
+    A11.)"""
 
     engine: str = "taxonn"
     kernel_backend: Optional[str] = None
+    bit_anneal: Any = None  # spec str | AnnealSchedule | None
 
     def __post_init__(self):
         if self.engine not in ("taxonn", "autodiff"):
             raise ValueError(f"engine must be 'taxonn' or 'autodiff', "
                              f"got {self.engine!r}")
+        if isinstance(self.bit_anneal, str):
+            object.__setattr__(self, "bit_anneal",
+                               AnnealSchedule.parse(self.bit_anneal))
+        elif (self.bit_anneal is not None
+              and not isinstance(self.bit_anneal, AnnealSchedule)):
+            raise ValueError(
+                f"bit_anneal must be an anneal spec string or an "
+                f"AnnealSchedule, got {type(self.bit_anneal).__name__}")
         if self.kernel_backend not in (None, "off", "emulate", "int8", "auto"):
             raise ValueError(f"kernel_backend must be 'off', 'emulate', "
                              f"'int8' or 'auto', got {self.kernel_backend!r}")
@@ -249,10 +282,14 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
     backend = resolve_backend(
         options.kernel_backend if options.kernel_backend is not None
         else policy.kernel_backend, dev)
+    anneal = options.bit_anneal
+    if anneal is None and policy.bit_anneal:
+        anneal = AnnealSchedule.parse(policy.bit_anneal)
     if options.engine == "autodiff":
+        # the anneal is accepted for parity with the engine; bits unused
         step = _autodiff_step(cfg, optim_cfg, dev)
     else:
-        step = _taxonn_step(cfg, policy, optim_cfg, dev)
+        step = _taxonn_step(cfg, policy, optim_cfg, dev, anneal)
 
     def run(params, opt_state, batch, hyper: Hyper, bits=None, rng=None):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -261,7 +298,7 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
         with kernel_backend_ctx(backend, dev):
             return step(params, opt_state, batch, hyper, bits, rng)
 
-    run.backend, run.device = backend, dev
+    run.backend, run.device, run.bit_anneal = backend, dev, anneal
     return run
 
 
@@ -282,10 +319,15 @@ def _autodiff_step(cfg, optim_cfg, dev):
     return step
 
 
-def _taxonn_step(cfg, policy, optim_cfg, dev):
+def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
     scale = policy.grad_scale
 
     def step(params, opt_state, batch, hyper, bits, rng=None):
+        if anneal is not None:
+            # the step-indexed F-bit ramp: the bits stay runtime data, and
+            # a resume at step N continues the ramp bitwise
+            bits = anneal.apply_tree({k: v.to(dev) for k, v in bits.items()},
+                                     hyper.step)
         main_bits = bits["blocks"].to(dev)
         bnd = {k: params[k] for k in boundary_keys(params)}
         tokens = batch["tokens"]

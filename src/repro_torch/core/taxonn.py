@@ -31,15 +31,17 @@ leaves; here they are Python loops over layer views of the same stacked
 leaves, and the X_i caches are a list.  The dense body has no operand
 shared across layers, so the JAX package's ``shared`` arguments (hybrid's
 tied attention block, encdec's encoder output) come with those families
-(A9).  The JAX package's options for the multi-device engine (the dW
-all-reduce, its codec, overlap and transports, ``grad_tap_stochastic``:
-A11) and the bit anneal (A10) are not fields of the port's
-``QuantPolicy`` yet: each comes with the slice that runs it.
+(A9).  ``QuantPolicy.bit_anneal`` carries a step-indexed F-bit ramp
+(``search.anneal``) that ``core.steps.make_train_step`` applies to the
+step's bits.  The JAX package's options for the multi-device engine (the
+dW all-reduce, its codec, overlap and transports, ``grad_tap_stochastic``)
+are not fields of the port's ``QuantPolicy`` yet: they come with
+multi-GPU (A11).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -68,6 +70,11 @@ class QuantPolicy:
     # kernels, f32), "int8" (int8 operands, int32 sums), "auto" (off on
     # the CPU, int8 on CUDA)
     kernel_backend: str = "auto"
+    # Progressive bitwidth-annealing spec ("0:16,200:12,..." — see
+    # search.anneal.AnnealSchedule).  Consumed by make_train_step: the
+    # effective per-layer F bits become a step-indexed ramp applied on top
+    # of the run's BitSchedule.  None = no anneal.
+    bit_anneal: Optional[str] = None
 
     @staticmethod
     def off() -> "QuantPolicy":

@@ -12,7 +12,11 @@ kernels, once per call, as the JAX package does; the kernels quantize each
 normed row by its absmax, multiply at int32 and rescale once.
 
 The CUDA kernel is ``csrc/decode_prologue.cu``; ``prologue_plain`` is its
-plain PyTorch version.  ``fused_prologue`` runs the plain version only for
+plain PyTorch version.  It computes the RMSNorm in the rows kernel's own
+order (thread-strided quads summed by fused multiply-adds, then each
+warp's butterfly, then the warps in order) and divides where the kernel
+divides, so on the int8 datapath, whose sums are exact, it equals the
+kernel bit for bit on any device.  ``fused_prologue`` runs the plain version only for
 CPU tensors; a CUDA tensor launches the kernel or raises.
 
 ``_plan`` picks the launch.  The q, k and v projections are one space of
@@ -49,6 +53,8 @@ MAX_SPLITS = 8            # the portable thread-block cluster size
 TILE_K = {4: 32, 1: 128}
 _PITCH = {4: STRIP * 4 + 16, 1: STRIP + 16}
 _STAGES = 4
+# the rows kernel's block: threads, and warps of 32
+THREADS, WARPS = 256, 8
 
 
 class Plan(NamedTuple):
@@ -155,20 +161,63 @@ def _lib():
 # Plain PyTorch version (the row math of the JAX package's _prologue_rows*)
 # ---------------------------------------------------------------------------
 
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b rounded once (PyTorch's CUDA division by a Python number
+    multiplies by its reciprocal instead)."""
+    return a / torch.full_like(a, b)
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+           ) -> torch.Tensor:
+    """``fmaf(a, b, c)``: a * b + c rounded to f32 once.  In f64 the
+    product of two f32 is exact; the sum is rounded to odd (TwoSum's
+    remainder moves an even result one ulp towards it), which a rounding
+    to nearest f32 then turns into the correctly rounded f32 result."""
+    p, c = a.double() * b.double(), c.double()
+    s = p + c
+    z = s - p
+    err = (p - (s - z)) + (c - z)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, torch.full_like(s, float("inf")),
+                       torch.full_like(s, -float("inf")))
+    return torch.where((err != 0) & even, torch.nextafter(s, away),
+                       s).to(torch.float32)
+
+
 def _rms_rows(x2, nscale, eps: float):
+    """Each row's RMSNorm as the rows kernel computes it: thread t of
+    THREADS sums the squares of its quads (elements 4t .. 4t+3, then every
+    4*THREADS on) by fused multiply-adds; each warp adds its 32 lanes by
+    the xor butterfly (offsets 16, 8, 4, 2, 1; lane 0's sums); the warps'
+    sums are added in order; then 1 / sqrt(sum / D + eps), and
+    (x * inv) * scale rounded to the compute dtype."""
     dtype = x2.dtype
     xf = x2.to(torch.float32)
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * nscale).to(dtype)
+    rows, d = xf.shape
+    quads = torch.nn.functional.pad(xf, (0, -d % (4 * THREADS))).reshape(
+        rows, -1, THREADS, 4)
+    ss = torch.zeros((rows, THREADS), dtype=torch.float32, device=xf.device)
+    for j in range(quads.shape[1]):
+        for i in range(4):
+            v = quads[:, j, :, i]
+            ss = _fma32(v, v, ss)
+    lanes = ss.reshape(rows, WARPS, 32)
+    while lanes.shape[-1] > 1:
+        half = lanes.shape[-1] // 2
+        lanes = lanes[..., :half] + lanes[..., half:]
+    total = lanes[:, 0, 0]
+    for w in range(1, WARPS):
+        total = total + lanes[:, w, 0]
+    inv = torch.reciprocal(torch.sqrt(_div(total, d) + eps))
+    return ((xf * inv[:, None]) * nscale).to(dtype)
 
 
 def _rope_rows(x3, positions, theta: float):
     """Half-rotation RoPE of [R, H, hd] rows at positions [R]."""
     hd = x3.shape[-1]
     half = hd // 2
-    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
-                                          device=x3.device) / half))
+    freqs = 1.0 / (theta ** _div(torch.arange(0, half, dtype=torch.float32,
+                                              device=x3.device), half))
     angles = positions[..., None].to(torch.float32) * freqs
     cos = torch.cos(angles)[:, None, :]
     sin = torch.sin(angles)[:, None, :]
@@ -203,7 +252,7 @@ def prologue_plain(x2, nscale, wq2, wk2, wv2, biases, positions, *,
     else:
         xf = xn.to(torch.float32)
         amax = torch.amax(torch.abs(xf), dim=-1)
-        sx = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        sx = torch.where(amax > 0, _div(amax, 127.0), torch.ones_like(amax))
         qx = quantize_int8(xf, sx[:, None])
 
         def proj(qw, sw, heads):

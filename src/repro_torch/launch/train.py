@@ -22,9 +22,17 @@ stochastically with the JAX driver's keys, ``fold_in(key(1), step)`` a
 step, so the noise is JAX's and depends only on the step: the resume
 payload carries no PRNG state and a resumed run draws the same noise.
 
+``--bit-anneal`` ramps the F bits with the step (``search.anneal``); the
+spec rides in the checkpoint, and a resume under another spec is refused.
+``--bit-search GROUPS`` runs a per-layer-group (I,F) sensitivity sweep
+(``search.sensitivity.run_sweep_lm``, on the card its probes launch the
+engine's kernels) before training, writes ``bit_plan.json`` and its int8
+serving export ``bit_plan_serve.json`` under ``--ckpt-dir`` (or
+``artifacts/``), checks the train<->serve int8 parity
+(``search.export``) and trains with the plan.
+
 The JAX driver's mesh, pipeline, overlap, transport and dW-compression
-flags wait for multi-GPU (ROADMAP A11), and ``--bit-search`` and
-``--bit-anneal`` for ``search/`` (A10); argparse refuses them.
+flags wait for multi-GPU (ROADMAP A11); argparse refuses them.
 """
 from __future__ import annotations
 
@@ -85,6 +93,27 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["sgd", "momentum", "momentum8", "adam"])
     ap.add_argument("--quantize", action="store_true",
                     help="enable the TaxoNN per-layer (I,F) schedule")
+    ap.add_argument("--bit-anneal", default=None, metavar="SPEC",
+                    help="progressive bitwidth-annealing schedule, e.g. "
+                         "'0:off,100:16,400:12': comma-separated STEP:VALUE "
+                         "milestones where VALUE is an F-bit floor applied "
+                         "on top of the per-layer schedule ('off' = "
+                         "quantization disabled until the next milestone); "
+                         "bits stay runtime data so the ramp needs no other "
+                         "step object and resume continues it bitwise (see "
+                         "repro_torch.search.anneal)")
+    ap.add_argument("--bit-search", type=int, default=0, metavar="GROUPS",
+                    help="run a per-layer-group (I,F) sensitivity sweep on "
+                         "this arch before training (GROUPS contiguous "
+                         "layer groups; 0 = off) and train with the "
+                         "selected plan; the BitPlan + its serving int8 "
+                         "export are saved next to the checkpoints (or "
+                         "under artifacts/)")
+    ap.add_argument("--bit-target", type=float, default=0.1,
+                    help="--bit-search loss-delta target vs the f32 "
+                         "baseline probe")
+    ap.add_argument("--bit-probe-steps", type=int, default=24,
+                    help="--bit-search training steps per probe")
     ap.add_argument("--engine", default="taxonn",
                     choices=["taxonn", "autodiff"])
     ap.add_argument("--kernel-backend", default="auto",
@@ -137,8 +166,37 @@ def main(argv=None):
               else QuantPolicy.off())
     policy = dataclasses.replace(policy, kernel_backend=args.kernel_backend,
                                  stochastic=args.stochastic,
-                                 quantize_updates=args.quantize_updates)
+                                 quantize_updates=args.quantize_updates,
+                                 bit_anneal=args.bit_anneal)
     bits = default_bits(cfg, enabled=args.quantize)
+
+    if args.bit_search:
+        from repro_torch.search import export as bit_export
+        from repro_torch.search.sensitivity import SweepConfig, run_sweep_lm
+        if not args.quantize:
+            print("[train] note: --bit-search without --quantize — the "
+                  "sweep runs quantized probes but training stays fp32",
+                  flush=True)
+        sweep = SweepConfig(num_groups=args.bit_search,
+                            target=args.bit_target,
+                            probe_steps=args.bit_probe_steps,
+                            batch=args.global_batch, lr=args.lr)
+        t_sweep = time.time()
+        bit_plan = run_sweep_lm(cfg, ocfg, sweep, seq_len=args.seq_len,
+                                log=lambda s: print(f"[bit-search] {s}",
+                                                    flush=True),
+                                device=dev)
+        print(f"[train] bit-search ({bit_plan.probes} probes, "
+              f"{time.time() - t_sweep:.1f}s): {bit_plan.describe()}",
+              flush=True)
+        out_dir = args.ckpt_dir or "artifacts"
+        bit_plan.save(f"{out_dir}/bit_plan.json")
+        serve_plan = bit_export.to_serve_plan(bit_plan)
+        bit_export.save_serve_plan(serve_plan, f"{out_dir}/bit_plan_serve.json")
+        parity = bit_export.verify_train_serve_parity(bit_plan, device=dev)
+        print(f"[train] train<->serve int8 parity: "
+              f"{'OK' if parity['ok'] else 'VIOLATED'} {parity}", flush=True)
+        bits["blocks"] = bit_plan.to_bit_schedule(enabled=args.quantize)
     sched = cosine_schedule(args.lr, warmup=max(10, args.steps // 20),
                             total=args.steps)
 
@@ -154,7 +212,8 @@ def main(argv=None):
             and latest_step(args.ckpt_dir) is not None):
         (params, opt_state), ckpt_step, extra = restore_checkpoint(
             args.ckpt_dir, (params, opt_state))
-        start_step = apply_resume_extra(extra, cfg, ckpt_step)
+        start_step = apply_resume_extra(extra, cfg, ckpt_step,
+                                        anneal=args.bit_anneal)
         print(f"[train] resumed from step {start_step}", flush=True)
 
     ckpt = (AsyncCheckpointer(args.ckpt_dir,
@@ -167,13 +226,16 @@ def main(argv=None):
                                      start_step=start_step)
 
     step_fn = make_train_step(cfg, policy, ocfg,
-                              StepOptions(engine=args.engine), device=dev)
+                              StepOptions(engine=args.engine,
+                                          bit_anneal=args.bit_anneal),
+                              device=dev)
     print(f"[train] engine {args.engine}, kernel backend {step_fn.backend}",
           flush=True)
 
     def ckpt_extra(next_step):
         return capture_resume_extra(cfg, next_step, loader=loader,
-                                    user_extra={"loss": losses[-1]})
+                                    user_extra={"loss": losses[-1]},
+                                    anneal=args.bit_anneal)
 
     def maybe_flip(next_step):
         # bit-flip drills corrupt a LANDED checkpoint: join the async write

@@ -372,18 +372,43 @@ def test_update_sensitivity_justifies_card_tolerance():
     dict(overlap="on"), dict(dw_transport="ring"),
     dict(bit_anneal="0:16")])
 def test_unported_policy_options_raise(policy_kw):
-    """The JAX policy's multi-device and anneal options are not fields of
-    the port's policy yet: asking for one fails at once."""
+    """The JAX policy's multi-device options are not fields of the port's
+    policy yet: asking for one fails at once.  Its anneal is ported
+    (``search.anneal``): ``bit_anneal`` is accepted, and the step built from
+    the policy applies the ramp to its bits."""
+    if "bit_anneal" in policy_kw:
+        pol = QuantPolicy(**policy_kw)
+        assert pol.bit_anneal == "0:16"
+        _, tc, _, _ = _setup("tiny")
+        p0, ocfg = _tparams("tiny"), OptimizerConfig(kind="sgd")
+        step = make_train_step(tc, pol, ocfg, device="cpu")
+        plain = make_train_step(tc, QuantPolicy(), ocfg, device="cpu")
+        assert step.bit_anneal.spec == "0:16"
+        bits = default_bits(tc)
+        got = _run(step, p0, ocfg, _batch(), bits)[0]
+        want = _run(plain, p0, ocfg, _batch(),
+                    step.bit_anneal.apply_tree(bits, 0))[0]
+        unannealed = _run(plain, p0, ocfg, _batch(), bits)[0]
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                     tree_leaves(want)))
+        assert not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(got), tree_leaves(unannealed)))
+        return
     with pytest.raises(TypeError, match="unexpected keyword"):
         QuantPolicy(**policy_kw)
 
 
 def test_unported_step_options_raise():
     _, tc, _, _ = _setup("tiny")
-    for kw in (dict(bit_anneal="0:16"), dict(pipeline_schedule="gpipe"),
+    for kw in (dict(pipeline_schedule="gpipe"),
                dict(overlap="on"), dict(transport="ring")):
         with pytest.raises(TypeError, match="unexpected keyword"):
             StepOptions(**kw)
+    # the anneal is ported (search.anneal): accepted, normalised, exposed
+    opts = StepOptions(bit_anneal="0:16")
+    assert opts.bit_anneal.spec == "0:16"
+    assert make_train_step(tc, options=opts,
+                           device="cpu").bit_anneal is opts.bit_anneal
     with pytest.raises(ValueError):
         StepOptions(engine="sgd")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):

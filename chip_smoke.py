@@ -11,13 +11,17 @@ Phases (any failure exits non-zero before the result line is printed):
                process per source, all at once) into ``build/kernels``.
 3. kernels  -- each kernel against its plain PyTorch version on the card, at
                the full-width decode shapes of qwen1.5-0.5b (8 slots; for
-               fxp_matmul also the prefill chunk of 16 rows) and the
+               fxp_matmul also the prefill chunk of 16 rows, and
+               zamba2-2.7b's shared-block products at 8 slots and a
+               128-token prefill, ``ZAMBA2_FXP``) and the
                full-width LeNet-5 training shapes (batch 128, and 1024 so
                that a launch moves more than a few hundred KB), for both
                datapaths, with the tolerance stated beside each check;
                paged_attention and decode_prologue also at yi-34b's
                attention widths (D 7168, 56 heads, 8 KV heads of 128, 8
-               slots; attention over up to 4096 positions) and
+               slots; attention over up to 4096 positions),
+               decode_prologue also at zamba2-2.7b's (D 2560, 32 heads of
+               80, no bias), and
                sgd_dw_update also in the dW-only form at the qwen1.5-0.5b
                MLP shape (T 2048, 1024 x 2816); bp_gstep also at the dense
                engine's dx shapes there (mlp_up: G [2048, 2816] against W
@@ -70,6 +74,26 @@ Phases (any failure exits non-zero before the result line is printed):
                snapshot after 8 decode steps, through the checkpoint layer,
                restored into a fresh scheduler, whose streams must equal
                the uninterrupted run's.
+4b. serve_ssm -- contiguous serving of the ssm and hybrid families
+               through ``launch.serve.main`` at full width, random f32
+               masters from seed 0: zamba2-2.7b (54 layers: 9 groups of
+               one application of the weight-tied shared block and 6
+               Mamba2 layers, d 2560) and mamba2-370m (48 Mamba2 layers),
+               each with 8 slots, 8 prompts of 128 tokens, 32 new tokens,
+               bf16 caches, the int8 backend; every request finishes with
+               32 tokens and the launches are exactly 63 fxp_matmul a
+               prefill and 27 fxp_matmul + 9 decode_prologue a decode step
+               (zamba2) and none at all (mamba2: its products are plain
+               PyTorch, as JAX computes them outside any kernel).  Then,
+               from the engine's entry points: each prefill's launches and
+               ms, a decode step's launches, a profile of 5 decode steps,
+               and a snapshot after 8 decode steps restored to equal
+               streams.  Last, zamba2 cut to one group at full width does
+               a prefill of 8 x 40 tokens and a decode step on the card
+               and on the CPU from the same weights and tokens, under int8
+               and emulate: the logits within SSM_PARITY_TOL, and the
+               same card run with a dropped K split or K tile of the down
+               projection beyond it.
 5. train    -- the port's LeNet-5 train step (``core.lenet``), the paper's
                Fig. 3 network at full width (784-256-256-256-256-10), f32
                masters from seed 0, Table-I MNIST (I,F) points, on the
@@ -143,7 +167,7 @@ Phases (any failure exits non-zero before the result line is printed):
                ``{"ok": true, "device": {...}}``.
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
-train, noise, train_lm, search and train_driver (for example ``--phases
+serve_ssm, train, noise, train_lm, search and train_driver (for example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
 the result line is printed only when every phase ran.  The script imports
 nothing of JAX nor of the JAX package ``repro``.
@@ -163,8 +187,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "edges", "serve", "train", "noise",
-          "train_lm", "search", "train_driver")
+PHASES = ("device", "build", "kernels", "edges", "serve", "serve_ssm",
+          "train", "noise", "train_lm", "search", "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -287,12 +311,17 @@ def check_fxp_matmul(torch, dev, flush, gen):
         ("int8", torch.int8, torch.int8, (None, None, None), "identity"),
         ("int8", torch.int8, torch.int8, (None, None, (4, 10)), "silu"),
     ]
-    for (m, k, n) in shapes:
+    # zamba2-2.7b's shared block (ZAMBA2_FXP): the int8 rows serve_ssm runs
+    # and the emulate row of its parity check (bf16 X, f32 W)
+    zamba = [v for v in variants if v[0] == "int8"
+             or v[1:3] == (torch.bfloat16, torch.float32)]
+    for (m, k, n), vs in ([(s, variants) for s in shapes]
+                          + [(s, zamba) for s in ZAMBA2_FXP]):
         x = torch.randn((m, k), generator=gen, device=dev)
         w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
         qx, sx = quantize_int8_absmax(x)
         qw, sw = quantize_int8_absmax(w)
-        for datapath, xdt, wdt, (xa, wb, ob), act in variants:
+        for datapath, xdt, wdt, (xa, wb, ob), act in vs:
             if (m, k, n) == (5, 1000, 333) and ob is not None:
                 continue
             if m == BS and (xdt == torch.bfloat16 or act != "identity"):
@@ -374,14 +403,17 @@ def check_fxp_matmul(torch, dev, flush, gen):
 
 
 # the prologue's phase-3 shapes: qwen1.5-0.5b's attention front (8 slots,
-# bias; eps 1e-6 as the first rows of this check had it), and yi-34b's
+# bias; eps 1e-6 as the first rows of this check had it), yi-34b's
 # (configs/yi_34b.py: 56 heads, 8 KV heads of 128, rope theta 5e6, no
-# bias) at 8 slots
+# bias) at 8 slots, and zamba2-2.7b's shared block (configs/zamba2_2_7b.py:
+# d 2560, 32 heads of 80, no bias, theta 1e4) at serve_ssm's 8 slots
 PROLOGUE_SHAPES = (
     dict(b=B, d=D, h=H, hkv=HKV, hd=HD, bias=True, theta=1e6, eps=1e-6,
          variants=(("float32", "emulate"), ("float32", "int8"),
                    ("bfloat16", "emulate"), ("bfloat16", "int8"))),
     dict(b=8, d=7168, h=56, hkv=8, hd=128, bias=False, theta=5e6, eps=1e-5,
+         variants=(("bfloat16", "int8"), ("bfloat16", "emulate"))),
+    dict(b=8, d=2560, h=32, hkv=32, hd=80, bias=False, theta=1e4, eps=1e-5,
          variants=(("bfloat16", "int8"), ("bfloat16", "emulate"))),
 )
 
@@ -1104,7 +1136,8 @@ def check_fxp_matmul_edges(torch, dev, gen):
     tiled path (M = 17) at ragged and unaligned shapes (N = 10 and 333,
     K = 784 and 1000, operands 1 element off a 16-byte boundary), with the
     tolerances of the phase-3 rows; then every split count the plan could
-    pick at the decode, prefill and LeNet shapes: int8 bitwise for each."""
+    pick at the decode, prefill and LeNet shapes and at zamba2-2.7b's five
+    shared-block products: int8 bitwise for each."""
     from repro_torch.kernels import fxp_matmul as FM
     from repro_torch.kernels.common import sm_count
     from repro_torch.quant.int8 import quantize_int8_absmax
@@ -1153,8 +1186,8 @@ def check_fxp_matmul_edges(torch, dev, gen):
                                         f"+{off}")
                         n += 1
     n_sm = sm_count(dev)
-    for m, k, nn in ((B, D, FF), (B, FF, D), (BS, FF, D), (128, LENET_IN,
-                                                            LENET_H)):
+    for m, k, nn in ((B, D, FF), (B, FF, D), (BS, FF, D),
+                     (128, LENET_IN, LENET_H)) + ZAMBA2_FXP:
         x = torch.randn((m, k), generator=gen, device=dev)
         w = torch.randn((k, nn), generator=gen, device=dev) * k ** -0.5
         (qx, sx), (qw, sw) = quantize_int8_absmax(x), quantize_int8_absmax(w)
@@ -1182,7 +1215,8 @@ def check_fxp_matmul_edges(torch, dev, gen):
 # B 1, 5, 16, 24 (two passes); hd 64, 120 (h2o-danube3-4b: 4-byte W copies
 # in int8, a strip of 28 pairs), 128, 256 (gemma-7b: 4 strips a head); GQA
 # groups 1, 4, 7; D 1000 (a ragged last tile) and 3840; x 1 element off a
-# 16-byte boundary; hd 20 (10 pairs: single-byte W copies in int8)
+# 16-byte boundary; hd 20 (10 pairs: single-byte W copies in int8); hd 80
+# (zamba2-2.7b: a strip of 32 pairs and one of 8, 4-byte W copies in int8)
 PROLOGUE_EDGES = ((1, 1000, 4, 4, 64, True, True, 0),
                   (5, 3840, 32, 8, 120, False, True, 1),
                   (16, 1000, 28, 4, 128, True, False, 0),
@@ -1190,7 +1224,8 @@ PROLOGUE_EDGES = ((1, 1000, 4, 4, 64, True, True, 0),
                   (8, 1024, 14, 2, 120, True, True, 1),
                   (3, 3840, 8, 2, 256, True, True, 0),
                   (24, 1024, 7, 1, 64, False, True, 0),
-                  (2, 1000, 3, 1, 20, True, True, 0))
+                  (2, 1000, 3, 1, 20, True, True, 0),
+                  (5, 2560, 6, 2, 80, False, True, 1))
 
 
 def check_decode_prologue_edges(torch, dev, gen):
@@ -1818,6 +1853,34 @@ CONT_DECODE_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=72,
 SNAPSHOT_AFTER = 8
 
 
+# serve_ssm: contiguous serving of full-width zamba2-2.7b (hybrid:
+# 9 groups of one application of the weight-tied shared block and 6 Mamba2
+# layers) and mamba2-370m (ssm: 48 Mamba2 layers), 8 slots, 8 prompts of
+# CONT_PROMPT tokens, CONT_NEW new, bf16 caches, the int8 backend.  The
+# Mamba layers compute every product in plain PyTorch, as JAX does outside
+# any Pallas kernel: only the shared block launches.  A prefill (under
+# engine.prefill's "auto", int8 on the card) runs its q, k, v, o, gate, up
+# and down on fxp_matmul, 7 an application; a decode step the fused
+# prologue and the MLP's three units, the o-projection and the attention
+# in plain PyTorch
+HYBRID_ARCH, SSM_ARCH = "zamba2-2.7b", "mamba2-370m"
+HYBRID_PREFILL_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=7 * 9)
+HYBRID_DECODE_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=3 * 9,
+                              decode_prologue=9)
+SSM_LAUNCHES = {name: 0 for name in SOURCES}
+# the (M, K, N) of the shared block's fxp_matmul launches in serve_ssm
+# (configs/zamba2_2_7b.py: d 2560, 32 heads and 32 KV heads of 80, FF
+# 10240): a decode step at B slots runs gate, up (B x 2560 x 10240) and
+# down (B x 10240 x 2560); a prefill of one CONT_PROMPT-token prompt runs
+# q, k, v, o (T x 2560 x 2560), gate, up and down.  Phase 3 times them and
+# the edges sweep every split count at each
+ZAMBA2_D, ZAMBA2_FF = 2560, 10240
+ZAMBA2_FXP = ((B, ZAMBA2_D, ZAMBA2_FF), (B, ZAMBA2_FF, ZAMBA2_D),
+              (CONT_PROMPT, ZAMBA2_D, ZAMBA2_D),
+              (CONT_PROMPT, ZAMBA2_D, ZAMBA2_FF),
+              (CONT_PROMPT, ZAMBA2_FF, ZAMBA2_D))
+
+
 def _cont_prompts(torch, cfg, seed=11):
     import numpy as np
 
@@ -1993,6 +2056,250 @@ def snapshot_restore(torch, dev, params, cfg, mode):
         f"into a fresh scheduler ({restore_s:.3f} s): all {B} streams of "
         f"{CONT_NEW} tokens equal the uninterrupted run's")
     return res
+
+
+SSM_SERVE_RUNS = ((HYBRID_ARCH, HYBRID_PREFILL_LAUNCHES,
+                   HYBRID_DECODE_LAUNCHES),
+                  (SSM_ARCH, SSM_LAUNCHES, SSM_LAUNCHES))
+# the card-against-CPU check: zamba2-2.7b at full width cut to one group
+# (6 Mamba2 layers and one application of the shared block), B prompts of
+# SSM_PARITY_LEN tokens (one SSD chunk), a prefill and one decode step
+# under each backend from the same weights and tokens, bf16 caches.  Most
+# of the sound gap is the Mamba layers' bf16 products rounding in another
+# order on each side (cuBLAS against the CPU's), so the limits come from
+# this check's own readings (PERF.md; H100 80GB HBM3, 700 W): sound
+# runs read |d|/|ref| 0.0229 (int8) and 0.0206 (emulate), the same in
+# every run.  The controls, the card's run again with the last K columns
+# of each down projection's X zeroed, as a kernel that drops partial sums
+# would compute (SSM_FAULTS: one of the 4 K splits of the decode plan, and
+# one K tile of 128 of its 80), read 0.92-0.94 and 0.23-0.24 and must
+# exceed the limit.  The limit, 0.05, is about twice the sound readings
+# and a fifth of the finer control's
+SSM_PARITY_LEN = 40
+SSM_PARITY_TOL = {"int8": 0.05, "emulate": 0.05}
+SSM_FAULTS = (("dropped K split", ZAMBA2_FF // 4),
+              ("dropped K tile", 128))
+
+
+def _ssm_serve_argv(arch):
+    return ["--arch", arch, "--device", "cuda", "--seed", "0",
+            "--slots", str(B), "--requests", str(B),
+            "--prompt-len", str(CONT_PROMPT), "--max-new", str(CONT_NEW),
+            "--max-len", str(CONT_MAX_LEN), "--cache-dtype", "bfloat16",
+            "--kernel-backend", "int8"]
+
+
+def serve_ssm_run(torch, dev, arch, pre_launches, dec_launches):
+    """The serve CLI on ``arch`` in its default mode (contiguous for these
+    families): every request finishes with CONT_NEW tokens and the whole
+    serve launches exactly B prefills' and its decode steps' kernels.
+    Then, from the engine's own entry points on the weights the CLI
+    served: each prefill's launches and ms, one decode step's launches, a
+    profile of PROFILE_STEPS decode steps, and a snapshot after
+    SNAPSHOT_AFTER decode steps restored to equal streams."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve
+    from repro_torch.serving import engine as E
+
+    t_phase = time.perf_counter()
+    K.reset_launch_counts()
+    report = serve.main(_ssm_serve_argv(arch))
+    counts = K.launch_counts()
+    steps = report["decode_steps"]
+    require(report["mode"] == "contiguous" and len(report["finished"]) == B
+            and all(len(r.generated) == CONT_NEW
+                    for r in report["finished"]),
+            f"serve {arch}: mode {report['mode']}, "
+            f"{len(report['finished'])}/{B} finished")
+    want = {k: B * pre_launches[k] + steps * dec_launches[k] for k in counts}
+    require(steps == CONT_NEW - 1 and counts == want,
+            f"serve {arch}: {steps} decode steps, launches {counts}, "
+            f"expected {want}")
+    rec = dict(run=f"serve_ssm/{arch}/int8/bfloat16", arch=arch,
+               backend="int8", cache="bfloat16", counts=counts,
+               tokens=report["tokens"], seconds=report["seconds"],
+               tokens_per_s=report["tokens"] / report["seconds"],
+               decode_steps=steps,
+               ms_per_decode_step=1e3 * report["decode_seconds"]
+               / max(steps, 1))
+    cfg, params = report["cfg"], report["params"]
+    del report
+    say(f"serve {arch} contiguous int8/bfloat16: {rec['tokens']} tokens in "
+        f"{rec['seconds']:.2f} s = {rec['tokens_per_s']:.1f} tok/s, {steps} "
+        f"decode steps at {rec['ms_per_decode_step']:.2f} ms/step, launches "
+        f"{counts}" + ("" if any(counts.values()) else
+                       " (none: the Mamba layers are plain PyTorch, as in "
+                       "JAX)"))
+
+    state = E.init_decode_state(cfg, B, CONT_MAX_LEN, torch.bfloat16, dev)
+    toks = torch.zeros((B, 1), dtype=torch.int32)
+    prefill_ms = []
+    for i, p in enumerate(_cont_prompts(torch, cfg)):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, one = E.prefill(params, cfg,
+                                {"tokens": torch.from_numpy(p[None])},
+                                CONT_MAX_LEN, torch.bfloat16)
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        require(K.launch_counts() == pre_launches,
+                f"{arch} prefill {i}: launches {K.launch_counts()}, "
+                f"expected {pre_launches}")
+        E.merge_slot(cfg, state["caches"], one["caches"], i)
+        state["pos"] = one["pos"]
+        toks[i, 0] = int(torch.argmax(logits[0]))
+    K.reset_launch_counts()
+    with kops.kernel_backend_ctx("int8", dev):
+        got, _ = E.decode_step(params, cfg, state, toks.to(dev))
+    torch.cuda.synchronize()
+    require(K.launch_counts() == dec_launches,
+            f"{arch} decode: launches {K.launch_counts()}, expected "
+            f"{dec_launches}")
+    require(tuple(got.shape) == (B, cfg.vocab_size)
+            and bool(got.isfinite().all()),
+            f"{arch} decode: logits {tuple(got.shape)} not finite or of the "
+            "wrong shape")
+    rec["prefill_ms"] = prefill_ms
+    rec["prefill_ms_median"] = statistics.median(prefill_ms)
+    say(f"{arch} prefill of {CONT_PROMPT} tokens: median "
+        f"{rec['prefill_ms_median']:.2f} ms (each "
+        + ", ".join(f"{ms:.1f}" for ms in prefill_ms) + f"), launches "
+        f"{pre_launches['fxp_matmul']} fxp_matmul a prefill, "
+        f"{dec_launches['decode_prologue']} decode_prologue + "
+        f"{dec_launches['fxp_matmul']} fxp_matmul a decode step")
+    rec["profile"] = profile_steps(
+        torch, lambda: E.decode_step(params, cfg, state, toks.to(dev)),
+        f"decode {arch} int8", "int8", dev)
+    rec["snapshot"] = snapshot_restore(torch, dev, params, cfg, "contiguous")
+    del params, state
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def _dropped_k(kops, k_full, cut):
+    """Install into ``kops`` an ``fxp_matmul`` that zeroes the last ``cut``
+    K columns of X wherever K is ``k_full``; returns the undo."""
+    real = kops.fxp_matmul
+
+    def faulty(a, b, **kw):
+        if a.shape[-1] == k_full:
+            a = a.clone()
+            a[:, k_full - cut:] = 0
+        return real(a, b, **kw)
+
+    kops.fxp_matmul = faulty
+    return lambda: setattr(kops, "fxp_matmul", real)
+
+
+def _ssm_parity_side(torch, E, K, kops, p, cfg, toks, backend, d, nxt):
+    """One side of the ssm parity check: the prefill's logits, then one
+    decode step's on ``nxt`` (the card's first argmax when given, else
+    this side's), and the launches of each."""
+    K.reset_launch_counts()
+    logits, state = E.prefill(p, cfg, {"tokens": torch.from_numpy(toks)},
+                              SSM_PARITY_LEN + 1, torch.bfloat16,
+                              kernel_backend=backend)
+    if nxt is None:
+        nxt = torch.argmax(logits, dim=-1)[:, None].to(torch.int32).cpu()
+    pre = K.launch_counts()
+    K.reset_launch_counts()
+    with kops.kernel_backend_ctx(backend, d):
+        dlog, _ = E.decode_step(p, cfg, state, nxt.to(d))
+    return logits.cpu(), dlog.cpu(), nxt, (pre, K.launch_counts())
+
+
+def serve_ssm_parity(torch, dev):
+    """A depth-cut zamba2-2.7b (one group, full width) on the card and on
+    the CPU from the same weights and tokens: the prefill's and one
+    decode step's logits under each backend, |d|/|ref| within
+    SSM_PARITY_TOL; the card's side launches exactly one application's
+    kernels; each dropped-K control must exceed the limit."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.serving import engine as E
+
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=full.attn_every)
+    params = lm.init_params(cfg, seed=2, device=dev)
+    params_cpu = _tree_cpu(params)
+    toks = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (B, SSM_PARITY_LEN)).astype(np.int32)
+    groups = lm.hybrid_groups(full)[0]
+    per_app = {k: v // groups for k, v in HYBRID_PREFILL_LAUNCHES.items()}
+    per_dec = {k: v // groups for k, v in HYBRID_DECODE_LAUNCHES.items()}
+    out, gates = [], []
+    for backend in ("int8", "emulate"):
+        tol = SSM_PARITY_TOL[backend]
+        t0 = time.perf_counter()
+        card = _ssm_parity_side(torch, E, K, kops, params, cfg, toks,
+                                backend, dev, None)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        require(card[3] == (per_app, per_dec),
+                f"ssm parity {backend}: card launches {card[3]}, expected "
+                f"{per_app} and {per_dec}")
+        nxt = card[2]
+        t0 = time.perf_counter()
+        cpu = _ssm_parity_side(torch, E, K, kops, params_cpu, cfg, toks,
+                               backend, "cpu", nxt)
+        cpu_s = time.perf_counter() - t0
+        faults = {}
+        for name, cut in SSM_FAULTS:
+            undo = _dropped_k(kops, cfg.d_ff, cut)
+            try:
+                faults[name] = _ssm_parity_side(torch, E, K, kops, params,
+                                                cfg, toks, backend, dev, nxt)
+            finally:
+                undo()
+        rec = dict(backend=backend, tol=f"|d|/|ref| <= {tol}",
+                   card_s=card_s, cpu_s=cpu_s)
+        for i, what in enumerate(("prefill", "decode")):
+            got, ref = card[i], cpu[i]
+            require(tuple(got.shape) == (B, cfg.vocab_size)
+                    and bool(got.isfinite().all()),
+                    f"ssm parity {backend} {what}: logits "
+                    f"{tuple(got.shape)} not finite or of the wrong shape")
+            rel = float((got - ref).norm() / ref.norm())
+            ctrl = {name: float((bad[i] - ref).norm() / ref.norm())
+                    for name, bad in faults.items()}
+            agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+            rec[what] = dict(rel_l2_err=rel, argmax_agreement=agree,
+                             controls=ctrl)
+            say(f"ssm parity {HYBRID_ARCH} 1 group {backend} {what}: "
+                f"|d|/|ref| {rel:.4g} (tol {tol}), argmax agreement "
+                f"{agree:.3f}; controls "
+                + ", ".join(f"{n} {v:.4g}" for n, v in ctrl.items()))
+            gates.append((rel <= tol, f"ssm parity {backend} {what}: "
+                                      f"|d|/|ref| {rel} > {tol}"))
+            gates += [(v > tol, f"ssm parity {backend} {what}: the control "
+                                f"({name}) reads {v} <= {tol}, so the limit "
+                                "cannot see it") for name, v in ctrl.items()]
+        say(f"ssm parity {backend}: card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+        out.append(rec)
+    for ok, msg in gates:         # after every reading is printed
+        require(ok, msg)
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_ssm(torch, dev):
+    """Phase serve_ssm: the two full-width serves, then the parity check."""
+    t0 = time.perf_counter()
+    runs = [serve_ssm_run(torch, dev, *r) for r in SSM_SERVE_RUNS]
+    parity = serve_ssm_parity(torch, dev)
+    secs = time.perf_counter() - t0
+    say(f"serve_ssm: {secs:.1f} s")
+    return runs, parity, secs
 
 
 def profile_steps(torch, step, label, backend, dev, cpu_ops=True):
@@ -3281,6 +3588,11 @@ def main(argv=None) -> int:
         runs.append(cont)
         print(json.dumps({"serve": runs, "decode_parity": parity},
                          default=str), flush=True)
+    if "serve_ssm" in phases:
+        ssm_runs, ssm_par, ssm_s = serve_ssm(torch, dev)
+        runs += ssm_runs
+        print(json.dumps({"serve_ssm": ssm_runs, "ssm_parity": ssm_par,
+                          "seconds": ssm_s}, default=str), flush=True)
     if "train" in phases:
         train, train_par = train_runs(torch, dev)
         runs += train

@@ -6,13 +6,17 @@ paged or contiguous.
         --shared-prefix 64 --max-new 32 --max-len 512 --block-size 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mode contiguous \
         --slots 8 --requests 8 --prompt-len 128 --max-new 32 --max-len 160
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --slots 8 --requests 8 --prompt-len 128 --max-new 32 --max-len 160
 
 Port of ``repro/launch/serve.py``.  ``--mode auto`` is paged where
-``paged_supported`` holds and contiguous otherwise; the port serves the
-dense family (no MLA, no sliding window), and the other families wait for
-ROADMAP A9.  Contiguous mode keeps the JAX scheduler's one decode position
-for the whole batch, so this CLI runs it only on equal-length prompts with
-no ``--eos-id`` (requests admitted together finish together).  It runs on
+``paged_supported`` holds (the dense family) and contiguous otherwise (ssm
+and hybrid, whose state is no KV pool; ``--mode paged`` raises for them,
+as in JAX).  The port serves the dense, ssm and hybrid families (no MLA,
+no sliding window); the others wait for ROADMAP A9.  Contiguous mode keeps
+the JAX scheduler's one decode position for the whole batch, so this CLI
+runs it only on equal-length prompts with no ``--eos-id`` (requests
+admitted together finish together).  It runs on
 the card unless ``--device cpu`` is given, and raises when CUDA is absent.
 Its defaults differ from the JAX package's serve CLI on purpose: the
 kernel backend defaults to ``auto`` (int8 on CUDA, off on the CPU) and
@@ -37,7 +41,7 @@ from repro_torch.launch.train import _reduce
 from repro_torch.models import lm
 from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
                                  ServeConfig, paged_supported)
-from repro_torch.serving.engine import require_dense
+from repro_torch.serving.engine import require_served
 
 
 def make_prompts(rng: np.random.Generator, n: int, vocab: int, lo: int,
@@ -97,23 +101,24 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Serve random prompts to completion.  Returns a report: the finished
-    requests, the scheduler's stats, tokens, decode steps and times."""
+    requests, the scheduler's stats, tokens, decode steps and times, and
+    the model served (``cfg`` and its ``params``)."""
     ap = _parser()
     args = ap.parse_args(argv)
     hi = args.prompt_len_max or args.prompt_len
-    if args.mode == "contiguous" and (hi != args.prompt_len
-                                      or args.eos_id is not None):
-        ap.error("--mode contiguous decodes the whole batch at one position: "
-                 "give equal-length prompts (no --prompt-len-max) and no "
-                 "--eos-id")
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = _reduce(cfg)
-    require_dense(cfg)
+    require_served(cfg)
     mode = args.mode
     if mode == "auto":
         mode = "paged" if paged_supported(cfg) else "contiguous"
+    if mode == "contiguous" and (hi != args.prompt_len
+                                 or args.eos_id is not None):
+        ap.error("contiguous mode decodes the whole batch at one position: "
+                 "give equal-length prompts (no --prompt-len-max) and no "
+                 "--eos-id")
+    device = resolve_device(args.device)
     params = lm.init_params(cfg, seed=args.seed, device=device)
 
     cache_dtype = args.cache_dtype or (
@@ -172,7 +177,8 @@ def main(argv=None) -> dict:
     return {"finished": finished, "requests": args.requests,
             "stats": dict(sched.stats), "tokens": tok, "seconds": dt,
             "decode_steps": steps, "decode_seconds": decode_s[0],
-            "device": str(device), "mode": mode}
+            "device": str(device), "mode": mode, "cfg": cfg,
+            "params": params}
 
 
 if __name__ == "__main__":

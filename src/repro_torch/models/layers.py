@@ -400,6 +400,13 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
             "w_down": _randn(gen, (F, D), s_out)}
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it: x * (1 / (1 + exp(-x))), each
+    op rounded to x's dtype (bitwise JAX's on the CPU in bf16; ``F.silu``
+    rounds once and differs by a bf16 ulp on a third of the values)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
@@ -417,8 +424,7 @@ def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = dense_unit(x, params["w_up"], "gelu", backend)
         return dense_unit(h, params["w_down"], "identity", backend)
     if cfg.mlp_kind in ("swiglu", "geglu"):
-        act = (torch.nn.functional.silu if cfg.mlp_kind == "swiglu"
-               else _gelu_tanh)
+        act = silu if cfg.mlp_kind == "swiglu" else _gelu_tanh
         g = act(x @ params["w_gate"].to(dt))
         u = x @ params["w_up"].to(dt)
         return (g * u) @ params["w_down"].to(dt)

@@ -1,11 +1,18 @@
-"""Model assembly for the dense family (port of the dense subset of
-``models/lm.py``): parameters, the embedding, the layer stack, the chunked
-cross-entropy head and the loss.
+"""Model assembly of the dense, ssm and hybrid families (port of those
+families of ``models/lm.py``): parameters, the embedding, the layer stack,
+the chunked cross-entropy head and the loss.
+
+  dense  : embed -> L x transformer_block -> norm -> CE head
+  ssm    : embed -> L x mamba_block -> norm -> CE head
+  hybrid : embed -> G x (shared transformer block ; K x mamba_block) -> ...
 
 Parameters are a nested dict of tensors in the JAX package's layout: the
 ``blocks`` leaves are stacked on a leading layer axis, so ``wq`` is
-[L, D, H, hd].  ``params_from_numpy`` carries a JAX parameter pytree across
-(given as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``).
+[L, D, H, hd]; the hybrid's Mamba leaves are [G, K, ...] and its one
+weight-tied ``shared_attn`` block is unstacked.  ``params_from_numpy``
+carries a JAX parameter pytree across (given as numpy arrays, e.g.
+``jax.tree.map(np.asarray, params)``).  JAX's layer ``xscan`` is a Python
+loop here.  moe, vlm and encdec raise (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -27,10 +34,10 @@ def _stack(trees: list) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random f32 master weights for the dense family, drawn from a
-    ``torch.Generator`` on ``device`` seeded with ``seed`` (CUDA unless the
-    caller names another; raises when CUDA is absent)."""
-    B._dense_only(cfg)
+    """Random f32 master weights, drawn from a ``torch.Generator`` on
+    ``device`` seeded with ``seed`` (CUDA unless the caller names another;
+    raises when CUDA is absent)."""
+    B.require_ported(cfg)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(seed))
     D, V = cfg.d_model, cfg.vocab_size
@@ -38,9 +45,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
               "final_norm": L.init_norm(D, cfg, gen.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L._randn(gen, (D, V), D ** -0.5)
-    params["blocks"] = _stack([B.init_transformer_block(gen, cfg)
-                               for _ in range(cfg.num_layers)])
+    if cfg.family == "dense":
+        params["blocks"] = _stack([B.init_transformer_block(gen, cfg)
+                                   for _ in range(cfg.num_layers)])
+    elif cfg.family == "ssm":
+        params["blocks"] = _stack([B.init_mamba_block(gen, cfg)
+                                   for _ in range(cfg.num_layers)])
+    else:  # hybrid
+        G, K = hybrid_groups(cfg)
+        params["blocks"] = _stack([
+            _stack([B.init_mamba_block(gen, cfg) for _ in range(K)])
+            for _ in range(G)])
+        params["shared_attn"] = B.init_transformer_block(gen, cfg)
     return params
+
+
+# How each family's main stack consumes operands that are not the layer's
+# own parameters or the flowing activation (the JAX package's contract for
+# its stage-sharded pipeline; the port's engine covers "none" so far):
+#   "none"       self-contained per-layer bodies (dense/moe/vlm/ssm)
+#   "weights"    a weight-tied block applied by every unit (the hybrid's
+#                shared attention block)
+#   "activation" a full-batch activation fanned out to every layer
+#                (encdec's encoder output)
+SHARED_OPERAND_KIND = {
+    "dense": "none", "moe": "none", "vlm": "none", "ssm": "none",
+    "hybrid": "weights", "encdec": "activation",
+}
+
+
+def hybrid_groups(cfg: ModelConfig) -> tuple:
+    """Zamba2-style grouping: the shared block applied every
+    ``attn_every`` Mamba layers -> (G groups, K layers a group)."""
+    K = cfg.attn_every
+    assert cfg.num_layers % K == 0, (cfg.num_layers, K)
+    return cfg.num_layers // K, K
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -63,8 +102,9 @@ def params_from_numpy(tree, device=None):
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
 
 
-def layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked ``blocks`` leaves."""
+def layer_params(blocks: dict, i) -> dict:
+    """Layer ``i``'s parameters: views into the stacked ``blocks`` leaves.
+    ``i`` is an int, or ``(g, k)`` for a hybrid's [G, K, ...] leaves."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in blocks.items()}
 
@@ -87,13 +127,33 @@ def embed_input(params, cfg: ModelConfig, batch: dict):
     return x, positions
 
 
+def walk_stack(params, cfg: ModelConfig):
+    """The main stack in order: one (kind, block params, cache index) per
+    block application, kind "attn" (the transformer block) or "mamba".
+    The cache index names the block's slice of the stacked decode caches:
+    (None, i) in the dense and ssm stacks; in the hybrid's, ("attn", g)
+    for the g-th application of the weight-tied shared block and
+    ("mamba", (g, k)) for Mamba layer k of group g."""
+    if cfg.family == "hybrid":
+        G, K = hybrid_groups(cfg)
+        for g in range(G):
+            yield "attn", params["shared_attn"], ("attn", g)
+            for k in range(K):
+                yield ("mamba", layer_params(params["blocks"], (g, k)),
+                       ("mamba", (g, k)))
+        return
+    kind = "mamba" if cfg.family == "ssm" else "attn"
+    for i in range(cfg.num_layers):
+        yield kind, layer_params(params["blocks"], i), (None, i)
+
+
 def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor):
-    """The main stack, layer by layer. Returns (x_final, aux_sum)."""
+    """The main stack, block by block. Returns (x_final, aux_sum)."""
     auxs = []
-    for i in range(cfg.num_layers):
-        x, aux = B.transformer_block(layer_params(params["blocks"], i), x,
-                                     cfg, positions)
+    for kind, p, _ in walk_stack(params, cfg):
+        block = B.transformer_block if kind == "attn" else B.mamba_block
+        x, aux = block(p, x, cfg, positions)
         auxs.append(aux)
     return x, torch.sum(torch.stack(auxs))
 

@@ -1,19 +1,29 @@
-"""Serving engine of the dense family (port of ``serving/engine.py``):
-prefill + one-token decode against a contiguous per-slot KV cache, and the
-paged KV pool.
+"""Serving engine (port of ``serving/engine.py``): prefill + one-token
+decode against contiguous per-slot caches for the dense, ssm and hybrid
+families, and the paged KV pool for the dense family.
 
-Contiguous cache: every layer's K/V ring buffers stacked on a leading
-layer axis, {"caches": {"k", "v": [L, B, len, kv_heads, head_dim]},
-"pos": int32 scalar}.  ``pos`` is ONE position for the whole slot batch,
-as in the JAX package: ``decode_step`` writes every slot's token at
-``pos`` and attends over positions <= ``pos``, so the batch is well
-defined only for equal-length prompts admitted together (the scheduler's
-contiguous mode).  ``pos`` stays a host tensor, the caches live on the
-device and ``decode_step`` writes them IN PLACE.  ``prefill`` installs
-``kernel_backend or "auto"`` (int8 on CUDA) around the prompt's forward;
-``decode_step`` runs under the caller's backend.  The other families'
-caches (MLA latents, SSM state, hybrid groups, cross-attention) and SWA
-rings wait for ROADMAP A9 and raise.
+Contiguous caches, stacked on leading layer axes, with the JAX package's
+keys, shapes and dtypes, {"caches": ..., "pos": int32 scalar}:
+
+  dense  : {"k", "v": [L, B, len, kv_heads, head_dim]}
+  ssm    : {"h": [L, B, H, N, P] f32, "conv": [L, B, K-1, d_inner + 2N]}
+           (O(1) in the context)
+  hybrid : {"attn": {"k", "v": [G, B, len, kv_heads, head_dim]},
+            "mamba": {"h": [G, K, B, H, N, P] f32,
+                      "conv": [G, K, B, K-1, d_inner + 2N]}}
+           (the weight-tied block keeps one KV cache per application)
+
+``pos`` is ONE position for the whole slot batch, as in the JAX package:
+``decode_step`` writes every slot's token at ``pos`` and attends over
+positions <= ``pos``, so the batch is well defined only for equal-length
+prompts admitted together (the scheduler's contiguous mode); the Mamba
+step ignores it.  ``pos`` stays a host tensor, the caches live on the
+device and ``decode_step`` writes them IN PLACE; ``merge_slot`` writes a
+one-row prefill's caches into a slot, on each leaf's batch axis.
+``prefill`` installs ``kernel_backend or "auto"`` (int8 on CUDA) around
+the prompt's forward; ``decode_step`` runs under the caller's backend.
+The other families' caches (MLA latents, MoE, cross-attention, patches)
+and SWA rings wait for ROADMAP A9 and raise.
 
 The pool stores every layer's K/V in fixed-size blocks on a leading block
 axis: [L, N_blocks, block, kv_heads, head_dim].  A request owns an ordered
@@ -44,20 +54,29 @@ from repro_torch.kernels.ops import kernel_backend_ctx
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
 # ---------------------------------------------------------------------------
 # Contiguous cache: init, decode step, prefill
 # ---------------------------------------------------------------------------
 
-def require_dense(cfg: ModelConfig) -> None:
-    """Raise unless the port serves ``cfg``: the dense family, with no MLA
-    and no sliding window (the rest waits for ROADMAP A9)."""
-    B._dense_only(cfg)
+def require_served(cfg: ModelConfig) -> None:
+    """Raise unless the port serves ``cfg``: the dense, ssm and hybrid
+    families, with no MLA and no sliding window (the rest waits for
+    ROADMAP A9)."""
+    B.require_ported(cfg)
     if cfg.swa_window is not None:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window (ring) caches are not ported yet "
             f"(ROADMAP A9)")
+
+
+def _stacked_zeros(one: dict, lead: tuple, device) -> dict:
+    """Zeros on ``device`` shaped ``lead`` + each leaf of the one-layer
+    template ``one`` (made on the meta device: shapes and dtypes only)."""
+    return {k: torch.zeros(lead + tuple(v.shape), dtype=v.dtype,
+                           device=device) for k, v in one.items()}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -65,11 +84,57 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """The zeroed contiguous decode state on ``device`` (CUDA unless the
     caller names another)."""
     device = resolve_device(device)
-    require_dense(cfg)
-    one = B.init_block_cache(cfg, batch, max_len, cache_dtype, device)
-    caches = {k: torch.zeros((cfg.num_layers,) + v.shape, dtype=v.dtype,
-                             device=device) for k, v in one.items()}
+    require_served(cfg)
+    if cfg.family == "ssm":
+        caches = _stacked_zeros(S.init_mamba_cache(cfg, batch, cache_dtype,
+                                                   "meta"),
+                                (cfg.num_layers,), device)
+    elif cfg.family == "hybrid":
+        G, K = lm.hybrid_groups(cfg)
+        caches = {
+            "attn": _stacked_zeros(L.init_kv_cache(cfg, batch, max_len,
+                                                   cache_dtype, "meta"),
+                                   (G,), device),
+            "mamba": _stacked_zeros(S.init_mamba_cache(cfg, batch,
+                                                       cache_dtype, "meta"),
+                                    (G, K), device)}
+    else:
+        caches = _stacked_zeros(B.init_block_cache(cfg, batch, max_len,
+                                                   cache_dtype, "meta"),
+                                (cfg.num_layers,), device)
     return {"caches": caches, "pos": torch.zeros((), dtype=torch.int32)}
+
+
+def _cache_at(caches: dict, at) -> dict:
+    """One block's caches: views of the stacked leaves at ``at``, a cache
+    index of ``lm.walk_stack``."""
+    tree, i = at
+    return {k: t[i] for k, t in (caches if tree is None
+                                 else caches[tree]).items()}
+
+
+def _slot_write(dst: dict, src: dict, i: int, axis: int) -> None:
+    for k, t in dst.items():
+        if isinstance(t, dict):
+            _slot_write(t, src[k], i, axis)
+        else:
+            t.select(axis, i).copy_(src[k].select(axis, 0))
+
+
+def merge_slot(cfg: ModelConfig, caches: dict, one: dict, i: int) -> dict:
+    """Write a one-row prefill's caches ``one`` into slot ``i`` of the
+    batched ``caches``, in place, on each leaf's batch axis: axis 1 of the
+    [L, B, ...] and [G, B, ...] leaves, axis 2 of the hybrid's
+    [G, K, B, ...] Mamba leaves.  (The JAX scheduler's ``merge`` writes
+    ``dst[:, i]`` on every leaf, which on the hybrid's Mamba leaves is
+    layer ``i`` of each group, broadcast over the batch: ROADMAP, "Facts
+    about the reference".)"""
+    if cfg.family == "hybrid":
+        _slot_write(caches["attn"], one["attn"], i, 1)
+        _slot_write(caches["mamba"], one["mamba"], i, 2)
+    else:
+        _slot_write(caches, one, i, 1)
+    return caches
 
 
 @torch.no_grad()
@@ -80,10 +145,10 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens):
     pos = int(state["pos"])
     caches = state["caches"]
     x = _embed_tokens(params, cfg, tokens, dt)
-    for i in range(cfg.num_layers):
-        x, _ = B.transformer_block_decode(
-            lm.layer_params(params["blocks"], i), x, cfg,
-            {k: t[i] for k, t in caches.items()}, pos)
+    for kind, p, at in lm.walk_stack(params, cfg):
+        step = (B.transformer_block_decode if kind == "attn"
+                else B.mamba_block_decode)
+        x, _ = step(p, x, cfg, _cache_at(caches, at), pos)
     logits = _logits(params, cfg, x)[:, 0, :]
     return logits, {"caches": caches,
                     "pos": torch.tensor(pos + 1, dtype=torch.int32)}
@@ -102,18 +167,21 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,
 @torch.no_grad()
 def _prefill_impl(params, cfg: ModelConfig, batch: dict, max_len: int,
                   cache_dtype=torch.bfloat16):
-    require_dense(cfg)
+    require_served(cfg)
     device = params["embed"].device
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     x, positions = lm.embed_input(params, cfg, batch)
-    t = x.shape[1]
-    layers = []
-    for i in range(cfg.num_layers):
-        x, c = B.transformer_block_prefill(
-            lm.layer_params(params["blocks"], i), x, cfg, positions, max_len,
-            cache_dtype)
-        layers.append(c)
-    caches = {k: torch.stack([c[k] for c in layers]) for k in layers[0]}
+    b, t = x.shape[0], x.shape[1]
+    caches = init_decode_state(cfg, b, max_len, cache_dtype,
+                               device)["caches"]
+    for kind, p, at in lm.walk_stack(params, cfg):
+        if kind == "attn":
+            x, c = B.transformer_block_prefill(p, x, cfg, positions,
+                                               max_len, cache_dtype)
+        else:
+            x, c = B.mamba_block_prefill(p, x, cfg, positions, cache_dtype)
+        for k, dst in _cache_at(caches, at).items():
+            dst.copy_(c[k])
     logits = _logits(params, cfg, x)[:, -1, :]
     return logits, {"caches": caches,
                     "pos": torch.tensor(t, dtype=torch.int32)}

@@ -5,11 +5,13 @@ The scheduler is host-side control logic around the engine's device steps.
 Two cache regimes share one driver:
 
   * ``mode="contiguous"``: whole-prompt prefill into a per-slot contiguous
-    cache, then batched decode.  As in the JAX package, ``merge`` sets the
-    batch's ONE decode position to the last prefilled prompt's length and
-    ``decode_step`` writes every slot there, so this mode is defined only
-    for equal-length prompts admitted together (and finishing together);
-    the port mirrors that and does not correct it.
+    cache (KV rings, SSM state, or both for the hybrid family), then
+    batched decode; ``merge`` writes each leaf on its own batch axis.  As
+    in the JAX package, ``merge`` sets the batch's ONE decode position to
+    the last prefilled prompt's length and ``decode_step`` writes every
+    slot there, so this mode is defined only for equal-length prompts
+    admitted together (and finishing together); the port mirrors that and
+    does not correct it.
   * ``mode="paged"``: a block pool (``serving.paging``) replaces per-slot
     caches.  Prompts prefill in per-tick token budgets (chunked prefill)
     interleaved with one batched decode step; admission is FIFO or
@@ -219,10 +221,11 @@ class EngineHooks:
             return E.decode_step(params, cfg, state, toks)
 
         def merge(state, slot_state, i):
-            # in place: slot i's cache rows become the prompt's; the batch's
-            # one position becomes this prompt's length (JAX's legacy pos)
-            for k, dst in state["caches"].items():
-                dst[:, i] = slot_state["caches"][k][:, 0]
+            # in place: slot i's cache rows become the prompt's, on each
+            # leaf's batch axis (not JAX's dst[:, i], which misses the
+            # hybrid's [G, K, B, ...] Mamba leaves); the batch's one
+            # position becomes this prompt's length (JAX's legacy pos)
+            E.merge_slot(cfg, state["caches"], slot_state["caches"], i)
             return {"caches": state["caches"], "pos": slot_state["pos"]}
 
         return cls(prefill=prefill_one, decode=_decode_backend(decode),

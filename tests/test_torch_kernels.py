@@ -314,7 +314,10 @@ def _prologue_setup(hkv, bias, rope, seed=0, hd=16):
     # 300 turns pair 1 by 242 rad, whose f32 ulp is 2^-15: the two
     # libraries' rotations of the same q sit up to about that far apart
     # (1.8e-5 here), so q and k are allowed one such ulp of max|ref|
-    pytest.param(2, True, True, 128, 2.0 ** -15, id="2-True-True-hd128")])
+    pytest.param(2, True, True, 128, 2.0 ** -15, id="2-True-True-hd128"),
+    # zamba2-2.7b's head dim 80 (a strip of 32 pairs and one of 8, 4-byte
+    # W copies in int8), no bias; the same angle allowance as hd 128
+    pytest.param(4, False, True, 80, 2.0 ** -15, id="4-False-True-hd80")])
 def test_decode_prologue_vs_jax(backend, hkv, bias, rope, hd, angle_ulp):
     jcfg, tcfg, norm, attn, x, pos = _prologue_setup(hkv, bias, rope, hd=hd)
     with JO.kernel_backend_ctx(backend):
@@ -345,9 +348,11 @@ def test_decode_prologue_vs_jax(backend, hkv, bias, rope, hd, angle_ulp):
 
 
 # (D, H, Hkv, hd) of the configs the prologue serves: qwen1.5-0.5b,
-# yi-34b, h2o-danube3-4b (hd 120) and gemma-7b (hd 256)
+# yi-34b, h2o-danube3-4b (hd 120), gemma-7b (hd 256) and zamba2-2.7b's
+# shared block (hd 80)
 PROLOGUE_WIDTHS = {"qwen": (1024, 16, 16, 64), "yi": (7168, 56, 8, 128),
-                   "danube": (3840, 32, 8, 120), "gemma": (3072, 16, 16, 256)}
+                   "danube": (3840, 32, 8, 120), "gemma": (3072, 16, 16, 256),
+                   "zamba2": (2560, 32, 32, 80)}
 
 
 @pytest.mark.parametrize("width", sorted(PROLOGUE_WIDTHS))

@@ -32,7 +32,10 @@ Phases (any failure exits non-zero before the result line is printed):
                engine calls them in train_lm (``check_engine_units``): T
                1024 tokens through each of qwen1.5-0.5b's unit shapes
                (q/k/v/o 1024 x 1024, gate/up 1024 x 2816, down 2816 x
-               1024), bf16 activations against f32 weights, identity.
+               1024), bf16 activations against f32 weights, identity,
+               and through zamba2-2.7b's shared-block units in train_ssm
+               (``ZAMBA2_ENGINE_UNITS``: q/k/v/o 2560 x 2560, gate/up
+               2560 x 10240, down 10240 x 2560).
                Beside each bp_fused_unit row the port's unfused pair
                (bp_gstep + sgd_dw_update), and beside each decode_prologue
                row the engine's unfused branch (rmsnorm, three fxp_matmul
@@ -115,19 +118,40 @@ Phases (any failure exits non-zero before the result line is printed):
                device time of that draw and of the stochastic rounding.
 5b. train_lm -- the layer engine (``core.steps.make_train_step``) on
                full-width, 24-layer qwen1.5-0.5b (f32 masters from seed 0,
-               bf16 compute): 10 momentum steps of batch 8 x seq 128 at lr
+               bf16 compute): 6 momentum steps of batch 8 x seq 128 at lr
                3e-3 on one synthetic batch, once a backend (int8, emulate);
-               every loss finite, the last-5 mean below the first-5 mean,
+               every loss finite, the last-3 mean below the first-3 mean,
                and exactly 336 fxp_matmul, 168 bp_gstep and 168
                sgd_dw_update launches a step; then timed ms/step, tokens/s
-               and a profile of 5 steps, and one step of a 2-layer
+               and a profile of 3 steps, and one step of a 2-layer
                full-width net on the card against the CPU.  Then the int8
                step with stochastic rounding under the JAX driver's keys:
                3 steps at exactly those launches, every loss finite, a
                second run from the same params and keys bitwise equal, a
-               profile of 5 steps with the noise ops as their own group
+               profile of 3 steps with the noise ops as their own group
                ("prng") beside the round-to-nearest profile, and the
                2-layer step card against CPU.
+5e. train_ssm -- the layer engine on the ssm and hybrid families: train_lm's
+               step (momentum, grad_scale 64, default bits, lr 3e-3, one
+               synthetic batch of 8 x 128) on full-width zamba2-2.7b (f32
+               masters from seed 0, bf16 compute; 9 groups of the shared
+               block and 6 Mamba2 layers), 6 steps a backend (int8,
+               emulate), and on full-width mamba2-370m, 6 steps: every
+               loss finite, the last-2 mean below the first-2 mean, and
+               exactly 126 fxp_matmul, 63 bp_gstep and 63 sgd_dw_update
+               launches a zamba2 step (HYBRID_TRAIN_LAUNCHES), none a
+               mamba2 step; timed ms/step, tokens/s, peak memory and a
+               profile of 3 steps each.  Then zamba2's int8 step with
+               stochastic rounding, 2 steps twice from the same params and
+               keys, bitwise equal; the train driver in-process on zamba2
+               (--quantize --stochastic, int8, 3 steps, no checkpoint); and
+               one step of zamba2 cut to one group (both backends) and of
+               mamba2 cut to 2 layers, at full width, batch 2 x 64, on the
+               card and on the CPU: the update's relative L2 within
+               SSM_TRAIN_PARITY_TOL as a whole, SSM_TRAIN_LEAF_TOL leaf by
+               leaf and SSM_TRAIN_VECTOR_TOL for A_log and dt_bias, and
+               the hybrid's card step again under serve_ssm's dropped-K
+               faults beyond them.
 5c. search -- the bitwidth search (``search/``), in four parts:
                (1) the LeNet-5 sweep at the JAX defaults (784-256x4-10, 3
                groups, the 6-point grid, 120 probe steps of batch 128 at
@@ -167,7 +191,8 @@ Phases (any failure exits non-zero before the result line is printed):
                ``{"ok": true, "device": {...}}``.
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
-serve_ssm, train, noise, train_lm, search and train_driver (for example ``--phases
+serve_ssm, train, noise, train_lm, train_ssm, search and train_driver (for
+example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
 the result line is printed only when every phase ran.  The script imports
 nothing of JAX nor of the JAX package ``repro``.
@@ -188,7 +213,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "serve_ssm",
-          "train", "noise", "train_lm", "search", "train_driver")
+          "train", "noise", "train_lm", "train_ssm", "search",
+          "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -1060,9 +1086,10 @@ ENGINE_UNITS = (("qkv", D, D, "float32"), ("o", D, D, "bfloat16"),
                 ("gate_up", D, FF, "float32"), ("down", FF, D, "float32"))
 
 
-def check_engine_units(torch, dev, flush, gen):
+def check_engine_units(torch, dev, flush, gen, units=ENGINE_UNITS):
     """fxp_matmul, bp_gstep and sgd_dw_update at the shapes and types that
-    train_lm's steps give them, so that the plans those steps run (tile
+    train_lm's steps give them (``units``; ZAMBA2_ENGINE_UNITS those of
+    train_ssm's zamba2-2.7b step), so that the plans those steps run (tile
     counts, split counts, which follow from T) are the ones compared: per
     unit the forward z = x @ W (x bf16 [T, K], W [K, N] of the unit's
     dtype; int8 payloads by absmax, as ``kernels.ops.dense_fwd`` makes
@@ -1075,7 +1102,7 @@ def check_engine_units(torch, dev, flush, gen):
 
     t = TRAIN_LM_BATCH * TRAIN_LM_SEQ
     rows = []
-    for label, k, n, wdt in ENGINE_UNITS:
+    for label, k, n, wdt in units:
         x = torch.randn((t, k), generator=gen, device=dev).to(torch.bfloat16)
         w = (torch.randn((k, n), generator=gen, device=dev)
              * k ** -0.5).to(getattr(torch, wdt))
@@ -1868,6 +1895,14 @@ HYBRID_PREFILL_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=7 * 9)
 HYBRID_DECODE_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=3 * 9,
                               decode_prologue=9)
 SSM_LAUNCHES = {name: 0 for name in SOURCES}
+# train_ssm: zamba2-2.7b's training step.  The engine's unit is a group; in
+# each of the 9 the shared block runs its seven dense units (q, k, v, o,
+# gate, up, down) once in the forward and once in the backward's
+# re-linearisation (fxp_matmul), with one dx (bp_gstep) and one dW
+# (sgd_dw_update) each in the backward; the Mamba layers launch nothing,
+# so mamba2-370m's step launches SSM_LAUNCHES
+HYBRID_TRAIN_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=2 * 7 * 9,
+                             bp_gstep=7 * 9, sgd_dw_update=7 * 9)
 # the (M, K, N) of the shared block's fxp_matmul launches in serve_ssm
 # (configs/zamba2_2_7b.py: d 2560, 32 heads and 32 KV heads of 80, FF
 # 10240): a decode step at B slots runs gate, up (B x 2560 x 10240) and
@@ -1879,6 +1914,15 @@ ZAMBA2_FXP = ((B, ZAMBA2_D, ZAMBA2_FF), (B, ZAMBA2_FF, ZAMBA2_D),
               (CONT_PROMPT, ZAMBA2_D, ZAMBA2_D),
               (CONT_PROMPT, ZAMBA2_D, ZAMBA2_FF),
               (CONT_PROMPT, ZAMBA2_FF, ZAMBA2_D))
+# the shared block's dense units in train_ssm's zamba2-2.7b step, as
+# ENGINE_UNITS lists qwen1.5-0.5b's (T = TRAIN_LM_BATCH x TRAIN_LM_SEQ):
+# q, k, v and o 2560 x 2560 (32 heads and 32 KV heads of 80), gate and up
+# 2560 x 10240, down 10240 x 2560; phase 3 times the three training
+# kernels at each
+ZAMBA2_ENGINE_UNITS = (("zamba2_qkv", ZAMBA2_D, ZAMBA2_D, "float32"),
+                       ("zamba2_o", ZAMBA2_D, ZAMBA2_D, "bfloat16"),
+                       ("zamba2_gate_up", ZAMBA2_D, ZAMBA2_FF, "float32"),
+                       ("zamba2_down", ZAMBA2_FF, ZAMBA2_D, "float32"))
 
 
 def _cont_prompts(torch, cfg, seed=11):
@@ -2302,26 +2346,29 @@ def serve_ssm(torch, dev):
     return runs, parity, secs
 
 
-def profile_steps(torch, step, label, backend, dev, cpu_ops=True):
-    """Where a step's time goes: the step's wall time (host clock,
-    synchronised, without the profiler, whose own overhead inflates it),
-    then device time by kernel over as many steps under torch.profiler,
-    and the device's idle share.  ``cpu_ops=False`` records the device
-    activity only (a step of ~20k PyTorch ops makes the host events slow
-    to collect).  Returns {"not measured": why} when the profiler records
-    no device activity."""
+def profile_steps(torch, step, label, backend, dev, cpu_ops=True,
+                  steps=PROFILE_STEPS, wall_ms=None):
+    """Where a step's time goes: the step's wall time over ``steps`` steps
+    (host clock, synchronised, without the profiler, whose own overhead
+    inflates it; ``wall_ms`` when the caller timed the same step after
+    its warm-up already), then device time by kernel over as many steps
+    under torch.profiler, and the device's idle share.  ``cpu_ops=False``
+    records the device activity only (a step of ~20k PyTorch ops makes
+    the host events slow to collect).  Returns {"not measured": why} when
+    the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops as kops
 
     with kops.kernel_backend_ctx(backend, dev):
-        step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        if wall_ms is None:
             step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         # only the profiler's own calls are guarded: a failing step ends
         # the run
         prof = profile(activities=[ProfilerActivity.CUDA] + (
@@ -2331,7 +2378,7 @@ def profile_steps(torch, step, label, backend, dev, cpu_ops=True):
         except RuntimeError as e:
             say(f"profile {label}: torch.profiler failed to start: {e}")
             return {"not measured": f"torch.profiler failed to start: {e}"}
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
         try:
@@ -2355,13 +2402,13 @@ def profile_steps(torch, step, label, backend, dev, cpu_ops=True):
     groups = {}
     for name, ms in by_name.items():
         key = _profile_group(name)
-        groups[key] = groups.get(key, 0.0) + ms / PROFILE_STEPS
+        groups[key] = groups.get(key, 0.0) + ms / steps
     busy = sum(groups.values())
-    top = sorted(((ms / PROFILE_STEPS, n[:60]) for n, ms in by_name.items()
+    top = sorted(((ms / steps, n[:60]) for n, ms in by_name.items()
                   if _profile_group(n) == "other"), reverse=True)[:6]
     res = {"wall_ms_per_step": wall_ms, "device_ms_per_step": busy,
            "idle_share": max(0.0, 1.0 - busy / wall_ms),
-           "device_ops_per_step": n_kernels / PROFILE_STEPS,
+           "device_ops_per_step": n_kernels / steps,
            "device_ms_by_group": groups,
            "top_other_ms": [[n, ms] for ms, n in top]}
     say(f"profile {label}: {wall_ms:.2f} ms/step wall, device busy "
@@ -2539,7 +2586,9 @@ def train_parity(torch, dev, bits, backend, x, y, cfg=None, profile=True):
 # batch descends at once
 LM_ARCH = "qwen1.5-0.5b"
 TRAIN_LM_RUNS = ("int8", "emulate")
-TRAIN_LM_STEPS, TRAIN_LM_WARM = 10, 3
+# 6 steps (10 until the ssm and hybrid training phase needed the time),
+# the descent read over the first and last 3, the profiles over 3 steps
+TRAIN_LM_STEPS, TRAIN_LM_WARM, TRAIN_LM_PROFILE = 6, 2, 3
 TRAIN_LM_SEQ, TRAIN_LM_BATCH = 128, 8
 TRAIN_LM_LR, TRAIN_LM_OPTIMIZER, TRAIN_LM_GRAD_SCALE = 3e-3, "momentum", 64.0
 # kernel launches per step at 24 layers: 7 dense units a layer (q, k, v, o,
@@ -2669,9 +2718,10 @@ def check_noise(torch, dev):
 
 def train_lm_runs(torch, dev):
     """TRAIN_LM_STEPS steps of each backend from the same seeds on one
-    batch: every loss finite, the mean of the last 5 below that of the
-    first 5, the launches a step exactly TRAIN_LM_LAUNCHES; the timed
-    ms/step, tokens/s and a profile."""
+    batch: every loss finite, the mean of the last half below that of the
+    first half, the launches a step exactly TRAIN_LM_LAUNCHES; the timed
+    ms/step, tokens/s and a profile of TRAIN_LM_PROFILE steps against
+    that ms/step."""
     import numpy as np
 
     from repro_torch import kernels as K
@@ -2707,19 +2757,21 @@ def train_lm_runs(torch, dev):
         loss = torch.stack(losses).cpu()
         require(bool(loss.isfinite().all()),
                 f"train_lm {backend}: a loss is not finite: {loss.tolist()}")
-        first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+        half = TRAIN_LM_STEPS // 2
+        first, last = (float(loss[:half].mean()),
+                       float(loss[-half:].mean()))
         for name, n in counts.items():
             want = TRAIN_LM_LAUNCHES[name] * TRAIN_LM_STEPS
             require(n == want, f"train_lm {backend}: {name} launched {n} "
                                f"times, expected {want}")
-        require(last < first, f"train_lm {backend}: mean loss of the first 5 "
-                              f"steps {first:.4f}, of the last 5 {last:.4f}: "
-                              "no descent")
+        require(last < first, f"train_lm {backend}: mean loss of the first "
+                              f"{half} steps {first:.4f}, of the last {half} "
+                              f"{last:.4f}: no descent")
         ms = 1e3 * statistics.median(secs[TRAIN_LM_WARM:])
         rec = dict(run=f"train_lm/{backend}", backend=backend, counts=counts,
                    steps=TRAIN_LM_STEPS, ms_per_step=ms,
                    tokens_per_s=TRAIN_LM_BATCH * TRAIN_LM_SEQ / (ms / 1e3),
-                   loss_first5=first, loss_last5=last,
+                   loss_first_half=first, loss_last_half=last,
                    losses=[float(v) for v in loss],
                    grad_norm_last=float(m["grad_norm"]),
                    peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
@@ -2731,7 +2783,8 @@ def train_lm_runs(torch, dev):
         rec["profile"] = profile_steps(
             torch, lambda: step(params, state, batch,
                                 Hyper(lr=TRAIN_LM_LR, step=0), bits),
-            f"train_lm {backend}", backend, dev, cpu_ops=False)
+            f"train_lm {backend}", backend, dev, cpu_ops=False,
+            steps=TRAIN_LM_PROFILE, wall_ms=ms)
         say(f"train_lm {backend}: {t_prof - t_run:.1f} s to train, "
             f"{time.perf_counter() - t_prof:.1f} s to profile")
         runs.append(rec)
@@ -2745,7 +2798,8 @@ def train_lm_stochastic(torch, dev):
     it: TRAIN_LM_STOCH_STEPS steps from seed-0 params on train_lm's batch,
     every loss finite and exactly TRAIN_LM_LAUNCHES a step; the same steps
     again from the same params, which must end on bitwise the same params;
-    then profiles of 5 round-to-nearest and 5 stochastic int8 steps, in
+    then profiles of TRAIN_LM_PROFILE round-to-nearest and as many
+    stochastic int8 steps, in
     turns, from the same params and state (wall times move between runs,
     so the two are compared within one)."""
     import numpy as np
@@ -2815,12 +2869,14 @@ def train_lm_stochastic(torch, dev):
     rtn = profile_steps(
         torch, lambda: rtn_step(params, state, batch,
                                 Hyper(lr=TRAIN_LM_LR, step=0), bits),
-        "train_lm int8 round-to-nearest", "int8", dev, cpu_ops=False)
+        "train_lm int8 round-to-nearest", "int8", dev, cpu_ops=False,
+        steps=TRAIN_LM_PROFILE)
     rec["profile"] = prof = profile_steps(
         torch, lambda: step(params, state, batch,
                             Hyper(lr=TRAIN_LM_LR, step=0), bits,
                             _step_key(0)),
-        "train_lm int8 stochastic", "int8", dev, cpu_ops=False)
+        "train_lm int8 stochastic", "int8", dev, cpu_ops=False,
+        steps=TRAIN_LM_PROFILE)
     rec["profile_round_to_nearest"] = rtn
     if "device_ms_by_group" in prof and "device_ms_by_group" in rtn:
         rec["against_round_to_nearest"] = dict(
@@ -2903,6 +2959,371 @@ def train_lm_parity(torch, dev):
                         loss_rel_err=loss_rel, loss_tol=TRAIN_LM_LOSS_TOL))
         del params, params_cpu, res, got, ref
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5e: the layer engine on the ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+# train_lm's step (momentum, grad_scale 64, default bits, lr 3e-3) on one
+# synthetic batch of TRAIN_LM_BATCH x TRAIN_LM_SEQ, on full-width
+# zamba2-2.7b (both backends) and mamba2-370m (no kernel to choose)
+TRAIN_SSM_RUNS = ((HYBRID_ARCH, "int8", HYBRID_TRAIN_LAUNCHES),
+                  (HYBRID_ARCH, "emulate", HYBRID_TRAIN_LAUNCHES),
+                  (SSM_ARCH, "int8", SSM_LAUNCHES))
+TRAIN_SSM_STEPS, TRAIN_SSM_WARM, TRAIN_SSM_PROFILE = 6, 2, 3
+TRAIN_SSM_STOCH_STEPS, TRAIN_SSM_DRIVER_STEPS = 2, 3
+# the card-against-CPU check: one step of zamba2-2.7b cut to one group (6
+# Mamba2 layers and one application of the shared block) under each
+# backend, and of mamba2-370m cut to 2 layers, at full width from the same
+# params and batch (SSM_TRAIN_PARITY_BATCH x SSM_TRAIN_PARITY_SEQ), read
+# as the relative L2 of the update (new params minus the step-start
+# params) against the CPU's, three ways:
+#   * the whole update, every leaf together, within SSM_TRAIN_PARITY_TOL
+#     (train_lm's TRAIN_LM_PARITY_TOL).  The large matrices set it;
+#   * each leaf on its own, the Mamba2 vectors A_log and dt_bias aside,
+#     within SSM_TRAIN_LEAF_TOL, so that a fault in a small leaf (D_skip,
+#     conv_b_*, gate_norm, a norm) shows;
+#   * A_log and dt_bias within SSM_TRAIN_VECTOR_TOL: their gradients sum
+#     over every position and head, and one f32 ulp added to every master
+#     moves their updates by up to 0.53 of themselves on the CPU alone,
+#     where every other leaf moves by at most 0.055 (int8) and 0.026
+#     (emulate) on the hybrid and 0.025 on the ssm, and the whole update by
+#     0.040, 0.022 and 0.0023 (tests/test_torch_engine_ssm.py::
+#     test_update_sensitivity_justifies_ssm_card_tolerance).
+# Sound runs on the card (PERF.md; H100 80GB HBM3, 700 W) read, whole /
+# largest other leaf / A_log or dt_bias: 0.0742 / 0.0861 / 0.212 (int8)
+# and 0.0228 / 0.0267 / 0.134 (emulate) on the one group, 0.0048 / 0.0078
+# / 0.069 on mamba2's 2 layers, the same in every run.  Each limit is
+# about twice the larger of its sound card reading and its CPU one-ulp
+# spread.  The controls, the hybrid's card step again under serve_ssm's
+# dropped-K faults (SSM_FAULTS), must read beyond the whole and the leaf
+# limits each, and the larger of them beyond the vectors' limit; the
+# dropped K split reads 1.09 whole and the dropped K tile 0.295 / 0.287.
+# mamba2 launches no kernel, so no dropped-K fault reaches it: its cut has
+# no control.
+SSM_TRAIN_PARITY_BATCH, SSM_TRAIN_PARITY_SEQ = 2, 64
+SSM_TRAIN_PARITY_TOL = dict(TRAIN_LM_PARITY_TOL)
+SSM_TRAIN_VECTORS = ("blocks/mamba/A_log", "blocks/mamba/dt_bias")
+SSM_TRAIN_LEAF_TOL = {"emulate": 0.06, "int8": 0.2}
+SSM_TRAIN_VECTOR_TOL = 1.0
+SSM_TRAIN_LOSS_TOL = TRAIN_LM_LOSS_TOL
+SSM_TRAIN_PARITY_CUTS = ((HYBRID_ARCH, "attn_every", ("int8", "emulate")),
+                         (SSM_ARCH, 2, ("int8",)))
+
+
+def _lm_batch(torch, cfg, dev, batch=TRAIN_LM_BATCH, seq=TRAIN_LM_SEQ):
+    import numpy as np
+
+    from repro_torch.data import SyntheticLMDataset
+
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in SyntheticLMDataset(cfg.vocab_size, seq, batch,
+                                           seed=0).batch_at(0).items()}
+
+
+def train_ssm_run(torch, dev, arch, backend, launches):
+    """TRAIN_SSM_STEPS steps of ``arch`` from seed-0 params on one batch:
+    every loss finite, the mean of the last 2 below that of the first 2,
+    exactly ``launches`` each step; the timed ms/step, tokens/s, peak
+    memory and a profile of TRAIN_SSM_PROFILE steps."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+
+    cfg = get_config(arch)
+    batch, bits = _lm_batch(torch, cfg, dev), default_bits(cfg)
+    t_run = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    step, ocfg = _lm_step(torch, cfg, backend, dev)
+    state = init_train_state(params, ocfg)
+    losses, secs, per_step = [], [], []
+    for i in range(TRAIN_SSM_STEPS):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch,
+                                Hyper(lr=TRAIN_LM_LR, step=i), bits)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(K.launch_counts())
+        losses.append(float(m["loss"]))
+    n = TRAIN_SSM_WARM
+    first, last = sum(losses[:n]) / n, sum(losses[-n:]) / n
+    ms = 1e3 * statistics.median(secs[TRAIN_SSM_WARM:])
+    label = f"train_ssm {arch} {backend}"
+    rec = dict(run=f"train_ssm/{arch}/{backend}", arch=arch,
+               backend=backend, steps=TRAIN_SSM_STEPS,
+               counts={k: sum(c[k] for c in per_step) for k in launches},
+               ms_per_step=ms, ms_per_step_timed=[1e3 * t for t in secs],
+               tokens_per_s=TRAIN_LM_BATCH * TRAIN_LM_SEQ / (ms / 1e3),
+               losses=losses, loss_first=first, loss_last=last,
+               grad_norm_last=float(m["grad_norm"]),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    say(f"{label}: {ms:.2f} ms/step (median after {TRAIN_SSM_WARM} "
+        f"warm-up), {rec['tokens_per_s']:.0f} tokens/s, losses "
+        f"{[round(v, 4) for v in losses]} (first {n} {first:.4f}, last {n} "
+        f"{last:.4f}), peak memory {rec['peak_mem_gb']:.2f} GiB, launches "
+        f"a step {per_step[0]}")
+    require(all(math.isfinite(v) for v in losses),
+            f"{label}: a loss is not finite: {losses}")
+    for i, c in enumerate(per_step):
+        require(c == launches, f"{label}: step {i} launched {c}, expected "
+                               f"{launches}")
+    require(last < first, f"{label}: mean loss of the first {n} steps "
+                          f"{first:.4f}, of the last {n} {last:.4f}: no "
+                          "descent")
+    t_prof = time.perf_counter()
+    rec["profile"] = profile_steps(
+        torch, lambda: step(params, state, batch,
+                            Hyper(lr=TRAIN_LM_LR, step=0), bits),
+        label, backend, dev, cpu_ops=False, steps=TRAIN_SSM_PROFILE,
+        wall_ms=ms)
+    say(f"{label}: {t_prof - t_run:.1f} s to train, "
+        f"{time.perf_counter() - t_prof:.1f} s to profile")
+    del params, state, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_ssm_stochastic(torch, dev):
+    """zamba2-2.7b's int8 step with stochastic rounding under the JAX
+    driver's keys, TRAIN_SSM_STOCH_STEPS steps twice from seed-0 params:
+    HYBRID_TRAIN_LAUNCHES a step, every loss finite, and the second run's
+    params bitwise the first's (compared on the card)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+    from repro_torch.util.tree import tree_leaves
+
+    cfg = get_config(HYBRID_ARCH)
+    batch, bits = _lm_batch(torch, cfg, dev), default_bits(cfg)
+    step, ocfg = _lm_step(torch, cfg, "int8", dev, stochastic=True)
+    finals, total, counts = [], {}, []
+    for _ in range(2):
+        params = lm.init_params(cfg, seed=0, device=dev)
+        state = init_train_state(params, ocfg)
+        losses = []
+        for i in range(TRAIN_SSM_STOCH_STEPS):
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            params, state, m = step(params, state, batch,
+                                    Hyper(lr=TRAIN_LM_LR, step=i), bits,
+                                    _step_key(i))
+            torch.cuda.synchronize()
+            counts.append(K.launch_counts())
+            total = {k: total.get(k, 0) + v for k, v in counts[-1].items()}
+            losses.append(float(m["loss"]))
+        del state
+        finals.append((tree_leaves(params), losses))
+        del params
+    (a, loss_a), (b, loss_b) = finals
+    differ = sum(not _same_bits(torch, x, y) for x, y in zip(a, b))
+    say(f"train_ssm {HYBRID_ARCH} int8 stochastic: {TRAIN_SSM_STOCH_STEPS} "
+        f"steps twice, losses {loss_a} and {loss_b}; {differ} of {len(a)} "
+        f"leaves differ; launches a step {counts[0]}")
+    require(all(c == HYBRID_TRAIN_LAUNCHES for c in counts),
+            f"train_ssm stochastic: launches {counts}, expected "
+            f"{HYBRID_TRAIN_LAUNCHES} a step")
+    require(all(math.isfinite(v) for v in loss_a),
+            f"train_ssm stochastic: losses {loss_a}")
+    require(differ == 0 and loss_a == loss_b,
+            f"train_ssm stochastic: two runs from the same params and keys "
+            f"differ in {differ} of {len(a)} leaves, losses {loss_a} vs "
+            f"{loss_b}")
+    n_leaves = len(a)
+    del finals, a, b, step
+    torch.cuda.empty_cache()
+    return dict(run=f"train_ssm/{HYBRID_ARCH}/int8/stochastic",
+                backend="int8", counts=total, losses=loss_a,
+                bitwise_leaves=n_leaves)
+
+
+def train_ssm_driver(torch, dev):
+    """``launch.train.main`` in-process on full-width zamba2-2.7b with
+    --quantize --stochastic, int8, TRAIN_SSM_DRIVER_STEPS steps and no
+    checkpoint directory (one checkpoint would be 18.8 GB): exactly
+    HYBRID_TRAIN_LAUNCHES a step and every loss finite."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import train
+
+    argv = ["--arch", HYBRID_ARCH, "--device", "cuda", "--quantize",
+            "--stochastic", "--kernel-backend", "int8", "--steps",
+            str(TRAIN_SSM_DRIVER_STEPS), "--seq-len", str(TRAIN_LM_SEQ),
+            "--global-batch", str(TRAIN_LM_BATCH), "--log-every", "1",
+            "--deadline-s", str(DRIVER_DEADLINE_S)]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    want = {k: v * TRAIN_SSM_DRIVER_STEPS
+            for k, v in HYBRID_TRAIN_LAUNCHES.items()}
+    say(f"train_ssm driver {HYBRID_ARCH}: {TRAIN_SSM_DRIVER_STEPS} steps in "
+        f"{secs:.1f} s (with its init), losses {losses}, launches {counts}")
+    require(counts == want, f"train_ssm driver: launches {counts}, "
+                            f"expected {want}")
+    require(len(losses) == TRAIN_SSM_DRIVER_STEPS
+            and all(math.isfinite(v) for v in losses),
+            f"train_ssm driver: losses {losses}")
+    torch.cuda.empty_cache()
+    return dict(run=f"train_ssm/{HYBRID_ARCH}/driver", backend="int8",
+                counts=counts, losses=losses, seconds=secs)
+
+
+def _update_rel(ref, got, p0):
+    """The relative L2 of the update, |got - ref| / |ref - p0| over every
+    leaf together, and {leaf: the same of that leaf} (0 where both of its
+    updates are 0)."""
+    from repro_torch.util.tree import tree_leaves_with_path
+
+    rel, num2, den2 = {}, 0.0, 0.0
+    for (k, r), (_, g), (_, w) in zip(*map(tree_leaves_with_path,
+                                           (ref, got, p0))):
+        require(g.shape == r.shape and bool(g.isfinite().all()),
+                f"{k}: not finite or misshapen")
+        num, den = float((g - r).norm()), float((r - w).norm())
+        num2, den2 = num2 + num ** 2, den2 + den ** 2
+        rel[k] = num / den if den else (0.0 if num == 0 else math.inf)
+    return math.sqrt(num2 / den2), rel
+
+
+def _update_readings(ref, got, p0):
+    """The update's relative L2 three ways: (whole, largest leaf other than
+    SSM_TRAIN_VECTORS, largest of SSM_TRAIN_VECTORS), each a (value, leaf)
+    pair, and {leaf: reading}."""
+    whole, rel = _update_rel(ref, got, p0)
+    vec = {k: v for k, v in rel.items() if k in SSM_TRAIN_VECTORS}
+    other = {k: v for k, v in rel.items() if k not in SSM_TRAIN_VECTORS}
+    worst = [(whole, "whole")] + [
+        (d[k], k) for d in (other, vec) for k in [max(d, key=d.get)]]
+    return tuple(worst), rel
+
+
+def train_ssm_parity(torch, dev):
+    """One step of each SSM_TRAIN_PARITY_CUTS cut on the card and on the
+    CPU (plain versions) from the same params and batch: the relative L2
+    of the update within SSM_TRAIN_PARITY_TOL (whole), SSM_TRAIN_LEAF_TOL
+    (each other leaf) and SSM_TRAIN_VECTOR_TOL (A_log, dt_bias), and the
+    loss within SSM_TRAIN_LOSS_TOL; the hybrid's card step launches one
+    group's kernels, and the dropped-K controls read beyond the limits."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+
+    out, gates = [], []
+    for arch, layers, backends in SSM_TRAIN_PARITY_CUTS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=(
+            full.attn_every if layers == "attn_every" else layers))
+        hybrid = cfg.family == "hybrid"
+        batch = _lm_batch(torch, cfg, "cpu", SSM_TRAIN_PARITY_BATCH,
+                          SSM_TRAIN_PARITY_SEQ)
+        bits = default_bits(cfg)
+        want = ({k: v // lm.hybrid_groups(full)[0]
+                 for k, v in HYBRID_TRAIN_LAUNCHES.items()} if hybrid
+                else SSM_LAUNCHES)
+        for backend in backends:
+            params = lm.init_params(cfg, seed=0, device=dev)
+            params_cpu = _tree_cpu(params)
+
+            def run(p, d):
+                step, ocfg = _lm_step(torch, cfg, backend, d)
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                new, _, m = step(p, init_train_state(p, ocfg), batch,
+                                 Hyper(lr=TRAIN_LM_LR, step=0), bits)
+                loss = float(m["loss"])
+                return (_tree_cpu(new), loss, time.perf_counter() - t0,
+                        K.launch_counts())
+
+            got, got_loss, t_card, counts = run(params, dev)
+            ref, ref_loss, t_cpu, _ = run(params_cpu, "cpu")
+            reads, rel = _update_readings(ref, got, params_cpu)
+            loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+            ctrl = {}
+            for name, cut in (SSM_FAULTS if hybrid else ()):
+                undo = _dropped_k(kops, cfg.d_ff, cut)
+                try:
+                    bad = run(params, dev)[0]
+                finally:
+                    undo()
+                ctrl[name] = _update_readings(ref, bad, params_cpu)[0]
+            tols = (SSM_TRAIN_PARITY_TOL[backend], SSM_TRAIN_LEAF_TOL[backend],
+                    SSM_TRAIN_VECTOR_TOL)
+            label = (f"train_ssm parity {arch} {cfg.num_layers} layers "
+                     f"{backend}")
+
+            def show(r):
+                return "; ".join(f"{k if k == 'whole' else 'leaf ' + k} "
+                                 f"{v:.4g}" for v, k in r)
+            say(f"{label}: update |d|/|ref| {show(reads)} (tol whole, other "
+                f"leaves, vectors {tols}); median leaf "
+                f"{statistics.median(rel.values()):.4g}; loss "
+                f"{got_loss:.6f} vs {ref_loss:.6f}, rel {loss_rel:.3g} (tol "
+                f"{SSM_TRAIN_LOSS_TOL}); controls "
+                + (", ".join(f"{n}: {show(v)}" for n, v in ctrl.items())
+                   or "none")
+                + f"; launches {counts}; card {t_card:.2f} s, cpu "
+                f"{t_cpu:.2f} s")
+            gates += [(counts == want, f"{label}: launches {counts}, "
+                                       f"expected {want}"),
+                      (loss_rel <= SSM_TRAIN_LOSS_TOL,
+                       f"{label}: loss rel {loss_rel} > "
+                       f"{SSM_TRAIN_LOSS_TOL}")]
+            gates += [(v <= tol, f"{label}: update |d|/|ref| {v} ({k}) > "
+                                 f"{tol}")
+                      for (v, k), tol in zip(reads, tols)]
+            # each control beyond the whole and the leaf limits, the
+            # larger control beyond the vectors' limit
+            for i, what in enumerate(("whole", "leaf", "vectors")):
+                seen = [(n, v[i][0]) for n, v in ctrl.items()]
+                for n, v in (seen if i < 2 or not seen
+                             else [max(seen, key=lambda c: c[1])]):
+                    gates.append((v > tols[i], f"{label}: the control ({n}) "
+                                  f"reads {v} <= the {what} limit "
+                                  f"{tols[i]}, so the limit cannot see it"))
+            out.append(dict(arch=arch, layers=cfg.num_layers,
+                            backend=backend, update_rel_l2_err=reads[0][0],
+                            update_rel_l2_err_leaf_max=list(reads[1]),
+                            update_rel_l2_err_vector_max=list(reads[2]),
+                            update_rel_l2_err_by_leaf=rel, tol=tols[0],
+                            leaf_tol=tols[1], vector_tol=tols[2],
+                            loss_rel_err=loss_rel,
+                            loss_tol=SSM_TRAIN_LOSS_TOL,
+                            controls={n: [r[0] for r in v]
+                                      for n, v in ctrl.items()},
+                            card_s=t_card, cpu_s=t_cpu))
+            del params, params_cpu, got, ref
+            torch.cuda.empty_cache()
+    for ok, msg in gates:         # after every reading is printed
+        require(ok, msg)
+    return out
+
+
+def train_ssm(torch, dev):
+    """Phase train_ssm: the full-width runs, the stochastic pair, the
+    driver, then the parity checks."""
+    t0 = time.perf_counter()
+    runs = [train_ssm_run(torch, dev, *r) for r in TRAIN_SSM_RUNS]
+    runs.append(train_ssm_stochastic(torch, dev))
+    runs.append(train_ssm_driver(torch, dev))
+    parity = train_ssm_parity(torch, dev)
+    secs = time.perf_counter() - t0
+    say(f"train_ssm: {secs:.1f} s")
+    return runs, parity, secs
 
 
 # ---------------------------------------------------------------------------
@@ -3578,6 +3999,8 @@ def main(argv=None) -> int:
         rows += check_sgd_dw_update_dense(torch, dev, flush, gen)
         rows += check_bp_fused_unit(torch, dev, flush, gen)
         rows += check_engine_units(torch, dev, flush, gen)
+        rows += check_engine_units(torch, dev, flush, gen,
+                                   ZAMBA2_ENGINE_UNITS)
         del flush
     if "edges" in phases:
         check_edges(torch, dev, gen)
@@ -3607,6 +4030,12 @@ def main(argv=None) -> int:
         runs += lm_runs
         print(json.dumps({"train_lm": lm_runs, "train_lm_parity": lm_par},
                          default=str), flush=True)
+    if "train_ssm" in phases:
+        ssm_train, ssm_train_par, ssm_train_s = train_ssm(torch, dev)
+        runs += ssm_train
+        print(json.dumps({"train_ssm": ssm_train,
+                          "train_ssm_parity": ssm_train_par,
+                          "seconds": ssm_train_s}, default=str), flush=True)
     if "search" in phases:
         search_runs, search_s = search_phase(torch, dev)
         runs += search_runs

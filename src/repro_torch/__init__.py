@@ -16,6 +16,15 @@ absent.
 """
 import torch
 
+# The first call in a process of one of MKL's vector-math functions (exp,
+# log, ... of a CPU float tensor, which PyTorch hands to MKL's VML) sets
+# MKL up.  When that first call is split over the intra-op threads, its
+# result now and then differs (tools/cpu_bitwise_processes.py: 8 of 600
+# fresh 2-thread processes), which broke the train driver's bitwise
+# resume, whose runs are separate processes.  A first call on one thread
+# settles it (0 of 600).
+torch.exp(torch.zeros(1))
+
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names

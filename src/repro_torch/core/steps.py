@@ -1,5 +1,6 @@
 """Train/eval step builders: the TaxoNN engine against the autodiff baseline
-(port of ``core/steps.py``, dense family, single device).
+(port of ``core/steps.py``: the dense, ssm and hybrid families, single
+device).
 
 ``make_train_step(cfg, policy, optim_cfg, options, device=None)`` returns
 
@@ -13,7 +14,12 @@ engine="autodiff" -- autograd over the whole loss and one optimizer apply
                      engine's correctness oracle)
 
 ``bits`` is a dict of BitSchedules keyed by stack name ("blocks"); they are
-runtime data, so one step object serves every schedule.  The step is
+runtime data, so one step object serves every schedule.  The hybrid's
+engine unit is a group (the shared block, then K Mamba layers), so its
+schedule has one entry a group; the weight-tied ``shared_attn`` block is
+the engine's shared operand, quantized with each group's weight format,
+its gradient summed over the groups and applied once after the reverse
+loop with its own optimizer state.  The step is
 functional: it returns new parameter and state trees and leaves its inputs
 as they were.  It runs on CUDA unless ``device`` names another device, and
 raises when CUDA is absent (``repro_torch.resolve_device``).  ``rng`` keys
@@ -44,7 +50,6 @@ from repro_torch.core.taxonn import (QuantPolicy, backward_stack,
                                      default_bits_for, forward_stack,
                                      quantize_weight_tree)
 from repro_torch.kernels.ops import kernel_backend_ctx, resolve_backend
-from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -57,15 +62,20 @@ from repro_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 AUX_COEF = lm.AUX_COEF
 
 
+ENGINE_FAMILIES = ("dense", "ssm", "hybrid")
+_LATER_ITEM = {"moe": "A9c", "encdec": "A9e", "vlm": "A9e"}
+
+
 def require_engine_family(cfg: ModelConfig) -> None:
-    """Raise unless the engine trains ``cfg``: the dense family with no MLA
-    (the Mamba block's VJP and the hybrid's shared operand wait for ROADMAP
-    A9, though the models serve them)."""
-    if cfg.family != "dense" or cfg.use_mla:
+    """Raise unless the engine trains ``cfg``: the dense, ssm and hybrid
+    families with no MLA (moe, MLA, encdec and vlm wait for ROADMAP
+    A9c-e)."""
+    if cfg.family not in ENGINE_FAMILIES or cfg.use_mla:
+        item = "A9d" if cfg.use_mla else _LATER_ITEM.get(cfg.family, "A9")
         raise NotImplementedError(
-            f"the port's training engine covers the dense family (no MLA) "
-            f"so far, not {cfg.family}"
-            f"{' with MLA' if cfg.use_mla else ''} (ROADMAP A9)")
+            f"the port's training engine covers the dense, ssm and hybrid "
+            f"families (no MLA) so far, not {cfg.family}"
+            f"{' with MLA' if cfg.use_mla else ''} (ROADMAP {item})")
 
 
 STACK_KEYS = ("blocks", "enc_blocks")
@@ -88,9 +98,9 @@ def init_train_state(params: dict, optim_cfg: OptimizerConfig) -> dict:
 
 
 def num_scan_units(cfg: ModelConfig) -> int:
-    """Engine-visible layers in the main stack."""
+    """Engine-visible units in the main stack (the hybrid's are groups)."""
     require_engine_family(cfg)
-    return cfg.num_layers
+    return lm.stack_units(cfg)
 
 
 def default_bits(cfg: ModelConfig, enabled: bool = True) -> dict:
@@ -183,11 +193,17 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int, *,
 # ---------------------------------------------------------------------------
 
 def _make_body(cfg: ModelConfig, positions):
-    """body(params_slice, x, bits_l) -> (y, aux)."""
+    """body(params_slice, x, bits_l, *shared) -> (y, aux): the blocks of one
+    unit (``lm.unit_blocks``), their aux summed.  The hybrid's unit is a
+    group, the shared block then its K Mamba layers."""
     require_engine_family(cfg)
 
-    def body(p, x, b_l):
-        return B.transformer_block(p, x, cfg, positions)
+    def body(p, x, b_l, *shared):
+        aux = None
+        for kind, bp, _ in lm.unit_blocks(p, cfg, *shared):
+            x, a = lm.block_fn(kind)(bp, x, cfg, positions)
+            aux = a if aux is None else aux + a
+        return x, aux
     return body
 
 
@@ -353,9 +369,14 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
                 bnd_g)
 
         # ---- main stack forward, caching quantized X_i -------------------
+        # the hybrid's shared operand: the weight-tied block, quantized
+        # with each group's weight format
         body = _make_body(cfg, positions)
+        shared = ((params["shared_attn"],) if cfg.family == "hybrid"
+                  else ())
         x_final, caches, aux_sum = forward_stack(
-            body, params["blocks"], x0.detach(), main_bits, policy)
+            body, params["blocks"], x0.detach(), main_bits, policy,
+            shared=shared)
 
         # ---- head (loss), seeded with grad_scale --------------------------
         head_f = _head_fn(cfg, batch, policy, _bits_edge(main_bits, -1))
@@ -371,11 +392,20 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
         metrics["loss_total"] = metrics["loss"] + AUX_COEF * aux_sum
 
         # ---- the G-chain: reverse loop with fused per-layer updates ------
-        G_in, new_blocks, new_blocks_opt, gsq = backward_stack(
+        G_in, new_blocks, new_blocks_opt, gsq, dshared = backward_stack(
             body, params["blocks"], opt_state["blocks"], caches, main_bits,
-            G_final, hyper, policy, optim_cfg, AUX_COEF, base_key=rng)
+            G_final, hyper, policy, optim_cfg, AUX_COEF, base_key=rng,
+            shared=shared)
         new_params, new_opt = dict(params), dict(opt_state)
         new_params["blocks"], new_opt["blocks"] = new_blocks, new_blocks_opt
+
+        # ---- the shared block's one update, from dS summed over groups ---
+        if shared:
+            d_sh = tree_map(lambda g: g / scale, dshared[0])
+            new_params["shared_attn"], new_opt["shared_attn"] = apply_update(
+                params["shared_attn"], d_sh, opt_state["shared_attn"],
+                hyper, optim_cfg)
+            gsq = gsq + _sq_sum(d_sh, gsq)
 
         # ---- boundary updates (embed: head + input contributions) --------
         with torch.enable_grad():

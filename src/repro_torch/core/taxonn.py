@@ -28,12 +28,14 @@ are JAX's and so are the draws (``util.prng``).
 
 The JAX package runs both passes as ``lax.scan`` over stacked [L, ...]
 leaves; here they are Python loops over layer views of the same stacked
-leaves, and the X_i caches are a list.  The dense body has no operand
-shared across layers, so the JAX package's ``shared`` arguments (hybrid's
-tied attention block, encdec's encoder output) come with those families
-(A9).  ``QuantPolicy.bit_anneal`` carries a step-indexed F-bit ramp
-(``search.anneal``) that ``core.steps.make_train_step`` applies to the
-step's bits.  The JAX package's options for the multi-device engine (the
+leaves, and the X_i caches are a list.  ``shared`` is the JAX package's
+operand that every unit reads besides its own slice (the hybrid's
+weight-tied attention block): a tuple of trees handed to the body after
+its bits, quantized with each unit's weight format, and differentiated
+in every unit's VJP at the step-start weights; the backward sums its
+gradient over the units.  ``QuantPolicy.bit_anneal`` carries a
+step-indexed F-bit ramp (``search.anneal``) that
+``core.steps.make_train_step`` applies to the step's bits.  The JAX package's options for the multi-device engine (the
 dW all-reduce, its codec, overlap and transports, ``grad_tap_stochastic``)
 are not fields of the port's ``QuantPolicy`` yet: they come with
 multi-GPU (A11).
@@ -157,6 +159,14 @@ def _bits_layer(bits: BitSchedule, i: int) -> dict:
             for k in ("w_i", "w_f", "a_i", "a_f", "g_i", "g_f")}
 
 
+def _quantize_shared(shared: tuple, b_l: dict, enabled,
+                     policy: QuantPolicy) -> tuple:
+    """The shared operand in unit ``b_l``'s weight format."""
+    return tuple(quantize_weight_tree(t, b_l["w_i"], b_l["w_f"], enabled,
+                                      policy.quantize_weights)
+                 for t in shared)
+
+
 def _slice(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
@@ -171,12 +181,14 @@ def _num_units(stacked) -> int:
 
 @torch.no_grad()
 def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
-                  bits: BitSchedule, policy: QuantPolicy):
-    """body_fn(params_slice, x, bits_layer) -> (y, aux).
+                  bits: BitSchedule, policy: QuantPolicy, shared: tuple = ()):
+    """body_fn(params_slice, x, bits_layer, *shared) -> (y, aux).
 
     Returns (x_final, caches, aux_sum): ``caches[i]`` is layer i's
     *quantized* input, exactly what the backward re-linearises at, so the
     forward and backward see the same numerics.  Runs without autograd.
+    ``shared`` (a tuple of trees) is quantized with each unit's weight
+    format.
     """
     enabled = bits.enabled
     x, caches, aux_sum = x0, [], None
@@ -187,7 +199,8 @@ def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
         wq = quantize_weight_tree(_slice(stacked, i), b_l["w_i"],
                                   b_l["w_f"], enabled,
                                   policy.quantize_weights)
-        x, aux = body_fn(wq, xq, b_l)
+        sq = _quantize_shared(shared, b_l, enabled, policy)
+        x, aux = body_fn(wq, xq, b_l, *sq)
         caches.append(xq)
         aux_sum = aux if aux_sum is None else aux_sum + aux
     return x, caches, aux_sum
@@ -200,7 +213,7 @@ def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
 def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
                    bits: BitSchedule, G_out: torch.Tensor, hyper: Hyper,
                    policy: QuantPolicy, optim_cfg: OptimizerConfig,
-                   aux_coef: float, base_key=None):
+                   aux_coef: float, base_key=None, shared: tuple = ()):
     """The reverse loop over layers.  Per layer (the paper's steps 1-4 in
     one TDM frame):
 
@@ -215,7 +228,14 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
     i)`` (a port key, ``util.prng``); without a ``base_key`` it rounds to
     nearest, as the JAX package does.
 
-    Returns (G_in, new_stacked, new_opt, grad_sq_sum).
+    ``shared`` is an input of every layer's VJP, taken with respect to the
+    unquantized tree (the STE), and is not updated inside the loop: every
+    layer sees the step-start shared weights.  Its gradient dS is summed
+    in f32 over the layers and stays in the scaled domain (the caller
+    un-scales it and applies its update).
+
+    Returns (G_in, new_stacked, new_opt, grad_sq_sum, dS), dS a tuple like
+    ``shared``.
     """
     enabled = bits.enabled
     inv_scale = 1.0 / policy.grad_scale
@@ -224,6 +244,10 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
     gsq = torch.zeros((), dtype=torch.float32, device=G_out.device)
     aux_seed = torch.tensor(aux_coef * policy.grad_scale, dtype=torch.float32,
                             device=G_out.device)
+    dS = tuple(tree_map(lambda w: torch.zeros(w.shape, dtype=torch.float32,
+                                              device=w.device), t)
+               for t in shared)
+    n_shared = len(tree_leaves(shared))
     G = G_out
     for i in reversed(range(_num_units(stacked))):
         b_l = _bits_layer(bits, i)
@@ -232,21 +256,28 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
         p_l = _slice(stacked, i)
         with torch.enable_grad():
             pw = tree_map(lambda w: w.detach().requires_grad_(), p_l)
+            sw = tuple(tree_map(lambda w: w.detach().requires_grad_(), t)
+                       for t in shared)
             xx = caches[i].detach().requires_grad_()
             wq = quantize_weight_tree(pw, b_l["w_i"], b_l["w_f"], enabled,
                                       policy.quantize_weights)
-            y, aux = body_fn(wq, xx, b_l)
+            sq = _quantize_shared(sw, b_l, enabled, policy)
+            y, aux = body_fn(wq, xx, b_l, *sq)
             outs, seeds = [y], [G.to(y.dtype)]
             if aux.requires_grad:
                 outs.append(aux)
                 seeds.append(aux_seed)
-            wrt = tree_leaves(pw) + [xx]
+            wrt = tree_leaves(pw) + tree_leaves(sw) + [xx]
             grads = torch.autograd.grad(outs, wrt, seeds, allow_unused=True)
         grads = [torch.zeros_like(w) if g is None else g
                  for g, w in zip(grads, wrt)]
+        n_own = len(grads) - n_shared - 1
         with torch.no_grad():
+            dS = tree_unflatten(dS, [
+                a + g.to(torch.float32) for a, g in
+                zip(tree_leaves(dS), grads[n_own:n_own + n_shared])])
             dW = tree_unflatten(pw, [g.to(torch.float32) * inv_scale
-                                     for g in grads[:-1]])
+                                     for g in grads[:n_own]])
             G = _quant_grad(grads[-1], b_l["g_i"], b_l["g_f"], enabled,
                             policy, key)
             dW = tree_map(lambda g: quantize_update(g, b_l, key, enabled,
@@ -257,4 +288,4 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
             tree_map(lambda dst, src: dst[i].copy_(src), new_opt, new_o)
             for g in tree_leaves(dW):
                 gsq = gsq + torch.sum(torch.square(g))
-    return G, new_stacked, new_opt, gsq
+    return G, new_stacked, new_opt, gsq, dS

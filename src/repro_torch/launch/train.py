@@ -265,9 +265,14 @@ def main(argv=None):
             hyper = Hyper(lr=float(np.float32(sched(step))), step=step)
             rng = (prng.fold_in(prng.key(1), step) if args.stochastic
                    else None)
-            params, opt_state, metrics = step_fn(params, opt_state,
-                                                 loader.get(step), hyper,
-                                                 bits, rng)
+            skips = loader.skips
+            batch = loader.get(step)
+            if loader.skips != skips:
+                print(f"[train] step {step}: no batch within "
+                      f"{args.deadline_s} s, the previous one stands in",
+                      flush=True)
+            params, opt_state, metrics = step_fn(params, opt_state, batch,
+                                                 hyper, bits, rng)
             losses.append(float(metrics["loss"]))
             if prof is not None and step - start_step + 1 >= args.profile:
                 prof.stop()

@@ -62,7 +62,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 # How each family's main stack consumes operands that are not the layer's
 # own parameters or the flowing activation (the JAX package's contract for
-# its stage-sharded pipeline; the port's engine covers "none" so far):
+# its stage-sharded pipeline; the port's engine covers "none" and
+# "weights"):
 #   "none"       self-contained per-layer bodies (dense/moe/vlm/ssm)
 #   "weights"    a weight-tied block applied by every unit (the hybrid's
 #                shared attention block)
@@ -127,24 +128,44 @@ def embed_input(params, cfg: ModelConfig, batch: dict):
     return x, positions
 
 
+def block_fn(kind: str):
+    """The training block of ``kind`` ("attn" or "mamba")."""
+    return B.transformer_block if kind == "attn" else B.mamba_block
+
+
+def stack_units(cfg: ModelConfig) -> int:
+    """Units of the main stack: layers, or the hybrid's groups."""
+    return hybrid_groups(cfg)[0] if cfg.family == "hybrid" else cfg.num_layers
+
+
+def unit_blocks(unit, cfg: ModelConfig, shared=None):
+    """One unit of the main stack in order: (kind, block params, k) per
+    block, kind "attn" (the transformer block) or "mamba".  A dense or ssm
+    unit is one layer (k None); a hybrid unit is a group, whose parameters
+    are [K, ...]: the weight-tied ``shared`` block (k None), then Mamba
+    layer k for each k."""
+    if cfg.family != "hybrid":
+        yield ("mamba" if cfg.family == "ssm" else "attn"), unit, None
+        return
+    yield "attn", shared, None
+    for k in range(hybrid_groups(cfg)[1]):
+        yield "mamba", layer_params(unit, k), k
+
+
 def walk_stack(params, cfg: ModelConfig):
     """The main stack in order: one (kind, block params, cache index) per
-    block application, kind "attn" (the transformer block) or "mamba".
-    The cache index names the block's slice of the stacked decode caches:
-    (None, i) in the dense and ssm stacks; in the hybrid's, ("attn", g)
-    for the g-th application of the weight-tied shared block and
-    ("mamba", (g, k)) for Mamba layer k of group g."""
-    if cfg.family == "hybrid":
-        G, K = hybrid_groups(cfg)
-        for g in range(G):
-            yield "attn", params["shared_attn"], ("attn", g)
-            for k in range(K):
-                yield ("mamba", layer_params(params["blocks"], (g, k)),
-                       ("mamba", (g, k)))
-        return
-    kind = "mamba" if cfg.family == "ssm" else "attn"
-    for i in range(cfg.num_layers):
-        yield kind, layer_params(params["blocks"], i), (None, i)
+    block application (``unit_blocks`` of each unit).  The cache index
+    names the block's slice of the stacked decode caches: (None, i) in the
+    dense and ssm stacks; in the hybrid's, ("attn", g) for the g-th
+    application of the weight-tied shared block and ("mamba", (g, k)) for
+    Mamba layer k of group g."""
+    hybrid = cfg.family == "hybrid"
+    for i in range(stack_units(cfg)):
+        for kind, p, k in unit_blocks(layer_params(params["blocks"], i), cfg,
+                                      params.get("shared_attn")):
+            at = (("attn", i) if k is None else ("mamba", (i, k))) \
+                if hybrid else (None, i)
+            yield kind, p, at
 
 
 def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
@@ -152,8 +173,7 @@ def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
     """The main stack, block by block. Returns (x_final, aux_sum)."""
     auxs = []
     for kind, p, _ in walk_stack(params, cfg):
-        block = B.transformer_block if kind == "attn" else B.mamba_block
-        x, aux = block(p, x, cfg, positions)
+        x, aux = block_fn(kind)(p, x, cfg, positions)
         auxs.append(aux)
     return x, torch.sum(torch.stack(auxs))
 

@@ -137,7 +137,7 @@ def _make_mlp_step(policy: QuantPolicy, ocfg: OptimizerConfig, dev):
                                 device=dev)
             d_wout, G = torch.autograd.grad(loss, (w_out, hf), seed)
 
-        G0, new_hidden, new_opt_h, _ = backward_stack(
+        G0, new_hidden, new_opt_h, _, _ = backward_stack(
             body, params["hidden"], opt["hidden"], caches, bits, G, hyper,
             policy, ocfg, 0.0)
 
@@ -306,9 +306,10 @@ def make_lm_probe(cfg, ocfg: Optional[OptimizerConfig] = None,
     tensor tree) replaces ``lm.init_params(cfg, seed=sweep.seed)``;
     ``kernel_backend`` (default: the policy's "auto", int8 on CUDA and off
     on the CPU) lets a CPU sweep run the int8 plain versions that a card's
-    sweep runs as kernels.  Families other than dense raise
-    ``NotImplementedError`` (ROADMAP A9) in ``make_train_step``, before
-    their encoder frames or patch embeddings would be drawn.
+    sweep runs as kernels.  The probes sweep the engine's units (the
+    hybrid's are its groups).  Families other than dense, ssm and hybrid
+    raise ``NotImplementedError`` (ROADMAP A9) in ``make_train_step``,
+    before their encoder frames or patch embeddings would be drawn.
     """
     from repro_torch.models import lm
 

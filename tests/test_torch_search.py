@@ -16,6 +16,13 @@ Tolerances, and why:
   * the LM sweep (2-layer f32 dense config, ``make_train_step``): the
     same plan, every loss within 1e-6 of jitted JAX's (f32: jit and op by
     op agree to ulps; one probe is also held to op-by-op JAX).
+  * the LM sweep on the tiny hybrid (``tests/test_models.py::
+    tiny("hybrid")``, its 2 groups the 2 units): the same plan, the
+    baseline and final losses within 1e-6 of jitted JAX's, and each probe
+    loss within 2e-3 of it, the LeNet probes' quantized rule: the probes
+    run at (1,3), where one f32 ulp on every weight moves the port's own
+    probe losses by up to 7e-3 of themselves (observed against JAX:
+    1.6e-5).
   * the export checks and the anneal: bitwise.
   * the card tolerances of ``chip_smoke.py``'s ``search`` phase are
     justified here on the CPU (``test_probe_spread_justifies_card_
@@ -58,6 +65,7 @@ from repro_torch.serving import engine as TENG
 from repro_torch.util import prng
 from repro_torch.util.tree import tree_leaves, tree_map
 
+from test_models import tiny
 from test_torch_engine_jax import _grid_close
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -368,10 +376,30 @@ def test_lm_sweep_plan_matches_jax():
         assert gt["probe_loss"] == pytest.approx(gj["probe_loss"], rel=1e-6)
 
 
+def test_lm_sweep_plan_matches_jax_hybrid():
+    """run_sweep_lm sizes its groups from num_scan_units, so on the hybrid
+    it sweeps the engine's units, the groups (the shared block takes each
+    group's format)."""
+    jc = tiny("hybrid")
+    tc = ModelConfig(**dataclasses.asdict(jc))
+    jp = jax.tree.map(np.asarray, JLM.init_params(jax.random.key(0), jc))
+    jplan = JS.run_sweep_lm(jc, None, JS.SweepConfig(**LM_SWEEP), seq_len=16)
+    tplan = TS.run_sweep_lm(tc, None, TS.SweepConfig(**LM_SWEEP), seq_len=16,
+                            device="cpu", params0=jp)
+    j, t = jplan.to_json(), tplan.to_json()
+    assert t["num_layers"] == TLM.hybrid_groups(tc)[0] == 2
+    assert tplan.formats() == jplan.formats() and t["probes"] == j["probes"]
+    for k in ("baseline_loss", "final_loss"):
+        assert t[k] == pytest.approx(j[k], rel=1e-6), k
+    for gj, gt in zip(j["groups"], t["groups"]):
+        assert gt["probe_loss"] == pytest.approx(gj["probe_loss"], rel=2e-3)
+
+
 @pytest.mark.parametrize("family", ["encdec", "vlm", "moe"])
 def test_lm_sweep_refuses_other_families(family):
     """The JAX sweep draws encoder frames or patch embeddings for encdec
-    and vlm; the port's engine runs the dense family only (ROADMAP A9)."""
+    and vlm; the port's engine trains the dense, ssm and hybrid families
+    only (ROADMAP A9)."""
     cfg = dataclasses.replace(ModelConfig(**TINY), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         TS.run_sweep_lm(cfg, None, TS.SweepConfig(**LM_SWEEP), seq_len=16,

@@ -58,6 +58,19 @@ def test_train_loss_decreases():
     assert "kernel backend off" in out.stdout  # auto on the CPU
 
 
+@pytest.mark.parametrize("arch,family", [("mamba2-370m", "ssm"),
+                                         ("zamba2-2.7b", "hybrid")])
+def test_ssm_families_loss_decreases(arch, family):
+    """The engine trains the reduced ssm and hybrid twins through the
+    driver, quantized as ``tests/test_train_driver.py`` trains them."""
+    out = run_driver("--arch", arch, "--steps", "40", "--lr", "3e-2",
+                     "--quantize", "--log-every", "5")
+    assert f"({family}) on cpu" in out.stdout
+    losses = parse_losses(out.stdout)
+    assert len(losses) >= 3
+    assert losses[-1] < losses[0] * 0.9, out.stdout[-2000:]
+
+
 def test_checkpoint_restart_continues(tmp_path):
     ck = tmp_path / "ck"
     out1 = run_driver("--steps", "20", "--lr", "3e-2", "--ckpt-dir", str(ck),

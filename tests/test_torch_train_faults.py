@@ -47,3 +47,7 @@ def test_straggler_stall_does_not_break_resume(tmp_path):
                      "--fault-plan", "stall@3:2.0")
     assert (ck / "step_00000008").exists()
     assert len(step_losses(out.stdout)) >= 6
+    # every substituted batch is logged, and the log agrees with the count
+    skips = re.findall(r"data_skips=(\d+)", out.stdout)
+    assert int(skips[-1]) == out.stdout.count("no batch within 0.3 s"), \
+        out.stdout[-2000:]

@@ -12,6 +12,9 @@ steps of the same data and lr schedule; and once more with
 ``--stochastic``, where both drivers key the noise ``fold_in(key(1),
 step)`` and draw it bit for bit alike.
 
+The same from the reduced mamba2-370m and zamba2-2.7b (the ssm and hybrid
+families, ``SSM_ARCHS``), round-to-nearest.
+
 Tolerance: the losses agree within LOSS_RTOL (relative).  The two sides
 sum in other orders; where a value sits at an (I,F) rounding tie, one f32
 rounding of difference moves it a grid step, and later steps carry that
@@ -39,16 +42,18 @@ from repro.optim import OptimizerConfig as JOCfg
 from repro_torch.launch import train
 
 STEPS = 6
-COMMON = ["--arch", "qwen1.5-0.5b", "--reduced", "--seq-len", "32",
+ARCH = "qwen1.5-0.5b"
+SSM_ARCHS = ["mamba2-370m", "zamba2-2.7b"]
+COMMON = ["--arch", ARCH, "--reduced", "--seq-len", "32",
           "--global-batch", "8", "--quantize", "--kernel-backend", "off",
           "--steps", str(STEPS), "--log-every", "1", "--resume"]
 LOSS_RTOL = 5e-5
 
 
-def _step0_checkpoint(d, nudge=False):
+def _step0_checkpoint(d, nudge=False, arch=ARCH):
     """JAX's step-0 state; ``nudge`` moves every float leaf of the params
     one f32 ulp up."""
-    cfg = j_reduce_cfg()
+    cfg = j_reduce_cfg(arch)
     params = JLM.init_params(jax.random.key(0), cfg)
     if nudge:
         params = jax.tree.map(
@@ -58,8 +63,8 @@ def _step0_checkpoint(d, nudge=False):
     j_save(d, 0, (params, state), extra=j_capture(cfg, 0))
 
 
-def j_reduce_cfg():
-    return j_train._reduce(j_get_config("qwen1.5-0.5b"))
+def j_reduce_cfg(arch=ARCH):
+    return j_train._reduce(j_get_config(arch))
 
 
 def _rel(a, b) -> float:
@@ -67,14 +72,14 @@ def _rel(a, b) -> float:
     return float(np.max(np.abs(a - b) / np.abs(b)))
 
 
-def _three_runs(root, *flags):
+def _three_runs(root, *flags, arch=ARCH):
     """(root, JAX's losses, the port's, the port's from the nudged
     checkpoint), each from its own copy of the step-0 checkpoint."""
-    _step0_checkpoint(root / "step0")
-    _step0_checkpoint(root / "nudged", nudge=True)
+    _step0_checkpoint(root / "step0", arch=arch)
+    _step0_checkpoint(root / "nudged", nudge=True, arch=arch)
     for d in ("jax", "port"):
         shutil.copytree(root / "step0", root / d)
-    args = COMMON + list(flags)
+    args = COMMON + list(flags) + ["--arch", arch]
     try:
         jax_losses = j_train.main(args + ["--data", "1", "--model", "1",
                                           "--ckpt-dir", str(root / "jax"),
@@ -111,6 +116,13 @@ def _check_losses(jax_losses, port, nudged):
 
 def test_driver_losses_match_the_jax_driver(runs):
     _check_losses(*runs[1:])
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_driver_losses_match_the_jax_driver(arch, tmp_path):
+    """The same rule on the ssm and hybrid families: the hybrid's engine
+    units are its groups, its shared block is updated once a step."""
+    _check_losses(*_three_runs(tmp_path, arch=arch)[1:])
 
 
 def test_stochastic_driver_losses_match_the_jax_driver(runs,

@@ -21,7 +21,8 @@ Phases (any failure exits non-zero before the result line is printed):
                attention widths (D 7168, 56 heads, 8 KV heads of 128, 8
                slots; attention over up to 4096 positions),
                decode_prologue also at zamba2-2.7b's (D 2560, 32 heads of
-               80, no bias), and
+               80, no bias) and mixtral-8x7b's (D 4096, 32 heads and 8 KV
+               heads of 128, no bias), and
                sgd_dw_update also in the dW-only form at the qwen1.5-0.5b
                MLP shape (T 2048, 1024 x 2816); bp_gstep also at the dense
                engine's dx shapes there (mlp_up: G [2048, 2816] against W
@@ -35,7 +36,10 @@ Phases (any failure exits non-zero before the result line is printed):
                1024), bf16 activations against f32 weights, identity,
                and through zamba2-2.7b's shared-block units in train_ssm
                (``ZAMBA2_ENGINE_UNITS``: q/k/v/o 2560 x 2560, gate/up
-               2560 x 10240, down 10240 x 2560).
+               2560 x 10240, down 10240 x 2560) and mixtral-8x7b's
+               attention units in the moe phase
+               (``MIXTRAL_ENGINE_UNITS``: q/o 4096 x 4096, k/v 4096 x
+               1024).
                Beside each bp_fused_unit row the port's unfused pair
                (bp_gstep + sgd_dw_update), and beside each decode_prologue
                row the engine's unfused branch (rmsnorm, three fxp_matmul
@@ -152,7 +156,33 @@ Phases (any failure exits non-zero before the result line is printed):
                leaf and SSM_TRAIN_VECTOR_TOL for A_log and dt_bias, and
                the hybrid's card step again under serve_ssm's dropped-K
                faults beyond them.
-5c. search -- the bitwidth search (``search/``), in four parts:
+5f. moe    -- the moe family and sliding-window decode on mixtral-8x7b
+               at full width (d 4096, 8 experts of 14336, top-2, 32 heads
+               and 8 KV heads of 128, vocab 32000, a window of 4096), f32
+               masters from seed 0, bf16 compute, cut in depth only (each
+               cut printed as reduced): (1) 4 layers served by the
+               scheduler in contiguous mode through the engine's hooks, 8
+               slots, 8 prompts of 128 tokens, 32 new, bf16 KV, the int8
+               backend: every request finishes, exactly 16 fxp_matmul a
+               prefill and 4 decode_prologue a decode step (the router and
+               experts are plain products, as in JAX), prefill ms,
+               ms/decode step, tokens/s and a profile of 5 decode steps;
+               (2) one layer with the window cut to 64, 2 rows of 72
+               prompt tokens and 4 decode steps (the ring wraps) on the
+               card and on the CPU under int8 and emulate: the logits
+               within MOE_PARITY_TOL, the share of routing picks that
+               differ printed, a dropped K split of q/k/v/o and
+               un-renormalised routing weights beyond the limit; (3) 2
+               layers trained by train_lm's step (momentum, lr 3e-3, 8 x
+               128), 6 steps a backend: every loss finite, the last-2 mean
+               below the first-2 mean, exactly 16 / 8 / 8 launches a step,
+               ms/step, tokens/s, the aux, peak memory, a profile of 3
+               steps; the int8 stochastic step 2 steps twice, bitwise;
+               (4) one layer, one step, 2 x 32, card against CPU: the
+               update's relative L2 whole, leaf by leaf and the router's
+               within MOE_TRAIN_PARITY_TOL, MOE_TRAIN_LEAF_TOL and
+               MOE_ROUTER_TOL, the dropped-K control beyond them.
+5c. search -- the bitwidth search (``search/``), in three parts:
                (1) the LeNet-5 sweep at the JAX defaults (784-256x4-10, 3
                groups, the 6-point grid, 120 probe steps of batch 128 at
                lr 0.05, seed 0; plain PyTorch, no kernel launch) on the
@@ -164,9 +194,7 @@ Phases (any failure exits non-zero before the result line is printed):
                groups, 3 steps a probe, then 2 training steps): the sweep's
                log and plan, both JSON files load back, the parity line
                OK, every probe loss finite, and exactly (probes x 3 + 2) x
-               train_lm's launches a step plus one decode_prologue; (3) a
-               2-layer full-width sweep (SEARCH_LM_SWEEP, int8) card
-               against CPU, to SEARCH_LM_LOSS_TOL; (4)
+               train_lm's launches a step plus one decode_prologue; (3)
                ``verify_train_serve_parity`` on the card for (2)'s plan and
                the JAX suite's EXPORT_PLAN: ok, every diff 0, one
                decode_prologue launch each.  Probes, seconds and ms a
@@ -182,16 +210,17 @@ Phases (any failure exits non-zero before the result line is printed):
                The flip drill: one bit of A's checkpoint 8 flipped, the
                restore onto the card warns and recovers step 5, bitwise
                A's by crc32.  Run B, a subprocess, is killed at step 6
-               (exit 41) after its step-5 checkpoint landed; run B'' resumes
-               it with --bit-anneal 0:16,3:12 and must exit 1 ("annealed
-               under") before a step; run B' resumes it from step 5 and
+               (exit 41) after its step-5 checkpoint landed; run B' resumes
+               it from step 5 and
                must end with every crc32 of its checkpoint 8 equal to A's
                and the same logged losses.
-6. summary  -- one ``{"kernels": [...]}`` line, the card's line, and last
-               ``{"ok": true, "device": {...}}``.
+6. summary  -- one line of each phase's seconds, one ``{"kernels":
+               [...]}`` line, the card's line, and last ``{"ok": true,
+               "device": {...}}``.
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
-serve_ssm, train, noise, train_lm, train_ssm, search and train_driver (for
+serve_ssm, train, noise, train_lm, train_ssm, moe, search and train_driver
+(for
 example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
 the result line is printed only when every phase ran.  The script imports
@@ -213,7 +242,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "serve_ssm",
-          "train", "noise", "train_lm", "train_ssm", "search",
+          "train", "noise", "train_lm", "train_ssm", "moe", "search",
           "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
@@ -440,6 +469,8 @@ PROLOGUE_SHAPES = (
     dict(b=8, d=7168, h=56, hkv=8, hd=128, bias=False, theta=5e6, eps=1e-5,
          variants=(("bfloat16", "int8"), ("bfloat16", "emulate"))),
     dict(b=8, d=2560, h=32, hkv=32, hd=80, bias=False, theta=1e4, eps=1e-5,
+         variants=(("bfloat16", "int8"), ("bfloat16", "emulate"))),
+    dict(b=8, d=4096, h=32, hkv=8, hd=128, bias=False, theta=1e6, eps=1e-5,
          variants=(("bfloat16", "int8"), ("bfloat16", "emulate"))),
 )
 
@@ -2142,9 +2173,7 @@ def serve_ssm_run(torch, dev, arch, pre_launches, dec_launches):
     profile of PROFILE_STEPS decode steps, and a snapshot after
     SNAPSHOT_AFTER decode steps restored to equal streams."""
     from repro_torch import kernels as K
-    from repro_torch.kernels import ops as kops
     from repro_torch.launch import serve
-    from repro_torch.serving import engine as E
 
     t_phase = time.perf_counter()
     K.reset_launch_counts()
@@ -2175,6 +2204,25 @@ def serve_ssm_run(torch, dev, arch, pre_launches, dec_launches):
         f"{counts}" + ("" if any(counts.values()) else
                        " (none: the Mamba layers are plain PyTorch, as in "
                        "JAX)"))
+    _engine_serve_checks(torch, dev, arch, cfg, params, pre_launches,
+                         dec_launches, rec)
+    rec["snapshot"] = snapshot_restore(torch, dev, params, cfg, "contiguous")
+    del params
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
+def _engine_serve_checks(torch, dev, arch, cfg, params, pre_launches,
+                         dec_launches, rec):
+    """From the engine's own entry points on the served weights: B
+    prefills of CONT_PROMPT tokens merged into a contiguous batch, each
+    with exactly ``pre_launches`` and its ms; one decode step with exactly
+    ``dec_launches`` and finite logits; a profile of PROFILE_STEPS decode
+    steps.  Writes the readings into ``rec``."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving import engine as E
 
     state = E.init_decode_state(cfg, B, CONT_MAX_LEN, torch.bfloat16, dev)
     toks = torch.zeros((B, 1), dtype=torch.int32)
@@ -2216,11 +2264,7 @@ def serve_ssm_run(torch, dev, arch, pre_launches, dec_launches):
     rec["profile"] = profile_steps(
         torch, lambda: E.decode_step(params, cfg, state, toks.to(dev)),
         f"decode {arch} int8", "int8", dev)
-    rec["snapshot"] = snapshot_restore(torch, dev, params, cfg, "contiguous")
-    del params, state
-    torch.cuda.empty_cache()
-    rec["phase_s"] = time.perf_counter() - t_phase
-    return rec
+    del state
 
 
 def _dropped_k(kops, k_full, cut):
@@ -2626,11 +2670,12 @@ NOISE_ROW_SHAPE, NOISE_OFFSETS = (8, 6, 7), (0, 3)
 NOISE_G_SHAPE = (TRAIN_LM_BATCH, TRAIN_LM_SEQ, D)
 
 
-def _lm_step(torch, cfg, backend, dev, stochastic=False):
+def _lm_step(torch, cfg, backend, dev, stochastic=False,
+             optimizer=TRAIN_LM_OPTIMIZER):
     from repro_torch.core import QuantPolicy, StepOptions, make_train_step
     from repro_torch.optim import OptimizerConfig
 
-    ocfg = OptimizerConfig(kind=TRAIN_LM_OPTIMIZER)
+    ocfg = OptimizerConfig(kind=optimizer)
     return make_train_step(cfg, QuantPolicy(grad_scale=TRAIN_LM_GRAD_SCALE,
                                             stochastic=stochastic),
                            ocfg, StepOptions(kernel_backend=backend),
@@ -2967,10 +3012,13 @@ def train_lm_parity(torch, dev):
 
 # train_lm's step (momentum, grad_scale 64, default bits, lr 3e-3) on one
 # synthetic batch of TRAIN_LM_BATCH x TRAIN_LM_SEQ, on full-width
-# zamba2-2.7b (both backends) and mamba2-370m (no kernel to choose)
-TRAIN_SSM_RUNS = ((HYBRID_ARCH, "int8", HYBRID_TRAIN_LAUNCHES),
-                  (HYBRID_ARCH, "emulate", HYBRID_TRAIN_LAUNCHES),
-                  (SSM_ARCH, "int8", SSM_LAUNCHES))
+# zamba2-2.7b (both backends, all 54 layers) and mamba2-370m (no kernel to
+# choose) cut to TRAIN_SSM_MAMBA_LAYERS of its 48 layers: its step is
+# host-bound (89% idle at 48 layers), and the cut keeps the script's time
+TRAIN_SSM_MAMBA_LAYERS = 16
+TRAIN_SSM_RUNS = ((HYBRID_ARCH, "int8", HYBRID_TRAIN_LAUNCHES, None),
+                  (HYBRID_ARCH, "emulate", HYBRID_TRAIN_LAUNCHES, None),
+                  (SSM_ARCH, "int8", SSM_LAUNCHES, TRAIN_SSM_MAMBA_LAYERS))
 TRAIN_SSM_STEPS, TRAIN_SSM_WARM, TRAIN_SSM_PROFILE = 6, 2, 3
 TRAIN_SSM_STOCH_STEPS, TRAIN_SSM_DRIVER_STEPS = 2, 3
 # the card-against-CPU check: one step of zamba2-2.7b cut to one group (6
@@ -3022,18 +3070,20 @@ def _lm_batch(torch, cfg, dev, batch=TRAIN_LM_BATCH, seq=TRAIN_LM_SEQ):
                                            seed=0).batch_at(0).items()}
 
 
-def train_ssm_run(torch, dev, arch, backend, launches):
-    """TRAIN_SSM_STEPS steps of ``arch`` from seed-0 params on one batch:
-    every loss finite, the mean of the last 2 below that of the first 2,
-    exactly ``launches`` each step; the timed ms/step, tokens/s, peak
-    memory and a profile of TRAIN_SSM_PROFILE steps."""
+def train_ssm_run(torch, dev, arch, backend, launches, cfg=None,
+                  phase="train_ssm"):
+    """TRAIN_SSM_STEPS steps of ``arch`` (``cfg`` when given, a depth cut
+    of it) from seed-0 params on one batch: every loss finite, the mean of
+    the last 2 below that of the first 2, exactly ``launches`` each step;
+    the timed ms/step, tokens/s, peak memory, the last aux and a profile
+    of TRAIN_SSM_PROFILE steps."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core import default_bits, init_train_state
     from repro_torch.models import lm
     from repro_torch.optim import Hyper
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     batch, bits = _lm_batch(torch, cfg, dev), default_bits(cfg)
     t_run = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3054,20 +3104,22 @@ def train_ssm_run(torch, dev, arch, backend, launches):
     n = TRAIN_SSM_WARM
     first, last = sum(losses[:n]) / n, sum(losses[-n:]) / n
     ms = 1e3 * statistics.median(secs[TRAIN_SSM_WARM:])
-    label = f"train_ssm {arch} {backend}"
-    rec = dict(run=f"train_ssm/{arch}/{backend}", arch=arch,
-               backend=backend, steps=TRAIN_SSM_STEPS,
+    label = f"{phase} {arch} {backend}"
+    rec = dict(run=f"{phase}/{arch}/{backend}", arch=arch,
+               layers=cfg.num_layers, backend=backend, steps=TRAIN_SSM_STEPS,
                counts={k: sum(c[k] for c in per_step) for k in launches},
                ms_per_step=ms, ms_per_step_timed=[1e3 * t for t in secs],
                tokens_per_s=TRAIN_LM_BATCH * TRAIN_LM_SEQ / (ms / 1e3),
                losses=losses, loss_first=first, loss_last=last,
+               aux_last=float(m["aux"]),
                grad_norm_last=float(m["grad_norm"]),
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
-    say(f"{label}: {ms:.2f} ms/step (median after {TRAIN_SSM_WARM} "
-        f"warm-up), {rec['tokens_per_s']:.0f} tokens/s, losses "
-        f"{[round(v, 4) for v in losses]} (first {n} {first:.4f}, last {n} "
-        f"{last:.4f}), peak memory {rec['peak_mem_gb']:.2f} GiB, launches "
-        f"a step {per_step[0]}")
+    say(f"{label} ({cfg.num_layers} layers): {ms:.2f} ms/step (median "
+        f"after {TRAIN_SSM_WARM} warm-up), {rec['tokens_per_s']:.0f} "
+        f"tokens/s, losses {[round(v, 4) for v in losses]} (first {n} "
+        f"{first:.4f}, last {n} {last:.4f}), aux {rec['aux_last']:.6f}, "
+        f"peak memory {rec['peak_mem_gb']:.2f} GiB, launches a step "
+        f"{per_step[0]}")
     require(all(math.isfinite(v) for v in losses),
             f"{label}: a loss is not finite: {losses}")
     for i, c in enumerate(per_step):
@@ -3089,11 +3141,14 @@ def train_ssm_run(torch, dev, arch, backend, launches):
     return rec
 
 
-def train_ssm_stochastic(torch, dev):
-    """zamba2-2.7b's int8 step with stochastic rounding under the JAX
-    driver's keys, TRAIN_SSM_STOCH_STEPS steps twice from seed-0 params:
-    HYBRID_TRAIN_LAUNCHES a step, every loss finite, and the second run's
-    params bitwise the first's (compared on the card)."""
+def train_ssm_stochastic(torch, dev, arch=HYBRID_ARCH,
+                         launches=HYBRID_TRAIN_LAUNCHES, cfg=None,
+                         phase="train_ssm"):
+    """``arch``'s (zamba2-2.7b's; ``cfg`` when given) int8 step with
+    stochastic rounding under the JAX driver's keys, TRAIN_SSM_STOCH_STEPS
+    steps twice from seed-0 params: ``launches`` a step, every loss
+    finite, and the second run's params bitwise the first's (compared on
+    the card)."""
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core import default_bits, init_train_state
@@ -3101,7 +3156,7 @@ def train_ssm_stochastic(torch, dev):
     from repro_torch.optim import Hyper
     from repro_torch.util.tree import tree_leaves
 
-    cfg = get_config(HYBRID_ARCH)
+    cfg = cfg or get_config(arch)
     batch, bits = _lm_batch(torch, cfg, dev), default_bits(cfg)
     step, ocfg = _lm_step(torch, cfg, "int8", dev, stochastic=True)
     finals, total, counts = [], {}, []
@@ -3124,22 +3179,22 @@ def train_ssm_stochastic(torch, dev):
         del params
     (a, loss_a), (b, loss_b) = finals
     differ = sum(not _same_bits(torch, x, y) for x, y in zip(a, b))
-    say(f"train_ssm {HYBRID_ARCH} int8 stochastic: {TRAIN_SSM_STOCH_STEPS} "
+    say(f"{phase} {arch} int8 stochastic: {TRAIN_SSM_STOCH_STEPS} "
         f"steps twice, losses {loss_a} and {loss_b}; {differ} of {len(a)} "
         f"leaves differ; launches a step {counts[0]}")
-    require(all(c == HYBRID_TRAIN_LAUNCHES for c in counts),
-            f"train_ssm stochastic: launches {counts}, expected "
-            f"{HYBRID_TRAIN_LAUNCHES} a step")
+    require(all(c == launches for c in counts),
+            f"{phase} stochastic: launches {counts}, expected "
+            f"{launches} a step")
     require(all(math.isfinite(v) for v in loss_a),
-            f"train_ssm stochastic: losses {loss_a}")
+            f"{phase} stochastic: losses {loss_a}")
     require(differ == 0 and loss_a == loss_b,
-            f"train_ssm stochastic: two runs from the same params and keys "
+            f"{phase} stochastic: two runs from the same params and keys "
             f"differ in {differ} of {len(a)} leaves, losses {loss_a} vs "
             f"{loss_b}")
     n_leaves = len(a)
     del finals, a, b, step
     torch.cuda.empty_cache()
-    return dict(run=f"train_ssm/{HYBRID_ARCH}/int8/stochastic",
+    return dict(run=f"{phase}/{arch}/int8/stochastic",
                 backend="int8", counts=total, losses=loss_a,
                 bitwise_leaves=n_leaves)
 
@@ -3317,13 +3372,501 @@ def train_ssm(torch, dev):
     """Phase train_ssm: the full-width runs, the stochastic pair, the
     driver, then the parity checks."""
     t0 = time.perf_counter()
-    runs = [train_ssm_run(torch, dev, *r) for r in TRAIN_SSM_RUNS]
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    runs = [train_ssm_run(torch, dev, arch, backend, launches,
+                          cfg=None if layers is None else dataclasses.replace(
+                              get_config(arch), num_layers=layers))
+            for arch, backend, launches, layers in TRAIN_SSM_RUNS]
     runs.append(train_ssm_stochastic(torch, dev))
     runs.append(train_ssm_driver(torch, dev))
     parity = train_ssm_parity(torch, dev)
     secs = time.perf_counter() - t0
     say(f"train_ssm: {secs:.1f} s")
     return runs, parity, secs
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: the moe family and sliding-window decode (mixtral-8x7b)
+# ---------------------------------------------------------------------------
+
+# mixtral-8x7b (configs/mixtral_8x7b.py, arXiv 2401.04088: d 4096, 32 heads
+# and 8 KV heads of 128, 8 experts of 14336, top-2, a window of 4096, vocab
+# 32000) at its full width, f32 masters from seed 0, bf16 compute, cut in
+# depth only (its 32 f32 layers are 186 GB).  Its attention runs on the
+# kernels (q, k, v and o through the dense unit, the fused decode
+# prologue); its router and experts are plain products, as the JAX package
+# computes them outside any Pallas kernel.  A prefill runs q, k, v and o on
+# fxp_matmul, 4 a layer; a decode step the prologue, one a layer, and the
+# tail's o-projection and the experts as products; a train step the four
+# projections in the forward and in the re-linearisation, with one dx and
+# one dW each in the backward
+MOE_ARCH = "mixtral-8x7b"
+MOE_SERVE_LAYERS, MOE_TRAIN_LAYERS = 4, 2
+MOE_PREFILL_LAUNCHES = dict(CONT_PREFILL_LAUNCHES,
+                            fxp_matmul=4 * MOE_SERVE_LAYERS)
+MOE_DECODE_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=0,
+                           decode_prologue=MOE_SERVE_LAYERS)
+MOE_TRAIN_LAUNCHES = dict(CONT_PREFILL_LAUNCHES,
+                          fxp_matmul=2 * 4 * MOE_TRAIN_LAYERS,
+                          bp_gstep=4 * MOE_TRAIN_LAYERS,
+                          sgd_dw_update=4 * MOE_TRAIN_LAYERS)
+MOE_TRAIN_BACKENDS = ("int8", "emulate")
+# the serve parity: mixtral cut to one layer and its window to
+# MOE_PARITY_WINDOW, so that the ring of a MOE_PARITY_PROMPT-token prompt
+# wraps in the prefill and again as it decodes; MOE_PARITY_SLOTS rows, a
+# prefill and MOE_PARITY_STEPS decode steps on the card and on the CPU
+# from the same weights and tokens (the CPU decodes the card's argmax
+# tokens), under each backend.  The logits' relative L2, the largest over
+# the prefill and the decode steps, lies within MOE_PARITY_TOL; the share
+# of (token, k) routing picks that differ between the two devices is
+# printed.  The controls, the card's run again with the last quarter of
+# K zeroed where K is d_model (q, k, v and o of the prefill:
+# ``_dropped_k``) and with the routing weights left un-renormalised, must
+# read beyond it.  Sound runs read 0.0039 (int8) and 0.0071 (emulate, 3
+# of 304 picks differing), the controls 1.18 and 0.32 on both backends
+# (PERF.md; H100 80GB HBM3, 700 W): the limit, 0.05, is seven
+# times the larger sound reading and a sixth of the finer control
+MOE_PARITY_WINDOW, MOE_PARITY_PROMPT = 64, 72
+MOE_PARITY_SLOTS, MOE_PARITY_STEPS = 2, 4
+MOE_PARITY_TOL = {"int8": 0.05, "emulate": 0.05}
+MOE_FAULT_SPLITS = 4    # the dropped-K control zeroes the last quarter
+# the train parity: one step of mixtral cut to one layer, batch
+# MOE_TRAIN_PARITY_BATCH x MOE_TRAIN_PARITY_SEQ, card against CPU (int8):
+# the update's relative L2 as a whole (train_lm's limit), of each leaf but
+# the router (train_ssm's leaf limit) and of the router on its own (its
+# gradient reaches it through the routing probabilities and changes with
+# every pick that flips between the devices; it is held to the leaf
+# limit); the dropped-K control beyond all three.  Sound runs read 0.0170
+# whole, 0.0248 the largest other leaf (attn/wq) and 0.0032 the router;
+# the control 1.29, 1.38 and 1.41 (PERF.md; H100 80GB HBM3, 700
+# W); on the CPU alone one f32 ulp on every master moves them by at most
+# half the limits (tests/test_torch_engine_moe.py::
+# test_update_sensitivity_justifies_moe_card_tolerance).  The CPU side
+# holds the layer, the embedding and the head (1.58 B f32 masters) with
+# momentum: it runs with plain SGD instead when the host has less than
+# MOE_TRAIN_PARITY_MIN_FREE_GB free
+MOE_TRAIN_PARITY_BATCH, MOE_TRAIN_PARITY_SEQ = 2, 32
+MOE_TRAIN_PARITY_BACKEND = "int8"
+MOE_TRAIN_PARITY_TOL = dict(TRAIN_LM_PARITY_TOL)
+MOE_TRAIN_LEAF_TOL = dict(SSM_TRAIN_LEAF_TOL)
+MOE_ROUTER_TOL = MOE_TRAIN_LEAF_TOL
+MOE_ROUTER_LEAF = "blocks/moe/router"
+MOE_TRAIN_PARITY_MIN_FREE_GB = 64.0
+# phase 3 at mixtral's attention (d 4096, 32 heads and 8 KV heads of 128):
+# the dense units of its train step (T = TRAIN_LM_BATCH x TRAIN_LM_SEQ),
+# q and o 4096 x 4096, k and v 4096 x 1024 (the o-projection takes W cast
+# to the compute dtype)
+MIXTRAL_D, MIXTRAL_KV = 4096, 8 * 128
+MIXTRAL_ENGINE_UNITS = (("mixtral_q", MIXTRAL_D, MIXTRAL_D, "float32"),
+                        ("mixtral_kv", MIXTRAL_D, MIXTRAL_KV, "float32"),
+                        ("mixtral_o", MIXTRAL_D, MIXTRAL_D, "bfloat16"))
+
+
+def _moe_cfg(full, layers, window=None):
+    """``full`` cut to ``layers`` layers (and its window to ``window``)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(full, num_layers=layers)
+    if window is not None:
+        cfg = dataclasses.replace(cfg, swa_window=window)
+    return cfg
+
+
+def _n_params(tree) -> int:
+    from repro_torch.util.tree import tree_leaves
+
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def _describe_moe(cfg, full) -> str:
+    return (f"{MOE_ARCH} at full width (d {cfg.d_model}, {cfg.num_experts} "
+            f"experts of {cfg.moe_d_ff}, top-{cfg.experts_per_token}, "
+            f"{cfg.num_heads} heads and {cfg.num_kv_heads} KV heads of "
+            f"{cfg.head_dim}, vocab {cfg.vocab_size}, window "
+            f"{cfg.swa_window}), reduced to {cfg.num_layers} of "
+            f"{full.num_layers} layers")
+
+
+def moe_serve(torch, dev):
+    """The scheduler (contiguous mode) on mixtral cut to MOE_SERVE_LAYERS
+    layers, through the engine's hooks (``EngineHooks.for_model``, as the
+    serve CLI builds them; the CLI has no depth flag): B prompts of
+    CONT_PROMPT tokens, CONT_NEW new, bf16 KV, the int8 backend; every
+    request finishes and the serve launches exactly B prefills' and its
+    decode steps' kernels.  Then the engine's own entry points
+    (``_engine_serve_checks``)."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
+                                     ServeConfig)
+
+    full = get_config(MOE_ARCH)
+    cfg = _moe_cfg(full, MOE_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = _n_params(params)
+    say(f"moe serve: {_describe_moe(cfg, full)}: {n / 1e9:.3f} B f32 "
+        f"masters ({4 * n / 1e9:.1f} GB), drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    serve = ServeConfig(num_slots=B, eos_id=None, max_len=CONT_MAX_LEN,
+                        mode="contiguous", cache_dtype="bfloat16",
+                        kernel_backend="int8")
+    hooks = EngineHooks.for_model(params, cfg, serve)
+    inner, decode_s = hooks.decode, [0.0]
+
+    def timed_decode(*a):
+        t = time.perf_counter()
+        out = inner(*a)
+        torch.cuda.synchronize()
+        decode_s[0] += time.perf_counter() - t
+        return out
+    hooks.decode = timed_decode
+    sched = BatchScheduler(serve, hooks)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=CONT_NEW)
+            for i, p in enumerate(_cont_prompts(torch, cfg))]
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run_until_drained()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, steps = K.launch_counts(), sched.steps_run
+    tokens = sum(len(r.generated) for r in reqs)
+    require(all(r.done and len(r.generated) == CONT_NEW for r in reqs),
+            f"moe serve: {sum(r.done for r in reqs)}/{B} finished, "
+            f"{[len(r.generated) for r in reqs]} tokens")
+    want = {k: B * MOE_PREFILL_LAUNCHES[k] + steps * MOE_DECODE_LAUNCHES[k]
+            for k in counts}
+    require(steps == CONT_NEW - 1 and counts == want,
+            f"moe serve: {steps} decode steps, launches {counts}, expected "
+            f"{want}")
+    rec = dict(run=f"moe/serve/{MOE_ARCH}/int8/bfloat16", arch=MOE_ARCH,
+               layers=cfg.num_layers, params=n, backend="int8",
+               cache="bfloat16", counts=counts, tokens=tokens, seconds=secs,
+               tokens_per_s=tokens / secs, decode_steps=steps,
+               ms_per_decode_step=1e3 * decode_s[0] / max(steps, 1))
+    say(f"moe serve {MOE_ARCH} ({cfg.num_layers} layers) contiguous "
+        f"int8/bfloat16: {tokens} tokens in {secs:.2f} s = "
+        f"{rec['tokens_per_s']:.1f} tok/s, {steps} decode steps at "
+        f"{rec['ms_per_decode_step']:.2f} ms/step, launches {counts}")
+    del sched, hooks
+    _engine_serve_checks(torch, dev, MOE_ARCH, cfg, params,
+                         MOE_PREFILL_LAUNCHES, MOE_DECODE_LAUNCHES, rec)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _route_recorder(L):
+    """Wrap ``L.moe_route`` so that each call's top_e lands on the host;
+    returns (the records, the undo)."""
+    real, seen = L.moe_route, []
+
+    def recording(params, x, cfg):
+        r = real(params, x, cfg)
+        seen.append(r["top_e"].reshape(-1, r["top_e"].shape[-1]).cpu())
+        return r
+    L.moe_route = recording
+    return seen, lambda: setattr(L, "moe_route", real)
+
+
+def _unnormalised_routes(torch, L):
+    """Install into ``L`` a ``moe_route`` whose sorted routing weights are
+    the raw top-k probabilities, not renormalised to sum to 1 (a fault
+    control); returns the undo."""
+    real = L.moe_route
+
+    def faulty(params, x, cfg):
+        r = real(params, x, cfg)
+        raw = torch.gather(r["probs"], -1, r["top_e"]).reshape(x.shape[0], -1)
+        r["sw"] = torch.gather(raw.to(x.dtype), -1, r["order"])
+        return r
+    L.moe_route = faulty
+    return lambda: setattr(L, "moe_route", real)
+
+
+def _moe_parity_side(torch, p, cfg, toks, backend, d, feed):
+    """A prefill of ``toks`` and MOE_PARITY_STEPS decode steps on ``d``
+    under ``backend``, decoding ``feed`` (the card's argmax tokens) when
+    given, else this side's own.  Returns (the logits of the prefill and
+    of each step, on the host; the tokens fed; every routing pick, [token,
+    k]; the launches of the prefill and of the steps)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import layers as L
+    from repro_torch.serving import engine as E
+
+    seen, undo = _route_recorder(L)
+    own, feed = feed is None, list(feed or [])
+    try:
+        K.reset_launch_counts()
+        logits, state = E.prefill(p, cfg, {"tokens": torch.from_numpy(toks)},
+                                  MOE_PARITY_PROMPT + MOE_PARITY_STEPS,
+                                  torch.bfloat16, kernel_backend=backend)
+        outs, pre = [logits.cpu()], K.launch_counts()
+        K.reset_launch_counts()
+        with kops.kernel_backend_ctx(backend, d):
+            for i in range(MOE_PARITY_STEPS):
+                if own:
+                    feed.append(torch.argmax(outs[-1], dim=-1)[:, None]
+                                .to(torch.int32))
+                logits, state = E.decode_step(p, cfg, state, feed[i].to(d))
+                outs.append(logits.cpu())
+        dec = K.launch_counts()
+    finally:
+        undo()
+    return outs, feed, torch.cat(seen), (pre, dec)
+
+
+def _logit_rel(got, ref) -> float:
+    """The largest relative L2 over the prefill's and the steps' logits."""
+    return max(float((g - r).norm() / r.norm()) for g, r in zip(got, ref))
+
+
+def moe_serve_parity(torch, dev):
+    """Mixtral cut to one layer and its window to MOE_PARITY_WINDOW on the
+    card and on the CPU (``_moe_parity_side``) under each backend: the
+    logits within MOE_PARITY_TOL, the routing picks compared, the card's
+    launches exactly one layer's, and each fault control beyond the
+    limit."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    full = get_config(MOE_ARCH)
+    cfg = _moe_cfg(full, 1, window=MOE_PARITY_WINDOW)
+    params = lm.init_params(cfg, seed=2, device=dev)
+    params_cpu = _tree_cpu(params)
+    toks = np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (MOE_PARITY_SLOTS, MOE_PARITY_PROMPT)).astype(
+        np.int32)
+    per_pre = {k: v // MOE_SERVE_LAYERS
+               for k, v in MOE_PREFILL_LAUNCHES.items()}
+    per_dec = {k: MOE_PARITY_STEPS * v // MOE_SERVE_LAYERS
+               for k, v in MOE_DECODE_LAUNCHES.items()}
+    say(f"moe serve parity: {_describe_moe(cfg, full)}, window cut to "
+        f"{MOE_PARITY_WINDOW} (reduced) so that the ring wraps: "
+        f"{MOE_PARITY_SLOTS} rows of {MOE_PARITY_PROMPT} prompt tokens, "
+        f"{MOE_PARITY_STEPS} decode steps")
+    out, gates = [], []
+    for backend in ("int8", "emulate"):
+        tol = MOE_PARITY_TOL[backend]
+        t0 = time.perf_counter()
+        card = _moe_parity_side(torch, params, cfg, toks, backend, dev, None)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = _moe_parity_side(torch, params_cpu, cfg, toks, backend, "cpu",
+                               card[1])
+        cpu_s = time.perf_counter() - t0
+        undo = _dropped_k(kops, cfg.d_model,
+                          cfg.d_model // MOE_FAULT_SPLITS)
+        try:
+            dropped = _moe_parity_side(torch, params, cfg, toks, backend,
+                                       dev, card[1])
+        finally:
+            undo()
+        undo = _unnormalised_routes(torch, L)
+        try:
+            unnorm = _moe_parity_side(torch, params, cfg, toks, backend, dev,
+                                      card[1])
+        finally:
+            undo()
+        for o in card[0]:
+            require(tuple(o.shape) == (MOE_PARITY_SLOTS, cfg.vocab_size)
+                    and bool(o.isfinite().all()),
+                    f"moe parity {backend}: logits {tuple(o.shape)} not "
+                    "finite or of the wrong shape")
+        rel = _logit_rel(card[0], cpu[0])
+        steps_rel = [float((g - r).norm() / r.norm())
+                     for g, r in zip(card[0], cpu[0])]
+        ctrl = {"dropped K split": _logit_rel(dropped[0], cpu[0]),
+                "un-renormalised routing": _logit_rel(unnorm[0], cpu[0])}
+        picks = card[2].shape[0] * card[2].shape[1]
+        differ = int((card[2] != cpu[2]).sum())
+        agree = float(np.mean([float((g.argmax(-1) == r.argmax(-1))
+                                     .float().mean())
+                               for g, r in zip(card[0], cpu[0])]))
+        rec = dict(backend=backend, tol=f"|d|/|ref| <= {tol}",
+                   rel_l2_err=rel, rel_l2_err_by_step=steps_rel,
+                   argmax_agreement=agree, picks=picks, picks_differ=differ,
+                   picks_differ_share=differ / picks, controls=ctrl,
+                   launches=card[3], card_s=card_s, cpu_s=cpu_s)
+        say(f"moe parity {backend}: |d|/|ref| {rel:.4g} (prefill, then "
+            f"each step: {', '.join(f'{v:.4g}' for v in steps_rel)}; tol "
+            f"{tol}), argmax agreement {agree:.3f}, routing picks differ "
+            f"{differ} of {picks} ({differ / picks:.4f}); controls "
+            + ", ".join(f"{k} {v:.4g}" for k, v in ctrl.items())
+            + f"; launches {card[3]}; card {card_s:.2f} s, CPU "
+            f"{cpu_s:.2f} s")
+        gates.append((card[3] == (per_pre, per_dec),
+                      f"moe parity {backend}: card launches {card[3]}, "
+                      f"expected {per_pre} and {per_dec}"))
+        gates.append((rel <= tol, f"moe parity {backend}: |d|/|ref| {rel} > "
+                                  f"{tol}"))
+        gates += [(v > tol, f"moe parity {backend}: the control ({k}) reads "
+                            f"{v} <= {tol}, so the limit cannot see it")
+                  for k, v in ctrl.items()]
+        out.append(rec)
+    for ok, msg in gates:         # after every reading is printed
+        require(ok, msg)
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def _host_free_gb() -> float:
+    """MemAvailable of the host, in GB (0 where /proc/meminfo is
+    unreadable)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+    except OSError:
+        pass
+    return 0.0
+
+
+def moe_train_parity(torch, dev):
+    """One step of mixtral cut to one layer on the card and on the CPU
+    (plain versions) from the same params and batch: the update's relative
+    L2 within MOE_TRAIN_PARITY_TOL (whole), MOE_TRAIN_LEAF_TOL (each leaf
+    but the router) and MOE_ROUTER_TOL (the router), the loss within
+    TRAIN_LM_LOSS_TOL; the card's launches one layer's; the dropped-K
+    control beyond the three limits."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+
+    full = get_config(MOE_ARCH)
+    cfg = _moe_cfg(full, 1)
+    batch = _lm_batch(torch, cfg, "cpu", MOE_TRAIN_PARITY_BATCH,
+                      MOE_TRAIN_PARITY_SEQ)
+    bits = default_bits(cfg)
+    free_gb = _host_free_gb()
+    opt = (TRAIN_LM_OPTIMIZER if free_gb >= MOE_TRAIN_PARITY_MIN_FREE_GB
+           else "sgd")
+    want = {k: v // MOE_TRAIN_LAYERS for k, v in MOE_TRAIN_LAUNCHES.items()}
+    params = lm.init_params(cfg, seed=0, device=dev)
+    params_cpu = _tree_cpu(params)
+    say(f"moe train parity: {_describe_moe(cfg, full)}, "
+        f"{_n_params(params) / 1e9:.3f} B masters, batch "
+        f"{MOE_TRAIN_PARITY_BATCH} x {MOE_TRAIN_PARITY_SEQ}; host "
+        f"{free_gb:.1f} GB free, so the optimizer is {opt}"
+        + ("" if opt == TRAIN_LM_OPTIMIZER else
+           f" (plain SGD: under {MOE_TRAIN_PARITY_MIN_FREE_GB} GB free)"))
+    backend = MOE_TRAIN_PARITY_BACKEND
+
+    def run(p, d):
+        step, ocfg = _lm_step(torch, cfg, backend, d, optimizer=opt)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, _, m = step(p, init_train_state(p, ocfg), batch,
+                         Hyper(lr=TRAIN_LM_LR, step=0), bits)
+        res = (_tree_cpu(new), float(m["loss"]), float(m["aux"]),
+               time.perf_counter() - t0, K.launch_counts())
+        del new
+        return res
+
+    got, got_loss, got_aux, t_card, counts = run(params, dev)
+    ref, ref_loss, ref_aux, t_cpu, _ = run(params_cpu, "cpu")
+    undo = _dropped_k(kops, cfg.d_model, cfg.d_model // MOE_FAULT_SPLITS)
+    try:
+        bad = run(params, dev)[0]
+    finally:
+        undo()
+
+    def readings(new):
+        whole, rel = _update_rel(ref, new, params_cpu)
+        others = {k: v for k, v in rel.items() if k != MOE_ROUTER_LEAF}
+        leaf = max(others, key=others.get)
+        return (whole, (others[leaf], leaf), rel[MOE_ROUTER_LEAF]), rel
+    (whole, (leaf_v, leaf), router), rel = readings(got)
+    (c_whole, (c_leaf_v, c_leaf), c_router), _ = readings(bad)
+    del bad
+    loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+    tols = (MOE_TRAIN_PARITY_TOL[backend], MOE_TRAIN_LEAF_TOL[backend],
+            MOE_ROUTER_TOL[backend])
+    label = f"moe train parity {backend}"
+    say(f"{label}: update |d|/|ref| whole {whole:.4g} (tol {tols[0]}), "
+        f"largest other leaf {leaf} {leaf_v:.4g} (tol {tols[1]}), "
+        f"median leaf {statistics.median(rel.values()):.4g}; loss "
+        f"{got_loss:.6f} vs {ref_loss:.6f}, rel {loss_rel:.3g} (tol "
+        f"{TRAIN_LM_LOSS_TOL}); aux {got_aux:.6f} vs {ref_aux:.6f}; "
+        f"launches {counts}; card {t_card:.2f} s, CPU {t_cpu:.2f} s; "
+        f"control (dropped K split): whole {c_whole:.4g}, leaf "
+        f"{c_leaf} {c_leaf_v:.4g}, router {c_router:.4g}")
+    say(f"{label}: router {MOE_ROUTER_LEAF} |d|/|ref| {router:.4g} (tol "
+        f"{tols[2]})")
+    gates = [(counts == want, f"{label}: launches {counts}, expected {want}"),
+             (loss_rel <= TRAIN_LM_LOSS_TOL,
+              f"{label}: loss rel {loss_rel} > {TRAIN_LM_LOSS_TOL}"),
+             (whole <= tols[0], f"{label}: whole {whole} > {tols[0]}"),
+             (leaf_v <= tols[1], f"{label}: {leaf} {leaf_v} > {tols[1]}"),
+             (router <= tols[2], f"{label}: router {router} > {tols[2]}"),
+             (c_whole > tols[0], f"{label}: the control reads whole "
+                                 f"{c_whole} <= {tols[0]}"),
+             (c_leaf_v > tols[1], f"{label}: the control's largest leaf "
+                                  f"reads {c_leaf_v} <= {tols[1]}"),
+             (c_router > tols[2], f"{label}: the control's router reads "
+                                  f"{c_router} <= {tols[2]}")]
+    out = dict(arch=MOE_ARCH, layers=1, backend=backend, optimizer=opt,
+               host_free_gb=free_gb, update_rel_l2_err=whole,
+               update_rel_l2_err_leaf_max=[leaf_v, leaf],
+               update_rel_l2_err_router=router,
+               update_rel_l2_err_by_leaf=rel, tol=tols[0], leaf_tol=tols[1],
+               router_tol=tols[2], loss_rel_err=loss_rel,
+               loss_tol=TRAIN_LM_LOSS_TOL, aux=got_aux, aux_cpu=ref_aux,
+               control={"whole": c_whole, "leaf": [c_leaf_v, c_leaf],
+                        "router": c_router},
+               counts=counts, card_s=t_card, cpu_s=t_cpu)
+    del got, ref
+    for ok, msg in gates:         # after every reading is printed
+        require(ok, msg)
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, dev):
+    """Phase moe: the serve, its parity, the train runs, the stochastic
+    pair, then the train parity."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = [moe_serve(torch, dev)]
+    serve_parity = moe_serve_parity(torch, dev)
+    full = get_config(MOE_ARCH)
+    cfg = _moe_cfg(full, MOE_TRAIN_LAYERS)
+    say(f"moe train: {_describe_moe(cfg, full)}")
+    runs += [train_ssm_run(torch, dev, MOE_ARCH, backend,
+                           MOE_TRAIN_LAUNCHES, cfg=cfg, phase="moe_train")
+             for backend in MOE_TRAIN_BACKENDS]
+    runs.append(train_ssm_stochastic(torch, dev, MOE_ARCH,
+                                     MOE_TRAIN_LAUNCHES, cfg=cfg,
+                                     phase="moe_train"))
+    train_parity = moe_train_parity(torch, dev)
+    secs = time.perf_counter() - t0
+    say(f"moe: {secs:.1f} s")
+    return runs, serve_parity, train_parity, secs
 
 
 # ---------------------------------------------------------------------------
@@ -3340,9 +3883,9 @@ DRIVER_RESUME = DRIVER_CKPT_EVERY + 1
 # stall of run B only delays its step 5
 DRIVER_DEADLINE_S = 600.0
 # an F-bit anneal (search/anneal.py) whose ramp crosses B's kill at step 6
-# and B''s resume from step 5; B'' resumes B's checkpoint under another
-# spec and must be refused before its first step
-DRIVER_ANNEAL, DRIVER_ANNEAL_OTHER = "0:16,3:14,6:12", "0:16,3:12"
+# and B''s resume from step 5 (a resume under another spec is refused
+# before its first step: tests/test_torch_search_driver.py)
+DRIVER_ANNEAL = "0:16,3:14,6:12"
 DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
                "--stochastic", "--bit-anneal", DRIVER_ANNEAL,
                "--kernel-backend", "auto", "--optimizer", TRAIN_LM_OPTIMIZER,
@@ -3427,7 +3970,7 @@ def _run_driver(argv, expect: int):
 
 
 def train_driver(torch, dev):
-    """Runs A, B, B'', B' and the flip drill (module docstring, phase
+    """Runs A, B, B' and the flip drill (module docstring, phase
     5d)."""
     import contextlib
     import gc
@@ -3558,17 +4101,6 @@ def train_driver(torch, dev):
         require(sorted(log_b) == list(range(DRIVER_CRASH))
                 and all(log_b[s][0] == log_a[s][0] for s in log_b),
                 f"train_driver B: losses {log_b} against A's {log_a}")
-        other = [DRIVER_ANNEAL_OTHER if a == DRIVER_ANNEAL else a
-                 for a in DRIVER_ARGS]
-        out_x, rec["seconds_b_refused"] = _run_driver(
-            other + ["--ckpt-dir", str(dir_b), "--resume"], 1)
-        require(f"checkpoint was annealed under {DRIVER_ANNEAL!r}"
-                in out_x.stderr and not _step_lines(out_x.stdout),
-                f"train_driver B'': stdout {out_x.stdout[-1500:]}\n"
-                f"stderr {out_x.stderr[-1500:]}")
-        say(f"train_driver: B'' (--bit-anneal {DRIVER_ANNEAL_OTHER}) refused "
-            f"B's checkpoint before a step ({rec['seconds_b_refused']:.1f} "
-            f"s): annealed under {DRIVER_ANNEAL!r}")
         out_r, rec["seconds_b_resumed"] = _run_driver(
             DRIVER_ARGS + ["--ckpt-dir", str(dir_b), "--resume"], 0)
         require(f"resumed from step {DRIVER_RESUME}" in out_r.stdout,
@@ -3615,12 +4147,6 @@ def train_driver(torch, dev):
 # 0.0111; the limit is over twice that
 # (tests/test_torch_search.py::test_probe_spread_justifies_card_tolerances)
 SEARCH_LENET_LOSS_TOL = 0.025
-# the 2-layer full-width LM sweep, card against CPU (int8 on both), from
-# one set of weights: each loss within train_lm's one-step loss limit
-# (relative), which the CPU's spread of this sweep stays under half of
-SEARCH_LM_SWEEP = dict(num_groups=2, grid=((2, 6), (2, 12)), probe_steps=2,
-                       batch=TRAIN_LM_PARITY_BATCH, lr=TRAIN_LM_LR)
-SEARCH_LM_LOSS_TOL = TRAIN_LM_LOSS_TOL
 # part 2: the driver's --bit-search at full width (24 layers, int8),
 # train_driver's shapes, 3 steps a probe, 2 training steps, no checkpoint
 SEARCH_DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
@@ -3807,61 +4333,8 @@ def search_driver(torch, dev):
                 losses=losses), plan
 
 
-def search_lm(torch, dev):
-    """Part 3: a 2-layer full-width LM sweep, card against CPU (int8)."""
-    import dataclasses
-
-    from repro_torch import kernels as K
-    from repro_torch.configs import get_config
-    from repro_torch.models import lm
-    from repro_torch.optim import OptimizerConfig
-    from repro_torch.search import sensitivity as S
-
-    cfg = dataclasses.replace(get_config(LM_ARCH),
-                              num_layers=TRAIN_LM_PARITY_LAYERS)
-    sweep = S.SweepConfig(**SEARCH_LM_SWEEP)
-    params0 = lm.init_params(cfg, seed=0, device="cpu")
-    out = {}
-    for where in ("card", "cpu"):
-        d = dev if where == "card" else "cpu"
-
-        def make_probe(d=d):
-            return S.make_lm_probe(
-                cfg, OptimizerConfig(kind=TRAIN_LM_OPTIMIZER), sweep,
-                seq_len=TRAIN_LM_PARITY_SEQ, device=d, params0=params0,
-                kernel_backend="int8")[0]
-        K.reset_launch_counts()
-        out[where] = _recording_sweep(S, make_probe, sweep, cfg.num_layers)
-        if where == "card":
-            counts = K.launch_counts()
-    (card, rec_card, t_card), (cpu, rec_cpu, t_cpu) = out["card"], out["cpu"]
-    for (s, l) in rec_card:
-        require(math.isfinite(l), f"search LM: probe {s} loss {l}")
-    per_step = {k: v * TRAIN_LM_PARITY_LAYERS // TRAIN_LM_LAYERS
-                for k, v in TRAIN_LM_LAUNCHES.items()}
-    want = {k: v * card.probes * sweep.probe_steps
-            for k, v in per_step.items()}
-    require(counts == want, f"search LM: launches {counts}, expected {want}")
-    worst, found = _same_plan("search LM", card, cpu, rec_card, rec_cpu,
-                              SEARCH_LM_LOSS_TOL, rel=True)
-    say(f"search LM (qwen1.5-0.5b, {TRAIN_LM_PARITY_LAYERS} layers, full "
-        f"width, int8): card {card.describe()}; CPU {cpu.describe()}; "
-        f"{card.probes} probes on the card in {t_card:.2f} s, {cpu.probes} "
-        f"on the CPU in {t_cpu:.2f} s; largest gated rel "
-        f"{worst:.3g} (tol {SEARCH_LM_LOSS_TOL}); {found}; launches {counts}")
-    return dict(run="search/lm2", counts=counts, probes=card.probes,
-                probes_cpu=cpu.probes, seconds=t_card, seconds_cpu=t_cpu,
-                ms_per_probe_step=1e3 * t_card / (card.probes
-                                                  * sweep.probe_steps),
-                plan=card.to_json(), plan_cpu=cpu.to_json(),
-                probe_losses=[l for _, l in rec_card],
-                probe_losses_cpu=[l for _, l in rec_cpu],
-                max_gated_rel_diff=worst, tol=SEARCH_LM_LOSS_TOL,
-                comparison=found)
-
-
 def search_export(torch, dev, plans):
-    """Part 4: ``verify_train_serve_parity`` on the card, once a plan."""
+    """Part 3: ``verify_train_serve_parity`` on the card, once a plan."""
     from repro_torch import kernels as K
     from repro_torch.search.export import verify_train_serve_parity
 
@@ -3885,7 +4358,7 @@ def search_export(torch, dev, plans):
 
 
 def search_phase(torch, dev):
-    """Parts 1-4 of the search phase (module docstring); part 5 runs in
+    """Parts 1-3 of the search phase (module docstring); part 4 runs in
     ``train_driver``."""
     import gc
 
@@ -3897,9 +4370,6 @@ def search_phase(torch, dev):
     runs = [search_lenet(torch, dev)]
     drv, plan = search_driver(torch, dev)
     runs.append(drv)
-    gc.collect()
-    torch.cuda.empty_cache()
-    runs.append(search_lm(torch, dev))
     runs += search_export(torch, dev, [
         ("driver-plan", plan),
         ("EXPORT_PLAN", plan_from_formats(list(EXPORT_FORMATS)))])
@@ -3911,6 +4381,25 @@ def search_phase(torch, dev):
 # ---------------------------------------------------------------------------
 # the summary line
 # ---------------------------------------------------------------------------
+
+def kernel_rows(torch, dev, gen):
+    """Phase 3: every timed row of every kernel."""
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    one = torch.zeros(1, device=dev)
+    say(f"timer floor: {time_ms(lambda: one.zero_(), torch, flush):.5f}"
+        " ms for a one-element fill, the least any row can read")
+    rows = check_fxp_matmul(torch, dev, flush, gen)
+    rows += check_decode_prologue(torch, dev, flush, gen)
+    rows += check_paged_attention(torch, dev, flush, gen)
+    rows += check_fxp_matmul_lenet(torch, dev, flush, gen)
+    rows += check_bp_gstep(torch, dev, flush, gen)
+    rows += check_sgd_dw_update(torch, dev, flush, gen)
+    rows += check_sgd_dw_update_dense(torch, dev, flush, gen)
+    rows += check_bp_fused_unit(torch, dev, flush, gen)
+    for units in (ENGINE_UNITS, ZAMBA2_ENGINE_UNITS, MIXTRAL_ENGINE_UNITS):
+        rows += check_engine_units(torch, dev, flush, gen, units)
+    return rows
+
 
 HEADLINE = {"fxp_matmul": ("int8/int8/bits=off/identity", f"{B}x{D}x{FF}"),
             "bp_gstep": ("int8/bits=on/relu", "T128 Dout10 Din256"),
@@ -3949,6 +4438,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {PHASES}")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     phases = [p for p in args.phases.split(",") if p]
     require(set(phases) <= set(PHASES), f"unknown phase in {phases}")
 
@@ -3976,7 +4466,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build_all()
-    say(f"build: {time.perf_counter() - t0:.2f} s")
+    phase_s = {"device": t0 - t_start, "build": time.perf_counter() - t0}
+    say(f"build: {phase_s['build']:.2f} s")
     for name in _build.SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -3985,66 +4476,72 @@ def main(argv=None) -> int:
     rows, runs = [], []
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    def dump(**parts):
+        print(json.dumps(parts, default=str), flush=True)
+
     if "kernels" in phases:
-        flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-        one = torch.zeros(1, device=dev)
-        say(f"timer floor: {time_ms(lambda: one.zero_(), torch, flush):.5f}"
-            " ms for a one-element fill, the least any row can read")
-        rows += check_fxp_matmul(torch, dev, flush, gen)
-        rows += check_decode_prologue(torch, dev, flush, gen)
-        rows += check_paged_attention(torch, dev, flush, gen)
-        rows += check_fxp_matmul_lenet(torch, dev, flush, gen)
-        rows += check_bp_gstep(torch, dev, flush, gen)
-        rows += check_sgd_dw_update(torch, dev, flush, gen)
-        rows += check_sgd_dw_update_dense(torch, dev, flush, gen)
-        rows += check_bp_fused_unit(torch, dev, flush, gen)
-        rows += check_engine_units(torch, dev, flush, gen)
-        rows += check_engine_units(torch, dev, flush, gen,
-                                   ZAMBA2_ENGINE_UNITS)
-        del flush
+        rows += timed("kernels", lambda: kernel_rows(torch, dev, gen))
     if "edges" in phases:
-        check_edges(torch, dev, gen)
+        timed("edges", lambda: check_edges(torch, dev, gen))
     if "serve" in phases:
-        runs = serve_runs(torch)
-        parity = decode_parity(torch, dev)
-        cont = serve_contiguous(torch, dev)
-        runs.append(cont)
-        print(json.dumps({"serve": runs, "decode_parity": parity},
-                         default=str), flush=True)
+        def serve():
+            out = serve_runs(torch)
+            parity = decode_parity(torch, dev)
+            out.append(serve_contiguous(torch, dev))
+            return out, parity
+        serve_out, parity = timed("serve", serve)
+        runs += serve_out
+        dump(serve=serve_out, decode_parity=parity)
     if "serve_ssm" in phases:
-        ssm_runs, ssm_par, ssm_s = serve_ssm(torch, dev)
+        ssm_runs, ssm_par, ssm_s = timed("serve_ssm",
+                                         lambda: serve_ssm(torch, dev))
         runs += ssm_runs
-        print(json.dumps({"serve_ssm": ssm_runs, "ssm_parity": ssm_par,
-                          "seconds": ssm_s}, default=str), flush=True)
+        dump(serve_ssm=ssm_runs, ssm_parity=ssm_par, seconds=ssm_s)
     if "train" in phases:
-        train, train_par = train_runs(torch, dev)
+        train, train_par = timed("train", lambda: train_runs(torch, dev))
         runs += train
-        print(json.dumps({"train": train, "train_parity": train_par},
-                         default=str), flush=True)
+        dump(train=train, train_parity=train_par)
     if "noise" in phases:
-        print(json.dumps({"noise": check_noise(torch, dev)}), flush=True)
+        dump(noise=timed("noise", lambda: check_noise(torch, dev)))
     if "train_lm" in phases:
-        lm_runs = train_lm_runs(torch, dev)
-        lm_runs.append(train_lm_stochastic(torch, dev))
-        lm_par = train_lm_parity(torch, dev)
+        def train_lm():
+            out = train_lm_runs(torch, dev)
+            out.append(train_lm_stochastic(torch, dev))
+            return out, train_lm_parity(torch, dev)
+        lm_runs, lm_par = timed("train_lm", train_lm)
         runs += lm_runs
-        print(json.dumps({"train_lm": lm_runs, "train_lm_parity": lm_par},
-                         default=str), flush=True)
+        dump(train_lm=lm_runs, train_lm_parity=lm_par)
     if "train_ssm" in phases:
-        ssm_train, ssm_train_par, ssm_train_s = train_ssm(torch, dev)
+        ssm_train, ssm_train_par, ssm_train_s = timed(
+            "train_ssm", lambda: train_ssm(torch, dev))
         runs += ssm_train
-        print(json.dumps({"train_ssm": ssm_train,
-                          "train_ssm_parity": ssm_train_par,
-                          "seconds": ssm_train_s}, default=str), flush=True)
+        dump(train_ssm=ssm_train, train_ssm_parity=ssm_train_par,
+             seconds=ssm_train_s)
+    if "moe" in phases:
+        moe_runs, moe_serve_par, moe_train_par, moe_s = timed(
+            "moe", lambda: moe_phase(torch, dev))
+        runs += moe_runs
+        dump(moe=moe_runs, moe_serve_parity=moe_serve_par,
+             moe_train_parity=moe_train_par, seconds=moe_s)
     if "search" in phases:
-        search_runs, search_s = search_phase(torch, dev)
+        search_runs, search_s = timed("search",
+                                      lambda: search_phase(torch, dev))
         runs += search_runs
-        print(json.dumps({"search": search_runs, "seconds": search_s},
-                         default=str), flush=True)
+        dump(search=search_runs, seconds=search_s)
     if "train_driver" in phases:
-        drv = train_driver(torch, dev)
+        drv = timed("train_driver", lambda: train_driver(torch, dev))
         runs.append(drv)
-        print(json.dumps({"train_driver": drv}, default=str), flush=True)
+        dump(train_driver=drv)
+    phase_s["total"] = time.perf_counter() - t_start
+    say("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phase_s.items()))
     require("jax" not in sys.modules and "repro" not in sys.modules,
             "the port pulled in jax or the JAX package")
     if set(phases) != set(PHASES):

@@ -1,5 +1,5 @@
 """Train/eval step builders: the TaxoNN engine against the autodiff baseline
-(port of ``core/steps.py``: the dense, ssm and hybrid families, single
+(port of ``core/steps.py``: the dense, moe, ssm and hybrid families, single
 device).
 
 ``make_train_step(cfg, policy, optim_cfg, options, device=None)`` returns
@@ -14,7 +14,13 @@ engine="autodiff" -- autograd over the whole loss and one optimizer apply
                      engine's correctness oracle)
 
 ``bits`` is a dict of BitSchedules keyed by stack name ("blocks"); they are
-runtime data, so one step object serves every schedule.  The hybrid's
+runtime data, so one step object serves every schedule.  A moe layer's
+body returns its load-balance aux; the engine seeds it with ``AUX_COEF *
+grad_scale`` in each layer's VJP, so its gradient reaches the router and
+the layer input through the routing probabilities (the pick fractions
+are constant), and the engine quantizes the router [D, E] and the expert
+stacks [E, D, F] in the layer's weight format as every leaf of two or more
+dimensions.  The hybrid's
 engine unit is a group (the shared block, then K Mamba layers), so its
 schedule has one entry a group; the weight-tied ``shared_attn`` block is
 the engine's shared operand, quantized with each group's weight format,
@@ -50,6 +56,7 @@ from repro_torch.core.taxonn import (QuantPolicy, backward_stack,
                                      default_bits_for, forward_stack,
                                      quantize_weight_tree)
 from repro_torch.kernels.ops import kernel_backend_ctx, resolve_backend
+from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
@@ -60,22 +67,6 @@ from repro_torch.util import prng
 from repro_torch.util.tree import tree_leaves, tree_map, tree_unflatten
 
 AUX_COEF = lm.AUX_COEF
-
-
-ENGINE_FAMILIES = ("dense", "ssm", "hybrid")
-_LATER_ITEM = {"moe": "A9c", "encdec": "A9e", "vlm": "A9e"}
-
-
-def require_engine_family(cfg: ModelConfig) -> None:
-    """Raise unless the engine trains ``cfg``: the dense, ssm and hybrid
-    families with no MLA (moe, MLA, encdec and vlm wait for ROADMAP
-    A9c-e)."""
-    if cfg.family not in ENGINE_FAMILIES or cfg.use_mla:
-        item = "A9d" if cfg.use_mla else _LATER_ITEM.get(cfg.family, "A9")
-        raise NotImplementedError(
-            f"the port's training engine covers the dense, ssm and hybrid "
-            f"families (no MLA) so far, not {cfg.family}"
-            f"{' with MLA' if cfg.use_mla else ''} (ROADMAP {item})")
 
 
 STACK_KEYS = ("blocks", "enc_blocks")
@@ -99,7 +90,7 @@ def init_train_state(params: dict, optim_cfg: OptimizerConfig) -> dict:
 
 def num_scan_units(cfg: ModelConfig) -> int:
     """Engine-visible units in the main stack (the hybrid's are groups)."""
-    require_engine_family(cfg)
+    B.require_ported(cfg)
     return lm.stack_units(cfg)
 
 
@@ -196,7 +187,7 @@ def _make_body(cfg: ModelConfig, positions):
     """body(params_slice, x, bits_l, *shared) -> (y, aux): the blocks of one
     unit (``lm.unit_blocks``), their aux summed.  The hybrid's unit is a
     group, the shared block then its K Mamba layers."""
-    require_engine_family(cfg)
+    B.require_ported(cfg)
 
     def body(p, x, b_l, *shared):
         aux = None
@@ -304,7 +295,7 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
     keywords are not ported.)"""
     options = options or StepOptions()
     dev = resolve_device(device)
-    require_engine_family(cfg)
+    B.require_ported(cfg)
     policy = policy or QuantPolicy.off()
     optim_cfg = optim_cfg or OptimizerConfig()
     backend = resolve_backend(

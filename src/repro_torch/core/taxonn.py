@@ -171,6 +171,29 @@ def _slice(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _leaf_paths(tree, pre: tuple = ()) -> list:
+    """The key path of each leaf of a tree of dicts (``()`` for a bare
+    leaf), in ``tree_leaves`` order (sorted keys)."""
+    if not isinstance(tree, dict):
+        return [pre]
+    return [p for k in sorted(tree) for p in _leaf_paths(tree[k], pre + (k,))]
+
+
+def _at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _only(tree, path: tuple, leaf: bool = False):
+    """The sub-tree of ``tree`` that holds only its leaf at ``path`` (with
+    ``leaf``, ``tree`` is that leaf itself)."""
+    out = tree if leaf else _at(tree, path)
+    for k in reversed(path):
+        out = {k: out}
+    return out
+
+
 def _num_units(stacked) -> int:
     return int(tree_leaves(stacked)[0].shape[0])
 
@@ -201,6 +224,7 @@ def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
                                   policy.quantize_weights)
         sq = _quantize_shared(shared, b_l, enabled, policy)
         x, aux = body_fn(wq, xq, b_l, *sq)
+        del wq, sq      # one unit's quantized weights at a time
         caches.append(xq)
         aux_sum = aux if aux_sum is None else aux_sum + aux
     return x, caches, aux_sum
@@ -263,12 +287,14 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
                                       policy.quantize_weights)
             sq = _quantize_shared(sw, b_l, enabled, policy)
             y, aux = body_fn(wq, xx, b_l, *sq)
+            del wq, sq  # autograd keeps what the VJP needs of them
             outs, seeds = [y], [G.to(y.dtype)]
             if aux.requires_grad:
                 outs.append(aux)
                 seeds.append(aux_seed)
             wrt = tree_leaves(pw) + tree_leaves(sw) + [xx]
             grads = torch.autograd.grad(outs, wrt, seeds, allow_unused=True)
+            del y, aux, outs
         grads = [torch.zeros_like(w) if g is None else g
                  for g, w in zip(grads, wrt)]
         n_own = len(grads) - n_shared - 1
@@ -276,16 +302,24 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
             dS = tree_unflatten(dS, [
                 a + g.to(torch.float32) for a, g in
                 zip(tree_leaves(dS), grads[n_own:n_own + n_shared])])
-            dW = tree_unflatten(pw, [g.to(torch.float32) * inv_scale
-                                     for g in grads[:n_own]])
             G = _quant_grad(grads[-1], b_l["g_i"], b_l["g_f"], enabled,
                             policy, key)
-            dW = tree_map(lambda g: quantize_update(g, b_l, key, enabled,
-                                                    policy, hyper), dW)
-            new_p, new_o = apply_update(p_l, dW, _slice(opt_stacked, i),
-                                        hyper, optim_cfg)
-            tree_map(lambda dst, src: dst[i].copy_(src), new_stacked, new_p)
-            tree_map(lambda dst, src: dst[i].copy_(src), new_opt, new_o)
-            for g in tree_leaves(dW):
-                gsq = gsq + torch.sum(torch.square(g))
+            # the update leaf by leaf, in ``tree_leaves`` order: one leaf's
+            # dW, update and optimizer temporaries exist at a time (a
+            # mixtral-8x7b expert stack is 1.9 GB of f32)
+            opt_l = _slice(opt_stacked, i)
+            for j, path in enumerate(_leaf_paths(p_l)):
+                dw = grads[j].to(torch.float32) * inv_scale
+                grads[j] = None
+                dw = quantize_update(dw, b_l, key, enabled, policy, hyper)
+                new_p, new_o = apply_update(
+                    _only(p_l, path), _only(dw, path, leaf=True),
+                    {k: _only(t, path) for k, t in opt_l.items()}, hyper,
+                    optim_cfg)
+                _at(new_stacked, path)[i].copy_(_at(new_p, path))
+                for k, t in new_o.items():
+                    _at(new_opt[k], path)[i].copy_(_at(t, path))
+                gsq = gsq + torch.sum(torch.square(dw))
+                del dw, new_p, new_o
+            del grads
     return G, new_stacked, new_opt, gsq, dS

@@ -8,12 +8,16 @@ paged or contiguous.
         --slots 8 --requests 8 --prompt-len 128 --max-new 32 --max-len 160
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --slots 8 --requests 8 --prompt-len 128 --max-new 32 --max-len 160
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --device cpu --reduced --requests 4 --prompt-len 12 --max-new 8
 
 Port of ``repro/launch/serve.py``.  ``--mode auto`` is paged where
-``paged_supported`` holds (the dense family) and contiguous otherwise (ssm
-and hybrid, whose state is no KV pool; ``--mode paged`` raises for them,
-as in JAX).  The port serves the dense, ssm and hybrid families (no MLA,
-no sliding window); the others wait for ROADMAP A9.  Contiguous mode keeps
+``paged_supported`` holds (the dense and moe families with no sliding
+window) and contiguous otherwise (ssm and hybrid, whose state is no KV
+pool, and a sliding window's ring, as in mixtral-8x7b and
+h2o-danube-3-4b; ``--mode paged`` raises for them, as in JAX).  The port
+serves the dense, moe, ssm and hybrid families (no MLA); the others wait
+for ROADMAP A9d-e.  Contiguous mode keeps
 the JAX scheduler's one decode position for the whole batch, so this CLI
 runs it only on equal-length prompts with no ``--eos-id`` (requests
 admitted together finish together).  It runs on
@@ -39,9 +43,9 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.launch.train import _reduce
 from repro_torch.models import lm
+from repro_torch.models.blocks import require_ported
 from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
                                  ServeConfig, paged_supported)
-from repro_torch.serving.engine import require_served
 
 
 def make_prompts(rng: np.random.Generator, n: int, vocab: int, lo: int,
@@ -109,7 +113,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = _reduce(cfg)
-    require_served(cfg)
+    require_ported(cfg)
     mode = args.mode
     if mode == "auto":
         mode = "paged" if paged_supported(cfg) else "contiguous"

@@ -1,10 +1,11 @@
 """Per-family blocks (port of ``models/blocks.py``): the transformer block
-of the dense family and of the hybrid's weight-tied shared block (attention
-and MLP), and the Mamba2 block of the ssm and hybrid backbones.  Each has
-an initializer, the full-sequence apply, and the contiguous cache's prefill
-and one-token decode.  Paged serving runs its own block body
-(``serving.engine._paged_block``).  MoE, MLA, the encoder-decoder and the
-vlm blocks are not ported yet and raise (ROADMAP A9)."""
+of the dense and moe families and of the hybrid's weight-tied shared block
+(attention, then the MLP or the routed experts), and the Mamba2 block of
+the ssm and hybrid backbones.  Each has an initializer, the full-sequence
+apply, and the contiguous cache's prefill and one-token decode.  Paged
+serving runs its own block body (``serving.engine._paged_block``).  MLA,
+the encoder-decoder and the vlm blocks are not ported yet and raise
+(ROADMAP A9d, A9e)."""
 from __future__ import annotations
 
 import torch
@@ -14,38 +15,56 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_LATER_ITEM = {"encdec": "A9e", "vlm": "A9e"}
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise unless the port's blocks cover ``cfg``: the dense, ssm and
-    hybrid families, with no MLA."""
+    """Raise unless the port's blocks cover ``cfg``: the dense, moe, ssm
+    and hybrid families, with no MLA; the error names the ROADMAP item
+    that ports the rest."""
     if cfg.family not in PORTED_FAMILIES or cfg.use_mla:
+        item = "A9d" if cfg.use_mla else _LATER_ITEM.get(cfg.family, "A9")
         raise NotImplementedError(
-            f"the port's models cover the dense, ssm and hybrid families (no "
-            f"MLA) so far, not {cfg.family}"
-            f"{' with MLA' if cfg.use_mla else ''} (ROADMAP A9)")
+            f"the port's models cover the dense, moe, ssm and hybrid "
+            f"families (no MLA) so far, not {cfg.family}"
+            f"{' with MLA' if cfg.use_mla else ''} (ROADMAP {item})")
 
 
 def init_transformer_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     require_ported(cfg)
     dev = gen.device
-    return {"attn_norm": L.init_norm(cfg.d_model, cfg, dev),
-            "mlp_norm": L.init_norm(cfg.d_model, cfg, dev),
-            "attn": L.init_attention(gen, cfg),
-            "mlp": L.init_mlp(gen, cfg)}
+    p = {"attn_norm": L.init_norm(cfg.d_model, cfg, dev),
+         "mlp_norm": L.init_norm(cfg.d_model, cfg, dev),
+         "attn": L.init_attention(gen, cfg)}
+    if cfg.family == "moe":
+        p["moe"] = L.init_moe(gen, cfg)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg)
+    return p
+
+
+def ffn(params, h: torch.Tensor, cfg: ModelConfig):
+    """The block's feed-forward half: (out, aux), the routed experts and
+    their load-balance aux in the moe family, else the MLP and None."""
+    if cfg.family == "moe":
+        return L.moe(params["moe"], h, cfg)
+    return L.mlp(params["mlp"], h, cfg), None
 
 
 def transformer_block(params, x: torch.Tensor, cfg: ModelConfig,
                       positions: torch.Tensor, causal: bool = True):
-    """Pre-norm attention and MLP with residuals.  Returns (new_x, aux):
-    the dense block has no auxiliary loss, so aux is an f32 zero."""
+    """Pre-norm attention and MLP (or routed experts) with residuals.
+    Returns (new_x, aux): the moe block's load-balance aux, an f32 zero in
+    the dense block."""
     require_ported(cfg)
     h = L.apply_norm(params["attn_norm"], x, cfg)
     x = x + L.attention(params["attn"], h, cfg, positions, causal=causal)
     h = L.apply_norm(params["mlp_norm"], x, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + L.mlp(params["mlp"], h, cfg), aux
+    out, aux = ffn(params, h, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux
 
 
 def init_block_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -59,7 +78,8 @@ def transformer_block_decode(params, x: torch.Tensor, cfg: ModelConfig,
     """One decode token per row against the block's contiguous cache
     (written in place); ``pos`` is the batch's one write position.  With a
     kernel backend installed, the fused decode-prologue kernel computes
-    RMSNorm + QKV + RoPE, and the MLP runs on ``fxp_matmul``."""
+    RMSNorm + QKV + RoPE, and the dense MLP runs on ``fxp_matmul`` (the
+    moe experts are plain products, as in the JAX package)."""
     require_ported(cfg)
     if DP.prologue_active(cfg, x):
         q, k, v = DP.decode_prologue(
@@ -74,7 +94,7 @@ def transformer_block_decode(params, x: torch.Tensor, cfg: ModelConfig,
                                              pos)
     x = x + attn_out
     h = L.apply_norm(params["mlp_norm"], x, cfg)
-    return x + L.mlp(params["mlp"], h, cfg), cache
+    return x + ffn(params, h, cfg)[0], cache
 
 
 def transformer_block_prefill(params, x: torch.Tensor, cfg: ModelConfig,
@@ -92,7 +112,7 @@ def transformer_block_prefill(params, x: torch.Tensor, cfg: ModelConfig,
              "v": L.fill_ring(v, length).to(cache_dtype)}
     x = x + attn_out
     h = L.apply_norm(params["mlp_norm"], x, cfg)
-    return x + L.mlp(params["mlp"], h, cfg), cache
+    return x + ffn(params, h, cfg)[0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -430,3 +430,154 @@ def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return (g * u) @ params["w_down"].to(dt)
     h = _gelu_tanh(x @ params["w_up"].to(dt))
     return h @ params["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, per-row sort-based capacity dispatch, shared experts)
+# ---------------------------------------------------------------------------
+#
+# The router and the experts are plain tensor products, as the JAX package
+# computes them outside any Pallas kernel.  Its ``_moe_experts_shardmap``
+# (the "moe_rowcombine" perf option) is multi-device and waits for A11.
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    s_in, s_out = D ** -0.5, F ** -0.5
+    p = {"router": _randn(gen, (D, E), s_in),
+         "w_gate": _randn(gen, (E, D, F), s_in),
+         "w_up": _randn(gen, (E, D, F), s_in),
+         "w_down": _randn(gen, (E, F, D), s_out)}
+    if cfg.num_shared_experts:
+        Fs = cfg.moe_d_ff * cfg.num_shared_experts
+        p["shared"] = {"w_gate": _randn(gen, (D, Fs), s_in),
+                       "w_up": _randn(gen, (D, Fs), s_in),
+                       "w_down": _randn(gen, (Fs, D), Fs ** -0.5)}
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Slots an expert takes from one batch row of ``n_tokens``:
+    ``int(t * K * cf / E)``, at least 8, rounded up to a multiple of 8."""
+    c = int(n_tokens * cfg.experts_per_token * cfg.capacity_factor
+            / cfg.num_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def moe_aux_from_stats(frac: torch.Tensor,
+                       probs_mean: torch.Tensor) -> torch.Tensor:
+    """The load-balance aux ``E * sum_e frac[e] * probs_mean[e]``: bilinear
+    in two batch means, so a caller that splits the batch accumulates the
+    two statistics, not the aux."""
+    return torch.sum(frac * probs_mean) * frac.shape[-1]
+
+
+def top_k_lower_first(probs: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: the k largest values in descending
+    order, a tie broken toward the lower index, the same on every device
+    (a stable descending sort; ``torch.topk`` leaves the order of ties
+    unspecified).  Returns (values, int64 indices)."""
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    return torch.gather(probs, -1, idx), idx
+
+
+def moe_route(params, x: torch.Tensor, cfg: ModelConfig) -> dict:
+    """Routing and the per-row dispatch plan of ``moe_verbose``.  x:
+    [b, t, D].  Returns a dict of
+
+      probs [b,t,E] f32, top_p [b,t,K] f32 (renormalised), top_e [b,t,K],
+      frac [E] and probs_mean [E] (the aux statistics), and, per batch row
+      over its t*K picks in (token, k) order: order (a stable sort by
+      expert), sw (the sorted weights, in x's dtype), stok (each sorted
+      pick's token), keep (its rank in its expert is under the capacity C)
+      and slot (expert * C + rank, or the trash slot E*C), and C.
+
+    The router product runs in x's dtype, the softmax in f32 as
+    ``jax.nn.softmax`` computes it; ``frac`` comes from a one-hot and
+    carries no gradient, ``probs_mean`` and ``top_p`` do."""
+    dt = x.dtype
+    b, t, _ = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = moe_capacity(cfg, t)
+    nk = t * K
+    logits = torch.einsum("btd,de->bte", x, params["router"].to(dt))
+    lf = logits.to(torch.float32)
+    ex = torch.exp(lf - torch.amax(lf, dim=-1, keepdim=True))
+    probs = ex / torch.sum(ex, dim=-1, keepdim=True)
+    top_p, top_e = top_k_lower_first(probs, K)
+    top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
+    onehot = torch.nn.functional.one_hot(top_e, E).to(torch.float32)
+    frac = torch.mean(onehot, dim=(0, 1, 2))
+    probs_mean = torch.mean(probs, dim=(0, 1))
+
+    flat_e = top_e.reshape(b, nk)
+    flat_w = top_p.reshape(b, nk).to(dt)
+    order = torch.argsort(flat_e, dim=-1, stable=True)      # per-row sort
+    se = torch.gather(flat_e, -1, order)
+    sw = torch.gather(flat_w, -1, order)
+    stok = order // K                                      # source token
+    counts = torch.sum(torch.nn.functional.one_hot(flat_e, E), dim=1)
+    offsets = torch.cumsum(counts, dim=-1) - counts
+    pos_in_e = (torch.arange(nk, device=x.device)[None, :]
+                - torch.gather(offsets, -1, se))
+    keep = pos_in_e < C
+    slot = torch.where(keep, se * C + pos_in_e, E * C)
+    return dict(probs=probs, top_p=top_p, top_e=top_e, frac=frac,
+                probs_mean=probs_mean, order=order, sw=sw, stok=stok,
+                keep=keep, slot=slot, C=C)
+
+
+def moe_verbose(params, x: torch.Tensor, cfg: ModelConfig):
+    """Top-k routed MoE with per-row sort-based capacity dispatch (port of
+    the JAX package's single-device path).  Each batch row dispatches its
+    own t*K picks: a pick whose rank in its expert reaches the capacity C
+    goes to the trash slot and contributes nothing.  Returns (out [b,t,D],
+    frac [E], probs_mean [E])."""
+    dt = x.dtype
+    b, t, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    r = moe_route(params, x, cfg)
+    C, keep, slot, stok = r["C"], r["keep"], r["slot"], r["stok"]
+    nk = t * K
+    rows = torch.arange(b, device=x.device)[:, None].expand(b, nk)
+    src = torch.gather(x, 1, stok[..., None].expand(b, nk, D))
+    # the dropped picks all write the trash row E*C, which is cut off:
+    # which of them lands there does not matter
+    buf = torch.zeros((b, E * C + 1, D), dtype=dt, device=x.device)
+    buf = buf.index_put((rows, slot), src)
+    buf = buf[:, :-1].reshape(b, E, C, D)
+    act = silu if cfg.mlp_kind == "swiglu" else _gelu_tanh
+    g = act(torch.einsum("becd,edf->becf", buf, params["w_gate"].to(dt)))
+    u = torch.einsum("becd,edf->becf", buf, params["w_up"].to(dt))
+    eo = torch.einsum("becf,efd->becd", g * u, params["w_down"].to(dt))
+    gathered = eo.reshape(b, E * C, D)
+    safe_slot = torch.where(keep, slot, 0)
+    picked = torch.gather(gathered, 1, safe_slot[..., None].expand(b, nk, D))
+    contrib = torch.where(keep[..., None], picked * r["sw"][..., None],
+                          torch.zeros((), dtype=dt, device=x.device))
+    # the combine: the JAX package scatter-adds the sorted picks into
+    # token space.  Here each pick goes back to its (token, k) place (the
+    # inverse of the sort) and the K picks of a token are summed in k
+    # order, in x's dtype, with no atomics: for K = 2 that is the
+    # scatter-add's 0 + a + b bit for bit in either order; for K > 2 the
+    # sum is ordered here but not in the scatter-add, whose order XLA
+    # leaves open
+    inv = torch.argsort(r["order"], dim=-1)
+    per_k = torch.gather(contrib, 1, inv[..., None].expand(b, nk, D))
+    per_k = per_k.reshape(b, t, K, D)
+    out = torch.zeros((b, t, D), dtype=dt, device=x.device)
+    for k in range(K):
+        out = out + per_k[:, :, k]
+    if cfg.num_shared_experts:
+        sh = params["shared"]
+        gs = act(x @ sh["w_gate"].to(dt))
+        us = x @ sh["w_up"].to(dt)
+        out = out + (gs * us) @ sh["w_down"].to(dt)
+    return out, r["frac"], r["probs_mean"]
+
+
+def moe(params, x: torch.Tensor, cfg: ModelConfig):
+    """``moe_verbose`` with the statistics contracted to the load-balance
+    aux scalar.  Returns (out, aux)."""
+    out, frac, probs_mean = moe_verbose(params, x, cfg)
+    return out, moe_aux_from_stats(frac, probs_mean)

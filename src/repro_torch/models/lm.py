@@ -1,18 +1,20 @@
-"""Model assembly of the dense, ssm and hybrid families (port of those
-families of ``models/lm.py``): parameters, the embedding, the layer stack,
-the chunked cross-entropy head and the loss.
+"""Model assembly of the dense, moe, ssm and hybrid families (port of
+those families of ``models/lm.py``): parameters, the embedding, the layer
+stack, the chunked cross-entropy head and the loss.
 
-  dense  : embed -> L x transformer_block -> norm -> CE head
-  ssm    : embed -> L x mamba_block -> norm -> CE head
-  hybrid : embed -> G x (shared transformer block ; K x mamba_block) -> ...
+  dense/moe : embed -> L x transformer_block -> norm -> CE head
+  ssm       : embed -> L x mamba_block -> norm -> CE head
+  hybrid    : embed -> G x (shared transformer block ; K x mamba_block)
+              -> ...
 
 Parameters are a nested dict of tensors in the JAX package's layout: the
 ``blocks`` leaves are stacked on a leading layer axis, so ``wq`` is
-[L, D, H, hd]; the hybrid's Mamba leaves are [G, K, ...] and its one
-weight-tied ``shared_attn`` block is unstacked.  ``params_from_numpy``
+[L, D, H, hd] and a moe block's experts ``moe/w_gate`` [L, E, D, F]; the
+hybrid's Mamba leaves are [G, K, ...] and its one weight-tied
+``shared_attn`` block is unstacked.  ``params_from_numpy``
 carries a JAX parameter pytree across (given as numpy arrays, e.g.
 ``jax.tree.map(np.asarray, params)``).  JAX's layer ``xscan`` is a Python
-loop here.  moe, vlm and encdec raise (ROADMAP A9).
+loop here.  MLA, vlm and encdec raise (ROADMAP A9d, A9e).
 """
 from __future__ import annotations
 
@@ -24,13 +26,22 @@ from repro_torch import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.util.tree import tree_map
 
 
-def _stack(trees: list) -> dict:
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stacked_init(n: int, init_fn) -> dict:
+    """``n`` draws of ``init_fn()`` stacked on a new leading axis.  Each
+    draw is copied into the stacked leaves as it is made, so at most one
+    layer exists beside the stack (four mixtral-8x7b layers are 23 GB of
+    f32)."""
+    out = None
+    for i in range(n):
+        one = init_fn()
+        if out is None:
+            out = tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), one)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, one)
+        del one
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -45,17 +56,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
               "final_norm": L.init_norm(D, cfg, gen.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L._randn(gen, (D, V), D ** -0.5)
-    if cfg.family == "dense":
-        params["blocks"] = _stack([B.init_transformer_block(gen, cfg)
-                                   for _ in range(cfg.num_layers)])
+    if cfg.family in ("dense", "moe"):
+        params["blocks"] = _stacked_init(
+            cfg.num_layers, lambda: B.init_transformer_block(gen, cfg))
     elif cfg.family == "ssm":
-        params["blocks"] = _stack([B.init_mamba_block(gen, cfg)
-                                   for _ in range(cfg.num_layers)])
+        params["blocks"] = _stacked_init(
+            cfg.num_layers, lambda: B.init_mamba_block(gen, cfg))
     else:  # hybrid
         G, K = hybrid_groups(cfg)
-        params["blocks"] = _stack([
-            _stack([B.init_mamba_block(gen, cfg) for _ in range(K)])
-            for _ in range(G)])
+        params["blocks"] = _stacked_init(G, lambda: _stacked_init(
+            K, lambda: B.init_mamba_block(gen, cfg)))
         params["shared_attn"] = B.init_transformer_block(gen, cfg)
     return params
 
@@ -140,10 +150,10 @@ def stack_units(cfg: ModelConfig) -> int:
 
 def unit_blocks(unit, cfg: ModelConfig, shared=None):
     """One unit of the main stack in order: (kind, block params, k) per
-    block, kind "attn" (the transformer block) or "mamba".  A dense or ssm
-    unit is one layer (k None); a hybrid unit is a group, whose parameters
-    are [K, ...]: the weight-tied ``shared`` block (k None), then Mamba
-    layer k for each k."""
+    block, kind "attn" (the transformer block) or "mamba".  A dense, moe
+    or ssm unit is one layer (k None); a hybrid unit is a group, whose
+    parameters are [K, ...]: the weight-tied ``shared`` block (k None),
+    then Mamba layer k for each k."""
     if cfg.family != "hybrid":
         yield ("mamba" if cfg.family == "ssm" else "attn"), unit, None
         return
@@ -156,7 +166,7 @@ def walk_stack(params, cfg: ModelConfig):
     """The main stack in order: one (kind, block params, cache index) per
     block application (``unit_blocks`` of each unit).  The cache index
     names the block's slice of the stacked decode caches: (None, i) in the
-    dense and ssm stacks; in the hybrid's, ("attn", g) for the g-th
+    dense, moe and ssm stacks; in the hybrid's, ("attn", g) for the g-th
     application of the weight-tied shared block and ("mamba", (g, k)) for
     Mamba layer k of group g."""
     hybrid = cfg.family == "hybrid"

@@ -307,9 +307,10 @@ def make_lm_probe(cfg, ocfg: Optional[OptimizerConfig] = None,
     ``kernel_backend`` (default: the policy's "auto", int8 on CUDA and off
     on the CPU) lets a CPU sweep run the int8 plain versions that a card's
     sweep runs as kernels.  The probes sweep the engine's units (the
-    hybrid's are its groups).  Families other than dense, ssm and hybrid
-    raise ``NotImplementedError`` (ROADMAP A9) in ``make_train_step``,
-    before their encoder frames or patch embeddings would be drawn.
+    hybrid's are its groups).  Families other than dense, moe, ssm and
+    hybrid raise ``NotImplementedError`` (ROADMAP A9) in
+    ``make_train_step``, before their encoder frames or patch embeddings
+    would be drawn.
     """
     from repro_torch.models import lm
 

@@ -1,11 +1,13 @@
 """Serving engine (port of ``serving/engine.py``): prefill + one-token
-decode against contiguous per-slot caches for the dense, ssm and hybrid
-families, and the paged KV pool for the dense family.
+decode against contiguous per-slot caches for the dense, moe, ssm and
+hybrid families, and the paged KV pool for the dense and moe families
+without a sliding window.
 
 Contiguous caches, stacked on leading layer axes, with the JAX package's
 keys, shapes and dtypes, {"caches": ..., "pos": int32 scalar}:
 
-  dense  : {"k", "v": [L, B, len, kv_heads, head_dim]}
+  dense, moe : {"k", "v": [L, B, len, kv_heads, head_dim]}, a ring of
+           len = min(swa_window, max_len) slots under a sliding window
   ssm    : {"h": [L, B, H, N, P] f32, "conv": [L, B, K-1, d_inner + 2N]}
            (O(1) in the context)
   hybrid : {"attn": {"k", "v": [G, B, len, kv_heads, head_dim]},
@@ -22,8 +24,8 @@ device and ``decode_step`` writes them IN PLACE; ``merge_slot`` writes a
 one-row prefill's caches into a slot, on each leaf's batch axis.
 ``prefill`` installs ``kernel_backend or "auto"`` (int8 on CUDA) around
 the prompt's forward; ``decode_step`` runs under the caller's backend.
-The other families' caches (MLA latents, MoE, cross-attention, patches)
-and SWA rings wait for ROADMAP A9 and raise.
+The other families' caches (MLA latents, cross-attention, patches) wait
+for ROADMAP A9d-e and raise.
 
 The pool stores every layer's K/V in fixed-size blocks on a leading block
 axis: [L, N_blocks, block, kv_heads, head_dim].  A request owns an ordered
@@ -61,17 +63,6 @@ from repro_torch.models.config import ModelConfig
 # Contiguous cache: init, decode step, prefill
 # ---------------------------------------------------------------------------
 
-def require_served(cfg: ModelConfig) -> None:
-    """Raise unless the port serves ``cfg``: the dense, ssm and hybrid
-    families, with no MLA and no sliding window (the rest waits for
-    ROADMAP A9)."""
-    B.require_ported(cfg)
-    if cfg.swa_window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window (ring) caches are not ported yet "
-            f"(ROADMAP A9)")
-
-
 def _stacked_zeros(one: dict, lead: tuple, device) -> dict:
     """Zeros on ``device`` shaped ``lead`` + each leaf of the one-layer
     template ``one`` (made on the meta device: shapes and dtypes only)."""
@@ -84,7 +75,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     """The zeroed contiguous decode state on ``device`` (CUDA unless the
     caller names another)."""
     device = resolve_device(device)
-    require_served(cfg)
+    B.require_ported(cfg)
     if cfg.family == "ssm":
         caches = _stacked_zeros(S.init_mamba_cache(cfg, batch, cache_dtype,
                                                    "meta"),
@@ -167,7 +158,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,
 @torch.no_grad()
 def _prefill_impl(params, cfg: ModelConfig, batch: dict, max_len: int,
                   cache_dtype=torch.bfloat16):
-    require_served(cfg)
+    B.require_ported(cfg)
     device = params["embed"].device
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     x, positions = lm.embed_input(params, cfg, batch)
@@ -211,8 +202,9 @@ PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
-    """Paged decode covers the GQA-KV attention families; MLA latents, SWA
-    rings, SSM state and cross-attention keep the contiguous path."""
+    """Paged decode covers the GQA-KV attention families (the port serves
+    dense and moe so); MLA latents, SWA rings, SSM state and
+    cross-attention keep the contiguous path."""
     return (cfg.family in PAGED_FAMILIES and not cfg.use_mla
             and cfg.swa_window is None)
 
@@ -321,9 +313,7 @@ def _paged_block(p, x, cfg: ModelConfig, pool_l: dict, tables, qpos,
                                             tables, qpos, attn_impl)
     x = x + attn_out
     h = L.apply_norm(p["mlp_norm"], x, cfg)
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.family} MLP is not ported yet")
-    return x + L.mlp(p["mlp"], h, cfg), pool_l
+    return x + B.ffn(p, h, cfg)[0], pool_l
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens, dt):

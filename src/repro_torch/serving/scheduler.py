@@ -5,7 +5,8 @@ The scheduler is host-side control logic around the engine's device steps.
 Two cache regimes share one driver:
 
   * ``mode="contiguous"``: whole-prompt prefill into a per-slot contiguous
-    cache (KV rings, SSM state, or both for the hybrid family), then
+    cache (KV rings, a sliding window's included, SSM state, or both for
+    the hybrid family), then
     batched decode; ``merge`` writes each leaf on its own batch axis.  As
     in the JAX package, ``merge`` sets the batch's ONE decode position to
     the last prefilled prompt's length and ``decode_step`` writes every

@@ -201,9 +201,10 @@ def test_bits_are_runtime_data():
 def test_gradient_lifetime_is_per_layer(monkeypatch):
     """The paper's memory claim, checked by the order of calls: the forward
     runs every layer without autograd; then, layer by layer in reverse,
-    the body is re-run under autograd and that layer's update is applied
-    before the next (lower) layer's body starts; the boundary updates come
-    last.  No update ever sees a stacked [L, ...] gradient."""
+    the body is re-run under autograd and that layer's update is applied,
+    one leaf at a time, before the next (lower) layer's body starts; the
+    boundary updates come last.  No update ever sees a stacked [L, ...]
+    gradient, nor more than one leaf of one layer."""
     tc = ModelConfig(**dict(TINY, num_layers=4))
     params = TLM.init_params(tc, seed=0, device="cpu")
     ptr = {int(params["blocks"]["mlp_norm"]["scale"][i].data_ptr()): i
@@ -229,12 +230,17 @@ def test_gradient_lifetime_is_per_layer(monkeypatch):
     n = tc.num_layers
     assert events[:n] == [("body", i, False) for i in range(n)]
     stacked = {tuple(t.shape) for t in tree_leaves(params["blocks"])}
+    leaves = len(tree_leaves(TLM.layer_params(params["blocks"], 0)))
+    per_layer = 1 + leaves            # the body, then one update a leaf
     for j, i in enumerate(reversed(range(n))):
-        kind, layer, grad_on = events[n + 2 * j]
+        kind, layer, grad_on = events[n + per_layer * j]
         assert (kind, layer, grad_on) == ("body", i, True)
-        kind, shapes = events[n + 2 * j + 1]
-        assert kind == "update" and not set(shapes) & stacked
-    assert len(events) == 3 * n       # boundary updates go through steps
+        for kind, shapes in events[n + per_layer * j + 1:
+                                   n + per_layer * (j + 1)]:
+            assert (kind == "update" and len(shapes) == 1
+                    and not set(shapes) & stacked)
+    # the boundary updates go through steps
+    assert len(events) == n + n * per_layer
 
 
 def test_kernel_entry_points_per_layer(monkeypatch):
@@ -411,8 +417,9 @@ def test_unported_step_options_raise():
                            device="cpu").bit_anneal is opts.bit_anneal
     with pytest.raises(ValueError):
         StepOptions(engine="sgd")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        make_train_step(dataclasses.replace(tc, family="moe"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
+        make_train_step(dataclasses.replace(tc, family="encdec"),
+                        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         TLM.init_params(dataclasses.replace(tc, use_mla=True), device="cpu")
     step = make_train_step(tc, options=StepOptions(engine="autodiff"),

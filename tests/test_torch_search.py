@@ -63,7 +63,7 @@ from repro_torch.search import plan as TP
 from repro_torch.search import sensitivity as TS
 from repro_torch.serving import engine as TENG
 from repro_torch.util import prng
-from repro_torch.util.tree import tree_leaves, tree_map
+from repro_torch.util.tree import tree_leaves
 
 from test_models import tiny
 from test_torch_engine_jax import _grid_close
@@ -395,11 +395,11 @@ def test_lm_sweep_plan_matches_jax_hybrid():
         assert gt["probe_loss"] == pytest.approx(gj["probe_loss"], rel=2e-3)
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm", "moe"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_lm_sweep_refuses_other_families(family):
     """The JAX sweep draws encoder frames or patch embeddings for encdec
-    and vlm; the port's engine trains the dense, ssm and hybrid families
-    only (ROADMAP A9)."""
+    and vlm; the port's engine trains the dense, moe, ssm and hybrid
+    families only (ROADMAP A9e)."""
     cfg = dataclasses.replace(ModelConfig(**TINY), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         TS.run_sweep_lm(cfg, None, TS.SweepConfig(**LM_SWEEP), seq_len=16,
@@ -622,22 +622,18 @@ def _reversed_sums(matmul):
 
 def test_probe_spread_justifies_card_tolerances(monkeypatch):
     """Why the search phase holds the card's LeNet sweep to
-    SEARCH_LENET_LOSS_TOL (absolute) and its 2-layer LM sweep to
-    SEARCH_LM_LOSS_TOL (relative) against the CPU.  On the CPU alone, one
-    f32 ulp on every initial weight together with every ``@`` summed in
-    reverse order moves:
-      * the default LeNet sweep's gated losses (the baseline, each group's
-        chosen (1,5)/(1,5)/(2,6) probe and the final plan's) by under
-        2e-3, and the probe that decides its escalation ((1,5) in every
-        group, 0.011 above the threshold) by 0.0111 (one thread a test):
-        the limit 0.025 is over twice both, and a decision nearer the
-        threshold than it is printed, not gated;
-      * the 2-layer LM sweep's probe losses (int8, SEARCH_LM_SWEEP, on a
-        qwen-shaped net of d 256) by under half of TRAIN_LM_LOSS_TOL (5.2e-4
-        of themselves), the one-step limit the sweep inherits (``test_torch_engine.py::
-        test_update_sensitivity_justifies_card_tolerance``)."""
+    SEARCH_LENET_LOSS_TOL (absolute) against the CPU.  On the CPU alone,
+    one f32 ulp on every initial weight together with every ``@`` summed
+    in reverse order moves the default LeNet sweep's gated losses (the
+    baseline, each group's chosen (1,5)/(1,5)/(2,6) probe and the final
+    plan's) by under 2e-3, and the probe that decides its escalation
+    ((1,5) in every group, 0.011 above the threshold) by 0.0111 (one
+    thread a test): the limit 0.025 is over twice both, and a decision
+    nearer the threshold than it is printed, not gated.  (The phase's
+    2-layer LM sweep against the CPU, and its limit, went to pay for the
+    moe phase; ``test_lm_sweep_plan_matches_jax`` holds the LM sweep to JAX on
+    the CPU.)"""
     assert CS.SEARCH_LENET_LOSS_TOL == 0.025
-    assert CS.SEARCH_LM_LOSS_TOL == CS.TRAIN_LM_LOSS_TOL
     sweep = TS.SweepConfig()
     lenet = [[(4, 16)] * 3, [(1, 5), (4, 16), (4, 16)],
              [(4, 16), (1, 5), (4, 16)], [(4, 16), (4, 16), (2, 6)],
@@ -658,27 +654,3 @@ def test_probe_spread_justifies_card_tolerances(monkeypatch):
     assert max(spread[:5]) < 2e-3, spread
     assert max(spread) < CS.SEARCH_LENET_LOSS_TOL / 2, spread
     assert ref[5] > ref[0] + sweep.target > ref[4], ref
-
-    cfg = ModelConfig(name="sens", family="dense", num_layers=2, d_model=256,
-                      num_heads=4, num_kv_heads=4, d_ff=704, vocab_size=2048,
-                      qkv_bias=True, rope_theta=1e6)
-    lm0 = TLM.init_params(cfg, seed=0, device="cpu")
-    lm1 = tree_map(lambda t: torch.nextafter(t, torch.full_like(
-        t, float("inf"))), lm0)
-    out = {}
-    for name, params in (("ref", lm0), ("moved", lm1)):
-        probe, n = TS.make_lm_probe(
-            cfg, OptimizerConfig(kind=CS.TRAIN_LM_OPTIMIZER),
-            TS.SweepConfig(**CS.SEARCH_LM_SWEEP),
-            seq_len=CS.TRAIN_LM_PARITY_SEQ, device="cpu", params0=params,
-            kernel_backend="int8")
-        seen = out.setdefault(name, [])
-        if name == "moved":
-            monkeypatch.setattr(torch.Tensor, "__matmul__",
-                                _reversed_sums(torch.Tensor.__matmul__))
-        TS.select_plan(lambda s: seen.append(probe(s)) or seen[-1], n,
-                       TS.SweepConfig(**CS.SEARCH_LM_SWEEP))
-        monkeypatch.undo()
-    assert len(out["ref"]) == len(out["moved"]) >= 4
-    rel = max(abs(a - b) / abs(a) for a, b in zip(out["ref"], out["moved"]))
-    assert rel < CS.SEARCH_LM_LOSS_TOL / 2, (rel, out)

@@ -117,8 +117,8 @@ def test_greedy_generate_tokens_equal_jax():
 
 def test_unported_caches_raise():
     _, tc, _, _ = _setup()
-    for kw in (dict(family="moe"), dict(use_mla=True),
-               dict(swa_window=16)):
+    for kw in (dict(family="encdec"), dict(family="vlm"),
+               dict(use_mla=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
             init_decode_state(dataclasses.replace(tc, **kw), 2, 16,
                               device="cpu")
@@ -358,11 +358,28 @@ def test_serve_contiguous_refuses_unequal_prompts(extra, capsys):
 
 
 @pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "mixtral-8x7b"])
-def test_serve_refuses_other_families(arch):
-    assert t_get_config(arch).swa_window or t_get_config(arch).family != \
-        "dense"
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        TSERVE.main(["--device", "cpu", "--reduced", "--arch", arch])
+def test_serve_reduced_window_and_moe(arch):
+    """The reduced twins of a dense model with a sliding window and of the
+    moe family serve through the CLI: ``--mode auto`` is contiguous (a
+    window keeps its ring), every request finishes, and the streams equal
+    the port's greedy generation of each prompt on the served weights;
+    ``--mode paged`` raises, as JAX's does."""
+    cfg = t_get_config(arch)
+    assert cfg.swa_window == 4096 and cfg.family == (
+        "moe" if arch == "mixtral-8x7b" else "dense")
+    argv = ["--device", "cpu", "--reduced", "--arch", arch, "--slots", "2",
+            "--requests", "4", "--prompt-len", "10", "--max-new", "5"]
+    rep = TSERVE.main(argv)
+    assert rep["mode"] == "contiguous" and rep["tokens"] == 4 * 5
+    got = {r.uid: r.generated for r in rep["finished"]}
+    prompts = TSERVE.make_prompts(np.random.default_rng(0), 4,
+                                  rep["cfg"].vocab_size, 10, 10, 0)
+    want = greedy_generate(rep["params"], rep["cfg"], {
+        "tokens": torch.from_numpy(np.stack(prompts))}, 64, 5,
+        torch.float32)
+    assert [got[i] for i in range(4)] == want.tolist()
+    with pytest.raises(ValueError, match="paged KV unsupported"):
+        TSERVE.main(argv + ["--mode", "paged"])
 
 
 def test_kernel_entry_points_per_layer(monkeypatch):

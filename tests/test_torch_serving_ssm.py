@@ -446,22 +446,20 @@ def test_serve_cli_paged_mode_raises(arch):
                      "--mode", "paged", "--requests", "1"])
 
 
-@pytest.mark.parametrize("kw,item", [(dict(family="moe"), "A9c"),
-                                     (dict(family="encdec"), "A9e"),
+@pytest.mark.parametrize("kw,item", [(dict(family="encdec"), "A9e"),
                                      (dict(family="vlm"), "A9e"),
                                      (dict(use_mla=True), "A9d")])
 def test_training_engine_still_raises(kw, item):
-    """The engine trains ssm and hybrid (tests/test_torch_engine_ssm.py);
-    the families it does not train yet are refused, naming their ROADMAP
-    item."""
+    """The engine trains ssm and hybrid (tests/test_torch_engine_ssm.py)
+    and moe (tests/test_torch_engine_moe.py); the families it does not
+    train yet are refused, naming their ROADMAP item."""
     _, tc = _cfgs("hybrid")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         make_train_step(dataclasses.replace(tc, **kw), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(family="moe"), dict(family="encdec"),
-                                dict(family="vlm"), dict(use_mla=True),
-                                dict(swa_window=8)])
+@pytest.mark.parametrize("kw", [dict(family="encdec"), dict(family="vlm"),
+                                dict(use_mla=True)])
 def test_other_caches_still_raise(kw):
     _, tc = _cfgs("hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):

@@ -424,8 +424,8 @@ def test_loss_fn_matches_jax(dtype, family):
     assert float(mt["aux"]) == float(mj["aux"]) == 0.0
 
 
-@pytest.mark.parametrize("kw", [dict(family="moe"), dict(family="encdec"),
-                                dict(family="vlm"), dict(use_mla=True)])
+@pytest.mark.parametrize("kw", [dict(family="encdec"), dict(family="vlm"),
+                                dict(use_mla=True)])
 def test_other_families_still_raise(kw):
     _, tc = _cfgs("hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):

@@ -182,6 +182,39 @@ Phases (any failure exits non-zero before the result line is printed):
                update's relative L2 whole, leaf by leaf and the router's
                within MOE_TRAIN_PARITY_TOL, MOE_TRAIN_LEAF_TOL and
                MOE_ROUTER_TOL, the dropped-K control beyond them.
+5g. mla    -- MLA (DeepSeek-V2's latent attention, the absorbed decode)
+               and the top-6 moe with shared experts on
+               deepseek-v2-lite-16b at full width (d 2048, 16 heads,
+               latent rank 512, nope/rope/v 128/64/128, 64 experts of
+               1408, top-6, 2 shared, vocab 102400), f32 masters from a
+               seed, bf16 compute, the int8 backend; no kernel lies on
+               this path, so every launch count must read 0.  (1) The
+               earlier phases' memory freed and the card's free memory
+               printed (27 layers' masters and 6 GB must fit), 27 layers
+               (16.0 B masters) served by the scheduler in contiguous
+               mode, 8 slots, 8 prompts of 128 tokens, 32 new, bf16
+               latent cache: every request finishes, prefill ms,
+               ms/decode step, tokens/s, peak memory, a profile of 5
+               decode steps and a snapshot restored to equal streams;
+               (2) one layer, 2 rows of 32 prompt tokens and 4 decode
+               steps on the card and on the CPU: the logits within
+               MLA_PARITY_TOL, the routing picks that differ printed, the
+               CPU's run with the router nudged by one bf16 ulp within
+               it, a dropped latent (the last quarter of the cache's rank
+               zeroed) and an un-absorbed query (no w_uk) beyond it; the
+               absorbed decode's logits against the materialised prefill
+               of the same tokens in f32 within MLA_ABSORB_TOL (the
+               un-absorbed control beyond it; bf16 printed); (3) 4 layers
+               trained by train_lm's step, 6 steps: every loss finite,
+               the last-2 mean below the first-2 mean, ms/step, tokens/s,
+               the aux, peak memory, a profile of 3 steps; the stochastic
+               step 2 steps twice, bitwise; (4) one layer, one step, 2 x
+               32, card against CPU: the routing picks that differ
+               printed, the update whole, leaf by leaf and the router's
+               within MLA_TRAIN_PARITY_TOL, MLA_TRAIN_LEAF_TOL and
+               MLA_ROUTER_TOL, and with the CPU's picks replayed on the
+               card within MLA_REPLAYED_TOL; the dropped-latent control
+               beyond them.
 5c. search -- the bitwidth search (``search/``), in three parts:
                (1) the LeNet-5 sweep at the JAX defaults (784-256x4-10, 3
                groups, the 6-point grid, 120 probe steps of batch 128 at
@@ -219,7 +252,8 @@ Phases (any failure exits non-zero before the result line is printed):
                "device": {...}}``.
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
-serve_ssm, train, noise, train_lm, train_ssm, moe, search and train_driver
+serve_ssm, train, noise, train_lm, train_ssm, moe, mla, search and
+train_driver
 (for
 example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
@@ -242,7 +276,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "serve_ssm",
-          "train", "noise", "train_lm", "train_ssm", "moe", "search",
+          "train", "noise", "train_lm", "train_ssm", "moe", "mla", "search",
           "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
@@ -3577,6 +3611,31 @@ def _route_recorder(L):
     return seen, lambda: setattr(L, "moe_route", real)
 
 
+def _route_replayer(torch, L, picks):
+    """Install into ``L`` a ``moe_route`` whose i-th call takes the i-th
+    of ``picks`` (top_e as ``_route_recorder`` records it, on any device)
+    for its top-k, its probabilities and all else its own; returns the
+    undo."""
+    real_route, real_top_k, calls = L.moe_route, L.top_k_lower_first, []
+
+    def replaying(params, x, cfg):
+        e = picks[len(calls)].to(x.device).reshape(*x.shape[:2], -1)
+        calls.append(e)
+        L.top_k_lower_first = lambda probs, k: (
+            torch.gather(probs, -1, e), e)
+        try:
+            return real_route(params, x, cfg)
+        finally:
+            L.top_k_lower_first = real_top_k
+    L.moe_route = replaying
+
+    def undo():
+        L.moe_route = real_route
+        require(len(calls) == len(picks), f"route replay: {len(calls)} "
+                f"calls for {len(picks)} recorded")
+    return undo
+
+
 def _unnormalised_routes(torch, L):
     """Install into ``L`` a ``moe_route`` whose sorted routing weights are
     the raw top-k probabilities, not renormalised to sum to 1 (a fault
@@ -3592,12 +3651,14 @@ def _unnormalised_routes(torch, L):
     return lambda: setattr(L, "moe_route", real)
 
 
-def _moe_parity_side(torch, p, cfg, toks, backend, d, feed):
-    """A prefill of ``toks`` and MOE_PARITY_STEPS decode steps on ``d``
-    under ``backend``, decoding ``feed`` (the card's argmax tokens) when
-    given, else this side's own.  Returns (the logits of the prefill and
-    of each step, on the host; the tokens fed; every routing pick, [token,
-    k]; the launches of the prefill and of the steps)."""
+def _moe_parity_side(torch, p, cfg, toks, backend, d, feed,
+                     steps=MOE_PARITY_STEPS, cache_dtype=None):
+    """A prefill of ``toks`` and ``steps`` decode steps on ``d`` under
+    ``backend`` (a bf16 cache unless ``cache_dtype`` names another),
+    decoding ``feed`` (the card's argmax tokens) when given, else this
+    side's own.  Returns (the logits of the prefill and of each
+    step, on the host; the tokens fed; every routing pick, [token, k]; the
+    launches of the prefill and of the steps)."""
     from repro_torch import kernels as K
     from repro_torch.kernels import ops as kops
     from repro_torch.models import layers as L
@@ -3608,12 +3669,13 @@ def _moe_parity_side(torch, p, cfg, toks, backend, d, feed):
     try:
         K.reset_launch_counts()
         logits, state = E.prefill(p, cfg, {"tokens": torch.from_numpy(toks)},
-                                  MOE_PARITY_PROMPT + MOE_PARITY_STEPS,
-                                  torch.bfloat16, kernel_backend=backend)
+                                  toks.shape[1] + steps,
+                                  cache_dtype or torch.bfloat16,
+                                  kernel_backend=backend)
         outs, pre = [logits.cpu()], K.launch_counts()
         K.reset_launch_counts()
         with kops.kernel_backend_ctx(backend, d):
-            for i in range(MOE_PARITY_STEPS):
+            for i in range(steps):
                 if own:
                     feed.append(torch.argmax(outs[-1], dim=-1)[:, None]
                                 .to(torch.int32))
@@ -3745,31 +3807,55 @@ def moe_train_parity(torch, dev):
     but the router) and MOE_ROUTER_TOL (the router), the loss within
     TRAIN_LM_LOSS_TOL; the card's launches one layer's; the dropped-K
     control beyond the three limits."""
-    from repro_torch import kernels as K
     from repro_torch.configs import get_config
-    from repro_torch.core import default_bits, init_train_state
     from repro_torch.kernels import ops as kops
-    from repro_torch.models import lm
-    from repro_torch.optim import Hyper
 
     full = get_config(MOE_ARCH)
     cfg = _moe_cfg(full, 1)
-    batch = _lm_batch(torch, cfg, "cpu", MOE_TRAIN_PARITY_BATCH,
-                      MOE_TRAIN_PARITY_SEQ)
+    backend = MOE_TRAIN_PARITY_BACKEND
+    return _router_train_parity(
+        torch, dev, arch=MOE_ARCH, cfg=cfg, label=f"moe train parity "
+        f"{backend}", describe=_describe_moe(cfg, full), backend=backend,
+        shape=(MOE_TRAIN_PARITY_BATCH, MOE_TRAIN_PARITY_SEQ),
+        want={k: v // MOE_TRAIN_LAYERS for k, v in MOE_TRAIN_LAUNCHES.items()},
+        tols=(MOE_TRAIN_PARITY_TOL[backend], MOE_TRAIN_LEAF_TOL[backend],
+              MOE_ROUTER_TOL[backend]),
+        min_free_gb=MOE_TRAIN_PARITY_MIN_FREE_GB,
+        control=("dropped K split", lambda: _dropped_k(
+            kops, cfg.d_model, cfg.d_model // MOE_FAULT_SPLITS)))
+
+
+def _router_train_parity(torch, dev, *, arch, cfg, label, describe, backend,
+                         shape, want, tols, min_free_gb, control,
+                         replayed_tol=None):
+    """One step of ``cfg`` (a moe model cut to one layer) on the card and
+    on the CPU (plain versions) from the same seed-0 params and a batch of
+    ``shape``: the routing picks that differ counted, the update's
+    relative L2 within ``tols`` (whole, each leaf but the router, the
+    router), the loss within TRAIN_LM_LOSS_TOL, the card's launches
+    ``want``; the card's step again under ``control`` (its name and an
+    installer that returns the undo) beyond the three limits.  Given
+    ``replayed_tol``, the card's step again with the CPU's picks replayed
+    (``_route_replayer``): its whole update within ``replayed_tol``,
+    which the control exceeds.  The CPU side runs with plain SGD when the
+    host has less than ``min_free_gb`` free."""
+    from repro_torch import kernels as K
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+
+    batch = _lm_batch(torch, cfg, "cpu", *shape)
     bits = default_bits(cfg)
     free_gb = _host_free_gb()
-    opt = (TRAIN_LM_OPTIMIZER if free_gb >= MOE_TRAIN_PARITY_MIN_FREE_GB
-           else "sgd")
-    want = {k: v // MOE_TRAIN_LAYERS for k, v in MOE_TRAIN_LAUNCHES.items()}
+    opt = TRAIN_LM_OPTIMIZER if free_gb >= min_free_gb else "sgd"
     params = lm.init_params(cfg, seed=0, device=dev)
     params_cpu = _tree_cpu(params)
-    say(f"moe train parity: {_describe_moe(cfg, full)}, "
-        f"{_n_params(params) / 1e9:.3f} B masters, batch "
-        f"{MOE_TRAIN_PARITY_BATCH} x {MOE_TRAIN_PARITY_SEQ}; host "
-        f"{free_gb:.1f} GB free, so the optimizer is {opt}"
+    say(f"{label}: {describe}, {_n_params(params) / 1e9:.3f} B masters, "
+        f"batch {shape[0]} x {shape[1]}; host {free_gb:.1f} GB free, so "
+        f"the optimizer is {opt}"
         + ("" if opt == TRAIN_LM_OPTIMIZER else
-           f" (plain SGD: under {MOE_TRAIN_PARITY_MIN_FREE_GB} GB free)"))
-    backend = MOE_TRAIN_PARITY_BACKEND
+           f" (plain SGD: under {min_free_gb} GB free)"))
 
     def run(p, d):
         step, ocfg = _lm_step(torch, cfg, backend, d, optimizer=opt)
@@ -3782,13 +3868,34 @@ def moe_train_parity(torch, dev):
         del new
         return res
 
-    got, got_loss, got_aux, t_card, counts = run(params, dev)
-    ref, ref_loss, ref_aux, t_cpu, _ = run(params_cpu, "cpu")
-    undo = _dropped_k(kops, cfg.d_model, cfg.d_model // MOE_FAULT_SPLITS)
+    def recorded(p, d):
+        seen, undo = _route_recorder(L)
+        try:
+            return run(p, d), seen
+        finally:
+            undo()
+    (got, got_loss, got_aux, t_card, counts), card_picks = recorded(params,
+                                                                    dev)
+    (ref, ref_loss, ref_aux, t_cpu, _), cpu_picks = recorded(params_cpu,
+                                                             "cpu")
+    require(len(card_picks) == len(cpu_picks),
+            f"{label}: {len(card_picks)} routings on the card, "
+            f"{len(cpu_picks)} on the CPU")
+    picks = sum(e.numel() for e in cpu_picks)
+    differ = sum(int((g != r).sum()) for g, r in zip(card_picks, cpu_picks))
+    control_name, install = control
+    undo = install()
     try:
         bad = run(params, dev)[0]
     finally:
         undo()
+    replayed = None
+    if replayed_tol is not None:
+        undo = _route_replayer(torch, L, cpu_picks)
+        try:
+            replayed = run(params, dev)[0]
+        finally:
+            undo()
 
     def readings(new):
         whole, rel = _update_rel(ref, new, params_cpu)
@@ -3798,20 +3905,27 @@ def moe_train_parity(torch, dev):
     (whole, (leaf_v, leaf), router), rel = readings(got)
     (c_whole, (c_leaf_v, c_leaf), c_router), _ = readings(bad)
     del bad
+    if replayed is not None:
+        (r_whole, (r_leaf_v, r_leaf), r_router), r_rel = readings(replayed)
+        del replayed
     loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
-    tols = (MOE_TRAIN_PARITY_TOL[backend], MOE_TRAIN_LEAF_TOL[backend],
-            MOE_ROUTER_TOL[backend])
-    label = f"moe train parity {backend}"
     say(f"{label}: update |d|/|ref| whole {whole:.4g} (tol {tols[0]}), "
         f"largest other leaf {leaf} {leaf_v:.4g} (tol {tols[1]}), "
         f"median leaf {statistics.median(rel.values()):.4g}; loss "
         f"{got_loss:.6f} vs {ref_loss:.6f}, rel {loss_rel:.3g} (tol "
         f"{TRAIN_LM_LOSS_TOL}); aux {got_aux:.6f} vs {ref_aux:.6f}; "
         f"launches {counts}; card {t_card:.2f} s, CPU {t_cpu:.2f} s; "
-        f"control (dropped K split): whole {c_whole:.4g}, leaf "
+        f"control ({control_name}): whole {c_whole:.4g}, leaf "
         f"{c_leaf} {c_leaf_v:.4g}, router {c_router:.4g}")
     say(f"{label}: router {MOE_ROUTER_LEAF} |d|/|ref| {router:.4g} (tol "
-        f"{tols[2]})")
+        f"{tols[2]}); routing picks differ {differ} of {picks} over "
+        f"{len(cpu_picks)} routings ({differ / picks:.4f})")
+    if replayed_tol is not None:
+        say(f"{label}: the CPU's picks replayed on the card: whole "
+            f"{r_whole:.4g} (tol {replayed_tol}), largest other leaf "
+            f"{r_leaf} {r_leaf_v:.4g}, median leaf "
+            f"{statistics.median(r_rel.values()):.4g}, router "
+            f"{r_router:.4g}")
     gates = [(counts == want, f"{label}: launches {counts}, expected {want}"),
              (loss_rel <= TRAIN_LM_LOSS_TOL,
               f"{label}: loss rel {loss_rel} > {TRAIN_LM_LOSS_TOL}"),
@@ -3824,16 +3938,26 @@ def moe_train_parity(torch, dev):
                                   f"reads {c_leaf_v} <= {tols[1]}"),
              (c_router > tols[2], f"{label}: the control's router reads "
                                   f"{c_router} <= {tols[2]}")]
-    out = dict(arch=MOE_ARCH, layers=1, backend=backend, optimizer=opt,
+    if replayed_tol is not None:
+        gates += [(r_whole <= replayed_tol, f"{label}: with the CPU's picks "
+                   f"replayed, whole {r_whole} > {replayed_tol}"),
+                  (c_whole > replayed_tol, f"{label}: the control reads "
+                   f"whole {c_whole} <= {replayed_tol}")]
+    out = dict(arch=arch, layers=1, backend=backend, optimizer=opt,
                host_free_gb=free_gb, update_rel_l2_err=whole,
                update_rel_l2_err_leaf_max=[leaf_v, leaf],
                update_rel_l2_err_router=router,
                update_rel_l2_err_by_leaf=rel, tol=tols[0], leaf_tol=tols[1],
                router_tol=tols[2], loss_rel_err=loss_rel,
                loss_tol=TRAIN_LM_LOSS_TOL, aux=got_aux, aux_cpu=ref_aux,
-               control={"whole": c_whole, "leaf": [c_leaf_v, c_leaf],
-                        "router": c_router},
-               counts=counts, card_s=t_card, cpu_s=t_cpu)
+               control={"name": control_name, "whole": c_whole,
+                        "leaf": [c_leaf_v, c_leaf], "router": c_router},
+               counts=counts, card_s=t_card, cpu_s=t_cpu, picks=picks,
+               picks_differ=differ, routings=len(cpu_picks))
+    if replayed_tol is not None:
+        out["replayed"] = dict(tol=replayed_tol, whole=r_whole,
+                               leaf=[r_leaf_v, r_leaf], router=r_router,
+                               by_leaf=r_rel)
     del got, ref
     for ok, msg in gates:         # after every reading is printed
         require(ok, msg)
@@ -3866,6 +3990,462 @@ def moe_phase(torch, dev):
     train_parity = moe_train_parity(torch, dev)
     secs = time.perf_counter() - t0
     say(f"moe: {secs:.1f} s")
+    return runs, serve_parity, train_parity, secs
+
+
+# ---------------------------------------------------------------------------
+# phase mla: deepseek-v2-lite-16b (MLA, top-6 moe with shared experts)
+# ---------------------------------------------------------------------------
+
+# deepseek-v2-lite-16b (configs/deepseek_v2_lite_16b.py, arXiv 2405.04434)
+# at full width.  Every MLA product and the router, routed and shared
+# experts are plain products, as the JAX package computes them outside
+# any Pallas kernel; the fused decode prologue excludes MLA and paged
+# serving refuses it: a prefill, a decode step and a train step launch
+# none of the six kernels.  The int8 and emulate backends therefore
+# compute the same bits here (tests/test_torch_engine_mla.py): the serve
+# and the train runs take int8
+MLA_ARCH = "deepseek-v2-lite-16b"
+MLA_SERVE_LAYERS, MLA_TRAIN_LAYERS = 27, 4
+MLA_LAUNCHES = {name: 0 for name in SOURCES}
+MLA_BACKEND = "int8"
+# the serve at full depth needs the masters (4 B a parameter) and, beside
+# them, one layer's bf16 expert casts, the latent cache and the logits:
+# the phase fails unless the card has the masters and
+# MLA_SERVE_HEADROOM_GB free before the init
+MLA_SERVE_HEADROOM_GB = 6.0
+# the serve parity: deepseek cut to one layer, MLA_PARITY_SLOTS rows of
+# MLA_PARITY_PROMPT prompt tokens and MLA_PARITY_STEPS decode steps on the
+# card and on the CPU from the same weights and tokens (the CPU decodes the
+# card's argmax tokens), int8: the logits' relative L2, the largest over
+# the prefill and the steps, within MLA_PARITY_TOL; the routing picks that
+# differ printed.  The router picks 6 of 64 experts with near-uniform
+# probabilities, so the two devices' bf16 roundings flip some picks; the
+# CPU's run again with every router weight one bf16 ulp off
+# (``_router_ulp_nudged``) reads what such flips cost at full width, and
+# must lie within the limit too.  The controls, the card's run again with
+# the last quarter of the latent cache's rank zeroed before each decode
+# step attends (dropped latent) and with the absorbed query left without
+# w_uk (q_nope zero-padded to the rank: un-absorbed), must read beyond it.
+# Sound runs read 0.0080 (6 of 432 picks differing), the nudge 0.0054 (29
+# flipped), the controls 0.88 and 1.21 (PERF.md; H100 80GB HBM3, 700 W):
+# the limit, 0.05, is six times the larger sound reading and a
+# seventeenth of the finer control
+MLA_PARITY_PROMPT, MLA_PARITY_SLOTS, MLA_PARITY_STEPS = 32, 2, 4
+MLA_PARITY_TOL = 0.05
+MLA_NUDGE_SEED = 1
+MLA_LATENT_SPLITS = 4   # the dropped-latent control zeroes the last quarter
+# the two MLA code paths on the card, one layer computed in f32 (f32
+# cache): the absorbed decode's logits at position t against the last
+# logits of the materialised prefill of the same t + 1 tokens, their
+# relative L2, the largest over the MLA_PARITY_STEPS positions; the
+# un-absorbed control beyond it.  In bf16 the decode rounds its score
+# products to bf16 before the f32 softmax and the prefill does not: the
+# attention outputs differ by ~0.5% (CPU, one full-width layer's MLA),
+# enough to flip a top-6 routing pick, so the gate holds the algebra in
+# f32 (the CPU reads ~1e-6 on the attention output) and the bf16 readings
+# are printed beside it
+MLA_ABSORB_TOL = 1e-3
+# the train parity: one step of deepseek cut to one layer, batch
+# MLA_TRAIN_PARITY_BATCH x MLA_TRAIN_PARITY_SEQ, card against CPU (int8):
+# the update's relative L2 whole, of each leaf but the router, and of the
+# router, within the moe phase's limits; then the card's step again with
+# the CPU's routing picks replayed, which leaves the arithmetic alone to
+# differ: its whole update within MLA_REPLAYED_TOL.  The control, the
+# card's step again with the last quarter of the latent's rank zeroed in
+# the forward and the re-linearisation, lies beyond all four.  Sound runs
+# read 0.0457 whole, 0.1223 the largest other leaf (moe/w_gate) and 0.0947
+# the router with 8 of 768 picks differing; with the CPU's picks replayed
+# 0.0062, 0.0077 and 0.0038: the flips carry the free readings, which the
+# moe phase's limits hold loosely, and the replayed update is held to
+# 0.05, eight times its reading and an eighteenth of the control's 0.90
+# (PERF.md; H100 80GB HBM3, 700 W)
+MLA_TRAIN_PARITY_BATCH, MLA_TRAIN_PARITY_SEQ = 2, 32
+MLA_TRAIN_PARITY_TOL = dict(MOE_TRAIN_PARITY_TOL)
+MLA_TRAIN_LEAF_TOL = dict(MOE_TRAIN_LEAF_TOL)
+MLA_ROUTER_TOL = dict(MOE_ROUTER_TOL)
+MLA_REPLAYED_TOL = 0.05
+MLA_TRAIN_PARITY_MIN_FREE_GB = 24.0
+
+
+def _mla_cfg(full, layers):
+    """``full`` cut to ``layers`` layers."""
+    import dataclasses
+
+    return dataclasses.replace(full, num_layers=layers)
+
+
+def _describe_mla(cfg, full) -> str:
+    return (f"{MLA_ARCH} at full width (d {cfg.d_model}, {cfg.num_heads} "
+            f"heads, MLA rank {cfg.kv_lora_rank} with nope/rope/v "
+            f"{cfg.qk_nope_dim}/{cfg.qk_rope_dim}/{cfg.v_head_dim}, "
+            f"{cfg.num_experts} experts of {cfg.moe_d_ff}, "
+            f"top-{cfg.experts_per_token}, {cfg.num_shared_experts} shared, "
+            f"vocab {cfg.vocab_size}), {cfg.num_layers} of "
+            f"{full.num_layers} layers")
+
+
+def _layer_bytes(cfg) -> int:
+    """(f32 bytes of one layer's masters, of the rest: the embedding
+    and the final norm), from ``param_count``."""
+    import dataclasses
+
+    one = dataclasses.replace(cfg, num_layers=1).param_count()
+    none = dataclasses.replace(cfg, num_layers=0).param_count()
+    return 4 * (one - none), 4 * none
+
+
+def _mla_serve_fits(torch, dev, full):
+    """Print the card's free memory before the serve's init and require
+    that MLA_SERVE_LAYERS layers' masters and MLA_SERVE_HEADROOM_GB fit
+    it."""
+    free, total = torch.cuda.mem_get_info(dev)
+    per_layer, rest = _layer_bytes(full)
+    need = MLA_SERVE_LAYERS * per_layer + rest + MLA_SERVE_HEADROOM_GB * 1e9
+    say(f"mla serve: card memory {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB before the init; a layer's masters "
+        f"{per_layer / 1e9:.3f} GB, embedding and norms {rest / 1e9:.3f} GB: "
+        f"{MLA_SERVE_LAYERS} layers and {MLA_SERVE_HEADROOM_GB} GB of "
+        f"headroom need {need / 2**30:.2f} GiB")
+    require(free >= need, f"mla serve: {free / 2**30:.2f} GiB free, "
+                          f"{MLA_SERVE_LAYERS} layers need "
+                          f"{need / 2**30:.2f} GiB")
+
+
+def mla_serve(torch, dev):
+    """The scheduler (contiguous mode) on deepseek-v2-lite at full width
+    and depth (``_mla_serve_fits``) through the
+    engine's hooks: B prompts of CONT_PROMPT tokens, CONT_NEW new, bf16
+    latent cache, the int8 backend; every request finishes and the serve
+    launches no kernel.  Then the engine's own entry points
+    (``_engine_serve_checks``: prefill ms, a decode step, a profile) and a
+    snapshot restored to equal streams."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
+                                     ServeConfig)
+
+    full = get_config(MLA_ARCH)
+    _mla_serve_fits(torch, dev, full)
+    cfg = _mla_cfg(full, MLA_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = _n_params(params)
+    say(f"mla serve: {_describe_mla(cfg, full)}: {n / 1e9:.3f} B f32 "
+        f"masters ({4 * n / 2**30:.2f} GiB), drawn in "
+        f"{time.perf_counter() - t0:.1f} s; card memory "
+        f"{torch.cuda.mem_get_info(dev)[0] / 2**30:.2f} GiB free after")
+    serve = ServeConfig(num_slots=B, eos_id=None, max_len=CONT_MAX_LEN,
+                        mode="contiguous", cache_dtype="bfloat16",
+                        kernel_backend=MLA_BACKEND)
+    hooks = EngineHooks.for_model(params, cfg, serve)
+    inner, decode_s = hooks.decode, [0.0]
+
+    def timed_decode(*a):
+        t = time.perf_counter()
+        out = inner(*a)
+        torch.cuda.synchronize()
+        decode_s[0] += time.perf_counter() - t
+        return out
+    hooks.decode = timed_decode
+    sched = BatchScheduler(serve, hooks)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=CONT_NEW)
+            for i, p in enumerate(_cont_prompts(torch, cfg))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run_until_drained()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, steps = K.launch_counts(), sched.steps_run
+    tokens = sum(len(r.generated) for r in reqs)
+    require(all(r.done and len(r.generated) == CONT_NEW for r in reqs),
+            f"mla serve: {sum(r.done for r in reqs)}/{B} finished, "
+            f"{[len(r.generated) for r in reqs]} tokens")
+    require(steps == CONT_NEW - 1 and counts == MLA_LAUNCHES,
+            f"mla serve: {steps} decode steps, launches {counts}, expected "
+            f"{MLA_LAUNCHES}")
+    rec = dict(run=f"mla/serve/{MLA_ARCH}/{MLA_BACKEND}/bfloat16",
+               arch=MLA_ARCH, layers=cfg.num_layers, params=n,
+               backend=MLA_BACKEND, cache="bfloat16", counts=counts,
+               tokens=tokens, seconds=secs, tokens_per_s=tokens / secs,
+               decode_steps=steps,
+               ms_per_decode_step=1e3 * decode_s[0] / max(steps, 1),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    say(f"mla serve {MLA_ARCH} ({cfg.num_layers} layers) contiguous "
+        f"{MLA_BACKEND}/bfloat16: {tokens} tokens in {secs:.2f} s = "
+        f"{rec['tokens_per_s']:.1f} tok/s, {steps} decode steps at "
+        f"{rec['ms_per_decode_step']:.2f} ms/step, peak memory "
+        f"{rec['peak_mem_gb']:.2f} GiB, launches {counts}")
+    del sched, hooks
+    _engine_serve_checks(torch, dev, MLA_ARCH, cfg, params, MLA_LAUNCHES,
+                         MLA_LAUNCHES, rec)
+    rec["snapshot"] = snapshot_restore(torch, dev, params, cfg,
+                                       "contiguous")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _router_ulp_nudged(torch, params):
+    """``params`` with every router weight moved by one bf16 ulp (the
+    dtype the router product runs in), up or down at random from seed
+    MLA_NUDGE_SEED: the router's bf16 bits differ from the masters' by
+    exactly one in the last place."""
+    moe = params["blocks"]["moe"]
+    r = moe["router"]
+    bits = r.to(torch.bfloat16).view(torch.int16)
+    step = (2 * torch.randint(0, 2, r.shape, generator=torch.Generator()
+                              .manual_seed(MLA_NUDGE_SEED))
+            - 1).to(torch.int16).to(r.device)
+    nudged = (bits + step).view(torch.bfloat16).to(r.dtype)
+    return dict(params, blocks=dict(params["blocks"],
+                                    moe=dict(moe, router=nudged)))
+
+
+def _dropped_latent_decode(torch, L):
+    """Install into ``L`` an ``mla_decode`` that zeroes the last
+    1/MLA_LATENT_SPLITS of the latent cache's rank before each step
+    attends (a fault control); returns the undo."""
+    real = L.mla_decode
+
+    def faulty(params, x, cfg, cache, pos):
+        r = cache["ckv"].shape[-1]
+        cache["ckv"][..., r - r // MLA_LATENT_SPLITS:] = 0
+        return real(params, x, cfg, cache, pos)
+    L.mla_decode = faulty
+    return lambda: setattr(L, "mla_decode", real)
+
+
+def _unabsorbed_query(torch, L):
+    """Install into ``L`` an ``mla_absorb_q`` that skips w_uk: q_nope
+    zero-padded to the latent rank (a fault control); returns the undo."""
+    real = L.mla_absorb_q
+
+    def faulty(q_nope, w_uk):
+        q = q_nope[:, 0]
+        return torch.nn.functional.pad(q, (0, w_uk.shape[0] - q.shape[-1]))
+    L.mla_absorb_q = faulty
+    return lambda: setattr(L, "mla_absorb_q", real)
+
+
+def _dropped_latent(torch, L):
+    """Install into ``L`` an ``_mla_latent`` whose latent has its last
+    1/MLA_LATENT_SPLITS of the rank zeroed, in the prefill, the decode,
+    the forward and the re-linearisation alike (a fault control); returns
+    the undo."""
+    real = L._mla_latent
+
+    def faulty(params, x, cfg, positions):
+        c_kv, k_pe = real(params, x, cfg, positions)
+        r = c_kv.shape[-1]
+        keep = torch.ones(r, dtype=c_kv.dtype, device=c_kv.device)
+        keep[r - r // MLA_LATENT_SPLITS:] = 0
+        return c_kv * keep, k_pe
+    L._mla_latent = faulty
+    return lambda: setattr(L, "_mla_latent", real)
+
+
+def _absorbed_vs_materialised(torch, dev, params, cfg, toks, dtype):
+    """``cfg`` computed in ``dtype`` with a cache of that dtype, its
+    experts' capacity raised so that no pick is dropped, on ``dev``: a
+    prefill of ``toks`` and MLA_PARITY_STEPS absorbed decode
+    steps on the argmax tokens, then for each step the materialised
+    prefill of the prompt and the tokens fed so far.  Returns (the
+    relative L2 of each step's logits against its prefill's last logits,
+    the largest of the same with the un-absorbed control)."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    from repro_torch.serving import engine as E
+
+    # an expert's capacity of 2 t slots for a t-token prefill: no pick is
+    # dropped, as none is in a one-token decode step, so the two paths
+    # differ in their attention alone
+    cfg = dataclasses.replace(
+        cfg, compute_dtype=dtype,
+        capacity_factor=2.0 * cfg.num_experts / cfg.experts_per_token)
+    cache = getattr(torch, dtype)
+    dec = _moe_parity_side(torch, params, cfg, toks, MLA_BACKEND, dev, None,
+                           MLA_PARITY_STEPS, cache)
+    undo = _unabsorbed_query(torch, L)
+    try:
+        bad = _moe_parity_side(torch, params, cfg, toks, MLA_BACKEND, dev,
+                               dec[1], MLA_PARITY_STEPS, cache)
+    finally:
+        undo()
+    mats = []
+    for i in range(MLA_PARITY_STEPS):
+        seq = torch.cat([torch.from_numpy(toks)]
+                        + [f.cpu() for f in dec[1][:i + 1]], dim=1)
+        logits, _ = E.prefill(params, cfg, {"tokens": seq}, seq.shape[1],
+                              cache, kernel_backend=MLA_BACKEND)
+        mats.append(logits.cpu())
+
+    def rels(side):
+        return [float((g - r).norm() / r.norm())
+                for g, r in zip(side[0][1:], mats)]
+    return rels(dec), max(rels(bad))
+
+
+def mla_serve_parity(torch, dev):
+    """deepseek cut to one layer on the card and on the CPU
+    (``_moe_parity_side``, int8): the logits within MLA_PARITY_TOL, the
+    routing picks compared, no launch, each control beyond the limit; then
+    the absorbed decode against the materialised prefill on the card
+    (``_absorbed_vs_materialised``) in f32 within MLA_ABSORB_TOL, the
+    un-absorbed control beyond it, and in bf16 printed."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    full = get_config(MLA_ARCH)
+    cfg = _mla_cfg(full, 1)
+    params = lm.init_params(cfg, seed=2, device=dev)
+    params_cpu = _tree_cpu(params)
+    toks = np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (MLA_PARITY_SLOTS, MLA_PARITY_PROMPT)).astype(
+        np.int32)
+    backend, tol, steps = MLA_BACKEND, MLA_PARITY_TOL, MLA_PARITY_STEPS
+    say(f"mla serve parity: {_describe_mla(cfg, full)}: "
+        f"{MLA_PARITY_SLOTS} rows of {MLA_PARITY_PROMPT} prompt tokens, "
+        f"{steps} decode steps, {backend}")
+    t0 = time.perf_counter()
+    card = _moe_parity_side(torch, params, cfg, toks, backend, dev, None,
+                            steps)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = _moe_parity_side(torch, params_cpu, cfg, toks, backend, "cpu",
+                           card[1], steps)
+    cpu_s = time.perf_counter() - t0
+    nudge = _moe_parity_side(torch, _router_ulp_nudged(torch, params_cpu),
+                             cfg, toks, backend, "cpu", card[1], steps)
+    nudge_rel = _logit_rel(nudge[0], cpu[0])
+    nudge_differ = int((nudge[2] != cpu[2]).sum())
+    ctrl = {}
+    for name, install in (("dropped latent", _dropped_latent_decode),
+                          ("un-absorbed", _unabsorbed_query)):
+        undo = install(torch, L)
+        try:
+            side = _moe_parity_side(torch, params, cfg, toks, backend, dev,
+                                    card[1], steps)
+        finally:
+            undo()
+        ctrl[name] = _logit_rel(side[0], cpu[0])
+    for o in card[0]:
+        require(tuple(o.shape) == (MLA_PARITY_SLOTS, cfg.vocab_size)
+                and bool(o.isfinite().all()),
+                f"mla parity: logits {tuple(o.shape)} not finite or of the "
+                "wrong shape")
+    rel = _logit_rel(card[0], cpu[0])
+    steps_rel = [float((g - r).norm() / r.norm())
+                 for g, r in zip(card[0], cpu[0])]
+    picks = card[2].shape[0] * card[2].shape[1]
+    differ = int((card[2] != cpu[2]).sum())
+    absorb = {dt: _absorbed_vs_materialised(torch, dev, params, cfg, toks,
+                                            dt)
+              for dt in ("float32", "bfloat16")}
+    rec = dict(backend=backend, tol=f"|d|/|ref| <= {tol}", rel_l2_err=rel,
+               rel_l2_err_by_step=steps_rel, picks=picks,
+               picks_differ=differ, picks_differ_share=differ / picks,
+               router_ulp_nudge=dict(rel_l2_err=nudge_rel,
+                                     picks_differ=nudge_differ),
+               controls=ctrl, launches=card[3], card_s=card_s, cpu_s=cpu_s,
+               absorbed_vs_materialised=absorb,
+               absorbed_tol=f"float32 |d|/|ref| <= {MLA_ABSORB_TOL}")
+    say(f"mla parity {backend}: |d|/|ref| {rel:.4g} (prefill, then each "
+        f"step: {', '.join(f'{v:.4g}' for v in steps_rel)}; tol {tol}), "
+        f"routing picks differ {differ} of {picks} "
+        f"({differ / picks:.4f}); the CPU with its router nudged one bf16 "
+        f"ulp: {nudge_rel:.4g}, picks differ {nudge_differ}; controls "
+        + ", ".join(f"{k} {v:.4g}" for k, v in ctrl.items())
+        + f"; launches {card[3]}; card {card_s:.2f} s, CPU {cpu_s:.2f} s")
+    for dt, (vals, bad) in absorb.items():
+        say(f"mla absorbed decode vs materialised prefill on the card, "
+            f"{dt}: |d|/|ref| {', '.join(f'{v:.4g}' for v in vals)}"
+            + (f" (tol {MLA_ABSORB_TOL})" if dt == "float32" else
+               " (printed, not gated)")
+            + f"; the un-absorbed control reads {bad:.4g}")
+    vals, bad = absorb["float32"]
+    none = {k: 0 for k in SOURCES}
+    gates = [(card[3] == (none, none),
+              f"mla parity: card launches {card[3]}, expected none"),
+             (rel <= tol, f"mla parity: |d|/|ref| {rel} > {tol}"),
+             (nudge_rel <= tol, f"mla parity: the one-ulp router nudge "
+                                f"reads {nudge_rel} > {tol}"),
+             (max(vals) <= MLA_ABSORB_TOL,
+              f"mla absorbed vs materialised: {vals} > {MLA_ABSORB_TOL}"),
+             (bad > MLA_ABSORB_TOL,
+              f"mla absorbed vs materialised: the un-absorbed control reads "
+              f"{bad} <= {MLA_ABSORB_TOL}")]
+    gates += [(v > tol, f"mla parity: the control ({k}) reads {v} <= {tol},"
+                        f" so the limit cannot see it")
+              for k, v in ctrl.items()]
+    for ok, msg in gates:         # after every reading is printed
+        require(ok, msg)
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mla_train_parity(torch, dev):
+    """One step of deepseek cut to one layer on the card and on the CPU
+    (``_router_train_parity``): the routing picks that differ counted, the
+    update within MLA_TRAIN_PARITY_TOL, MLA_TRAIN_LEAF_TOL and
+    MLA_ROUTER_TOL, and with the CPU's picks replayed on the card within
+    MLA_REPLAYED_TOL, no launch, the dropped-latent control beyond
+    them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+
+    full = get_config(MLA_ARCH)
+    cfg = _mla_cfg(full, 1)
+    return _router_train_parity(
+        torch, dev, arch=MLA_ARCH, cfg=cfg,
+        label=f"mla train parity {MLA_BACKEND}",
+        describe=_describe_mla(cfg, full), backend=MLA_BACKEND,
+        shape=(MLA_TRAIN_PARITY_BATCH, MLA_TRAIN_PARITY_SEQ),
+        want=MLA_LAUNCHES,
+        tols=(MLA_TRAIN_PARITY_TOL[MLA_BACKEND],
+              MLA_TRAIN_LEAF_TOL[MLA_BACKEND], MLA_ROUTER_TOL[MLA_BACKEND]),
+        min_free_gb=MLA_TRAIN_PARITY_MIN_FREE_GB,
+        control=("dropped latent", lambda: _dropped_latent(torch, L)),
+        replayed_tol=MLA_REPLAYED_TOL)
+
+
+def mla_phase(torch, dev):
+    """Phase mla: the full-depth serve (earlier phases' memory freed
+    first), its parity and the absorbed-vs-materialised check, the train
+    runs at MLA_TRAIN_LAYERS layers, the stochastic pair, then the train
+    parity."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = [mla_serve(torch, dev)]
+    serve_parity = mla_serve_parity(torch, dev)
+    full = get_config(MLA_ARCH)
+    cfg = _mla_cfg(full, MLA_TRAIN_LAYERS)
+    say(f"mla train: {_describe_mla(cfg, full)} (reduced from "
+        f"{full.num_layers})")
+    runs.append(train_ssm_run(torch, dev, MLA_ARCH, MLA_BACKEND,
+                              MLA_LAUNCHES, cfg=cfg, phase="mla_train"))
+    runs.append(train_ssm_stochastic(torch, dev, MLA_ARCH, MLA_LAUNCHES,
+                                     cfg=cfg, phase="mla_train"))
+    train_parity = mla_train_parity(torch, dev)
+    secs = time.perf_counter() - t0
+    say(f"mla: {secs:.1f} s")
     return runs, serve_parity, train_parity, secs
 
 
@@ -4530,6 +5110,12 @@ def main(argv=None) -> int:
         runs += moe_runs
         dump(moe=moe_runs, moe_serve_parity=moe_serve_par,
              moe_train_parity=moe_train_par, seconds=moe_s)
+    if "mla" in phases:
+        mla_runs, mla_serve_par, mla_train_par, mla_s = timed(
+            "mla", lambda: mla_phase(torch, dev))
+        runs += mla_runs
+        dump(mla=mla_runs, mla_serve_parity=mla_serve_par,
+             mla_train_parity=mla_train_par, seconds=mla_s)
     if "search" in phases:
         search_runs, search_s = timed("search",
                                       lambda: search_phase(torch, dev))

@@ -10,14 +10,18 @@ paged or contiguous.
         --slots 8 --requests 8 --prompt-len 128 --max-new 32 --max-len 160
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --device cpu --reduced --requests 4 --prompt-len 12 --max-new 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-lite-16b --device cpu --reduced --requests 4 \
+        --prompt-len 12 --max-new 8 --profile 3
 
 Port of ``repro/launch/serve.py``.  ``--mode auto`` is paged where
-``paged_supported`` holds (the dense and moe families with no sliding
-window) and contiguous otherwise (ssm and hybrid, whose state is no KV
-pool, and a sliding window's ring, as in mixtral-8x7b and
-h2o-danube-3-4b; ``--mode paged`` raises for them, as in JAX).  The port
-serves the dense, moe, ssm and hybrid families (no MLA); the others wait
-for ROADMAP A9d-e.  Contiguous mode keeps
+``paged_supported`` holds (the dense and moe families with GQA attention
+and no sliding window) and contiguous otherwise (ssm and hybrid, whose
+state is no KV pool, a sliding window's ring, as in mixtral-8x7b and
+h2o-danube-3-4b, and MLA's latent cache, as in deepseek-v2-lite-16b;
+``--mode paged`` raises for them, as in JAX).  The port serves the dense,
+moe (MLA included), ssm and hybrid families; the others wait for ROADMAP
+A9e.  Contiguous mode keeps
 the JAX scheduler's one decode position for the whole batch, so this CLI
 runs it only on equal-length prompts with no ``--eos-id`` (requests
 admitted together finish together).  It runs on
@@ -30,10 +34,15 @@ interpret mode).  Weights are random f32 masters from a seeded generator;
 prompts are random tokens, of lengths drawn in [--prompt-len,
 --prompt-len-max], and every other request starts with one common
 --shared-prefix tokens so that prefix sharing and copy-on-write run.
+``--profile N`` runs the first N scheduler ticks under ``torch.profiler``
+and writes their Chrome trace (``trace.json``) into a new directory under
+the temporary directory, which the CLI prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -100,7 +109,32 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--attn-impl", default="kernel", choices=["ref", "kernel"],
                     help="paged decode attention: the paged_attention kernel "
                          "or the plain gather path")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="capture a torch.profiler Chrome trace of the first "
+                         "N scheduler ticks (trace directory printed at "
+                         "exit)")
     return ap
+
+
+def profile_ticks(sched, n: int, device) -> str:
+    """Run up to ``n`` ticks of ``sched`` under ``torch.profiler`` (CPU
+    activity, and CUDA on the card) and write their Chrome trace to
+    ``trace.json`` in a new directory under the temporary directory;
+    returns the directory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    trace_dir = tempfile.mkdtemp(prefix="repro-torch-trace-serve-")
+    with profile(activities=acts) as prof:
+        for _ in range(n):
+            if sched.step() == 0 and not sched.pending:
+                break
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    return trace_dir
 
 
 def main(argv=None) -> dict:
@@ -161,6 +195,8 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     for r in reqs:
         sched.submit(r)
+    trace_dir = (profile_ticks(sched, args.profile, device)
+                 if args.profile > 0 else None)
     sched.run_until_drained()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -178,11 +214,14 @@ def main(argv=None) -> dict:
           flush=True)
     for r in finished[:3]:
         print(f"  req {r.uid}: {r.generated[:8]}...", flush=True)
+    if trace_dir:
+        print(f"[serve] profiler trace ({args.profile} tick(s)): "
+              f"{trace_dir}", flush=True)
     return {"finished": finished, "requests": args.requests,
             "stats": dict(sched.stats), "tokens": tok, "seconds": dt,
             "decode_steps": steps, "decode_seconds": decode_s[0],
             "device": str(device), "mode": mode, "cfg": cfg,
-            "params": params}
+            "params": params, "trace_dir": trace_dir}
 
 
 if __name__ == "__main__":

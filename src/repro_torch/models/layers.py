@@ -1,8 +1,10 @@
-"""Dense-family layers (port of the dense subset of ``models/layers.py``):
-norms, RoPE, the kernel-datapath dense unit with its backward, full-sequence
-GQA attention (materialised or chunked online softmax), the attention
-projections that serving uses, the MLP, and the contiguous KV cache's
-ring buffer with its one-token decode attention.
+"""The layers (port of ``models/layers.py``): norms, RoPE, the
+kernel-datapath dense unit with its backward, full-sequence GQA attention
+(materialised or chunked online softmax), the attention projections that
+serving uses, the contiguous KV cache's ring buffer with its one-token
+decode attention, MLA (DeepSeek-V2's latent attention: the materialised
+prefill and the absorbed decode over a latent cache), the MLP and the
+routed experts.
 
 Parameters are nested dicts of tensors in the JAX package's layout (``wq``
 [D, H, hd], ``wo`` [H, hd, D], ...).  Initializers draw from an explicit
@@ -384,6 +386,124 @@ def attention_decode_tail(params, q, k, v, dt, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+#
+# Every MLA product is a plain tensor product, as the JAX package computes
+# them outside any Pallas kernel: an MLA layer launches no kernel.
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """The six MLA matrices, drawn in the JAX package's order, and the
+    latent's RMSNorm scale."""
+    D, H = cfg.d_model, cfg.num_heads
+    r, dn, dr, dv = (cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    s = D ** -0.5
+    return {"wq": _randn(gen, (D, H, dn + dr), s),
+            "w_dkv": _randn(gen, (D, r), s),
+            "w_kpe": _randn(gen, (D, dr), s),
+            "w_uk": _randn(gen, (r, H, dn), r ** -0.5),
+            "w_uv": _randn(gen, (r, H, dv), r ** -0.5),
+            "wo": _randn(gen, (H, dv, D), (H * dv) ** -0.5),
+            "ckv_norm": {"scale": torch.ones(r, dtype=torch.float32,
+                                             device=gen.device)}}
+
+
+def _mla_query(params, x: torch.Tensor, cfg: ModelConfig, positions):
+    """(q_nope [B,T,H,dn], rotated q_pe [B,T,H,dr])."""
+    q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(x.dtype))
+    dn = cfg.qk_nope_dim
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latent(params, x: torch.Tensor, cfg: ModelConfig, positions):
+    """(c_kv [B,T,r], the normed rank-r latent; k_pe [B,T,1,dr], the
+    rotated rope key that every head shares)."""
+    dt = x.dtype
+    c_kv = rmsnorm(params["ckv_norm"],
+                   torch.einsum("btd,dr->btr", x, params["w_dkv"].to(dt)),
+                   cfg.norm_eps)
+    k_pe = apply_rope(
+        torch.einsum("btd,dr->btr", x, params["w_kpe"].to(dt))[:, :, None],
+        positions, cfg.rope_theta)
+    return c_kv, k_pe
+
+
+def mla_attention(params, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, return_cache: bool = False):
+    """Full-sequence MLA (training / prefill): per-head K/V materialised
+    from the latent, causal softmax at the scale (dn + dr)^-0.5, chunked
+    above ATTN_CHUNK_THRESHOLD tokens.  ``return_cache=True`` also returns
+    (c_kv [B,T,r], k_pe [B,T,dr]), what the decode cache holds."""
+    dt = x.dtype
+    b, t, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_pe = _mla_query(params, x, cfg, positions)
+    c_kv, k_pe = _mla_latent(params, x, cfg, positions)
+    k_nope = torch.einsum("btr,rhk->bthk", c_kv, params["w_uk"].to(dt))
+    v = torch.einsum("btr,rhk->bthk", c_kv, params["w_uv"].to(dt))
+    k = torch.cat([k_nope, k_pe.expand(b, t, cfg.num_heads, dr)], dim=-1)
+    qq = torch.cat([q_nope, q_pe], dim=-1)
+    scale = (dn + dr) ** -0.5
+    if t > ATTN_CHUNK_THRESHOLD:
+        out = _sdpa_chunked(qq, k, v, True, None, scale)
+    else:
+        mask = _attn_mask(t, t, True, None, device=x.device)
+        out = _sdpa_full(qq, k, v, mask, scale)
+    y = torch.einsum("bthk,hkd->btd", out, params["wo"].to(dt))
+    if return_cache:
+        return y, (c_kv, k_pe[:, :, 0, :])
+    return y
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    """The compressed cache: the rank-r latents and the shared rope key."""
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "kpe": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                               dtype=dtype, device=device)}
+
+
+def mla_absorb_q(q_nope: torch.Tensor, w_uk: torch.Tensor) -> torch.Tensor:
+    """The decode's absorbed query: q_nope [B,1,H,dn] through w_uk [r,H,dn]
+    into the latent space, q_lat [B,H,r]."""
+    return torch.einsum("bthk,rhk->bhr", q_nope, w_uk)
+
+
+def mla_decode(params, x: torch.Tensor, cfg: ModelConfig, cache: dict,
+               pos: int):
+    """One-token absorbed MLA decode. x: [B, 1, D]; ``pos``: the batch's one
+    write position.  Writes this token's latent and rope key into the
+    cache IN PLACE (cast to its dtype with no scale, as the JAX package
+    casts), then attends in the rank-r latent space: scores q_lat . ckv +
+    q_pe . kpe (each product in x's dtype, summed, then f32 times the
+    scale), masked to positions <= pos; o_lat = p . ckv, then w_uv and
+    wo.  Per-head K/V are never materialised.  Returns (y [B, 1, D],
+    cache)."""
+    dt = x.dtype
+    b = x.shape[0]
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_pe = _mla_query(params, x, cfg, posb)
+    c_new, kpe_new = _mla_latent(params, x, cfg, posb)
+    cache["ckv"][:, pos] = c_new[:, 0].to(cache["ckv"].dtype)
+    cache["kpe"][:, pos] = kpe_new[:, 0, 0].to(cache["kpe"].dtype)
+    ckv, kpe = cache["ckv"].to(dt), cache["kpe"].to(dt)
+    q_lat = mla_absorb_q(q_nope, params["w_uk"].to(dt))
+    s_nope = torch.einsum("bhr,bsr->bhs", q_lat, ckv)
+    s_pe = torch.einsum("bthk,bsk->bhs", q_pe, kpe)
+    s = (s_nope + s_pe).to(torch.float32) * ((dn + dr) ** -0.5)
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    s = s + torch.where(valid, 0.0, NEG_INF)[None, None, :]
+    p = torch.softmax(s, dim=-1).to(dt)
+    o_lat = torch.einsum("bhs,bsr->bhr", p, ckv)
+    out = torch.einsum("bhr,rhk->bhk", o_lat, params["w_uv"].to(dt))
+    y = torch.einsum("bhk,hkd->bd", out, params["wo"].to(dt))[:, None, :]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
@@ -527,6 +647,33 @@ def moe_route(params, x: torch.Tensor, cfg: ModelConfig) -> dict:
                 keep=keep, slot=slot, C=C)
 
 
+class _RepeatRows(torch.autograd.Function):
+    """x [b, t, D] -> each token's row repeated K times, [b, t*K, D] (row
+    t*K + j is token t's).  The backward sums a token's K row gradients
+    in f32 in j order and rounds the sum once to the gradient's dtype:
+    when j ranks a token's picks by expert, the bits of the CPU's
+    backward of a gather that reads the token's row K times (its
+    scatter-add visits the sorted picks in order and accumulates in f32),
+    with no atomics.  On CUDA that scatter-add adds with atomics, in an
+    order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        b, t, d = x.shape
+        return x[:, :, None, :].expand(b, t, k, d).reshape(b, t * k, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        b, tk, d = g.shape
+        g = g.reshape(b, tk // ctx.k, ctx.k, d)
+        acc = torch.zeros(g[:, :, 0].shape, dtype=torch.float32,
+                          device=g.device)
+        for j in range(ctx.k):
+            acc = acc + g[:, :, j].to(torch.float32)
+        return acc.to(g.dtype), None
+
+
 def moe_verbose(params, x: torch.Tensor, cfg: ModelConfig):
     """Top-k routed MoE with per-row sort-based capacity dispatch (port of
     the JAX package's single-device path).  Each batch row dispatches its
@@ -537,10 +684,22 @@ def moe_verbose(params, x: torch.Tensor, cfg: ModelConfig):
     b, t, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     r = moe_route(params, x, cfg)
-    C, keep, slot, stok = r["C"], r["keep"], r["slot"], r["stok"]
+    C, keep, slot = r["C"], r["keep"], r["slot"]
     nk = t * K
     rows = torch.arange(b, device=x.device)[:, None].expand(b, nk)
-    src = torch.gather(x, 1, stok[..., None].expand(b, nk, D))
+    # a token's picks ranked by expert: by_e[..., j] is the k of its j-th
+    # smallest expert, rank its inverse
+    by_e = torch.argsort(r["top_e"], dim=-1)                  # [b, t, K]
+    rank = torch.argsort(by_e, dim=-1)
+    # each sorted pick reads its token's row from x repeated K times, at
+    # the copy of its expert's rank (row t*K + rank): every copy is read
+    # once, so the gather's backward adds no two values into one place,
+    # and ``_RepeatRows`` sums a token's K gradients in expert order
+    pick_row = (torch.arange(t, device=x.device)[:, None] * K
+                + rank).reshape(b, nk)
+    src = torch.gather(_RepeatRows.apply(x, K), 1,
+                       torch.gather(pick_row, 1, r["order"])[..., None]
+                       .expand(b, nk, D))
     # the dropped picks all write the trash row E*C, which is cut off:
     # which of them lands there does not matter
     buf = torch.zeros((b, E * C + 1, D), dtype=dt, device=x.device)
@@ -556,15 +715,16 @@ def moe_verbose(params, x: torch.Tensor, cfg: ModelConfig):
     contrib = torch.where(keep[..., None], picked * r["sw"][..., None],
                           torch.zeros((), dtype=dt, device=x.device))
     # the combine: the JAX package scatter-adds the sorted picks into
-    # token space.  Here each pick goes back to its (token, k) place (the
-    # inverse of the sort) and the K picks of a token are summed in k
-    # order, in x's dtype, with no atomics: for K = 2 that is the
-    # scatter-add's 0 + a + b bit for bit in either order; for K > 2 the
-    # sum is ordered here but not in the scatter-add, whose order XLA
-    # leaves open
+    # token space, which adds a token's picks in the sort's order,
+    # ascending expert, onto a zero.  Here each pick goes back to its
+    # (token, k) place (the inverse of the sort), a token's K picks are
+    # ordered by expert, and they are summed in that order, in x's dtype,
+    # with no atomics: the scatter-add's 0 + a + b + ... bit for bit (for
+    # K = 2 either order gives the same bits)
     inv = torch.argsort(r["order"], dim=-1)
     per_k = torch.gather(contrib, 1, inv[..., None].expand(b, nk, D))
-    per_k = per_k.reshape(b, t, K, D)
+    per_k = torch.gather(per_k.reshape(b, t, K, D), 2,
+                         by_e[..., None].expand(b, t, K, D))
     out = torch.zeros((b, t, D), dtype=dt, device=x.device)
     for k in range(K):
         out = out + per_k[:, :, k]

@@ -1,4 +1,5 @@
-"""Model assembly of the dense, moe, ssm and hybrid families (port of
+"""Model assembly of the dense, moe (with MLA or GQA), ssm and hybrid
+families (port of
 those families of ``models/lm.py``): parameters, the embedding, the layer
 stack, the chunked cross-entropy head and the loss.
 
@@ -14,7 +15,9 @@ hybrid's Mamba leaves are [G, K, ...] and its one weight-tied
 ``shared_attn`` block is unstacked.  ``params_from_numpy``
 carries a JAX parameter pytree across (given as numpy arrays, e.g.
 ``jax.tree.map(np.asarray, params)``).  JAX's layer ``xscan`` is a Python
-loop here.  MLA, vlm and encdec raise (ROADMAP A9d, A9e).
+loop here.  A block with ``use_mla`` (deepseek-v2-lite) holds MLA's
+``attn`` leaves (``wq`` [L, D, H, dn+dr], ``w_dkv`` [L, D, r], ...).  vlm
+and encdec raise (ROADMAP A9e).
 """
 from __future__ import annotations
 

@@ -8,6 +8,9 @@ keys, shapes and dtypes, {"caches": ..., "pos": int32 scalar}:
 
   dense, moe : {"k", "v": [L, B, len, kv_heads, head_dim]}, a ring of
            len = min(swa_window, max_len) slots under a sliding window
+  MLA    : {"ckv": [L, B, max_len, kv_lora_rank],
+            "kpe": [L, B, max_len, qk_rope_dim]} (the latents and the
+           shared rope key; no ring)
   ssm    : {"h": [L, B, H, N, P] f32, "conv": [L, B, K-1, d_inner + 2N]}
            (O(1) in the context)
   hybrid : {"attn": {"k", "v": [G, B, len, kv_heads, head_dim]},
@@ -24,8 +27,8 @@ device and ``decode_step`` writes them IN PLACE; ``merge_slot`` writes a
 one-row prefill's caches into a slot, on each leaf's batch axis.
 ``prefill`` installs ``kernel_backend or "auto"`` (int8 on CUDA) around
 the prompt's forward; ``decode_step`` runs under the caller's backend.
-The other families' caches (MLA latents, cross-attention, patches) wait
-for ROADMAP A9d-e and raise.
+The other families' caches (cross-attention, patches) wait for ROADMAP
+A9e and raise.
 
 The pool stores every layer's K/V in fixed-size blocks on a leading block
 axis: [L, N_blocks, block, kv_heads, head_dim].  A request owns an ordered
@@ -204,7 +207,7 @@ PAGED_FAMILIES = ("dense", "moe", "vlm")
 def paged_supported(cfg: ModelConfig) -> bool:
     """Paged decode covers the GQA-KV attention families (the port serves
     dense and moe so); MLA latents, SWA rings, SSM state and
-    cross-attention keep the contiguous path."""
+    cross-attention keep the contiguous path, as in the JAX package."""
     return (cfg.family in PAGED_FAMILIES and not cfg.use_mla
             and cfg.swa_window is None)
 

@@ -420,8 +420,11 @@ def test_unported_step_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
         make_train_step(dataclasses.replace(tc, family="encdec"),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        TLM.init_params(dataclasses.replace(tc, use_mla=True), device="cpu")
+    # MLA is ported (ROADMAP A9d): its parameters and a step build
+    mla = dataclasses.replace(tc, use_mla=True, kv_lora_rank=16,
+                              qk_nope_dim=8, qk_rope_dim=8, v_head_dim=8)
+    assert "w_uk" in TLM.init_params(mla, device="cpu")["blocks"]["attn"]
+    assert make_train_step(mla, device="cpu").backend == "off"
     step = make_train_step(tc, options=StepOptions(engine="autodiff"),
                            device="cpu")
     assert step.backend == "off" and step.device.type == "cpu"

@@ -170,8 +170,8 @@ def test_aux_gradient_reaches_the_router(monkeypatch):
 def test_stochastic_int8_step_is_repeatable():
     """The int8 step with stochastic rounding, twice from the same params
     and key: every new leaf bitwise equal (the dispatch writes no slot
-    twice but the trash row, and a token's K picks are summed in k
-    order)."""
+    twice but the trash row, and a token's K picks are summed in a fixed
+    order, by expert)."""
     _, tc = _cfgs()
     ocfg = OptimizerConfig(kind="momentum")
     step = make_train_step(tc, QuantPolicy(grad_scale=64.0, stochastic=True),

@@ -475,3 +475,113 @@ def test_paged_refuses_a_sliding_window_as_jax(arch):
     with pytest.raises(ValueError, match="paged KV unsupported") as te:
         TE.init_paged_state(tc, 4, 8, torch.float32, device="cpu")
     assert str(te.value) == str(je.value)
+
+
+# ---------------------------------------------------------------------------
+# the combine's order for K > 2, in bf16
+# ---------------------------------------------------------------------------
+
+# (K, E) of the combine cases: d 64, expert d_ff 32, no shared expert
+COMBINE = {"k2e8": (2, 8), "k3e4": (3, 4), "k4e8": (4, 8), "k6e16": (6, 16)}
+# K 6 / E 16: outputs that may differ from jitted JAX by one bf16 step.
+# On this seed one does: an expert's bf16 gate product whose f32 sum lies
+# within 2e-8 of a bf16 rounding tie (-0.58007814 between -0.578125 and
+# -0.58203125) rounds to the other side under PyTorch's and XLA's
+# accumulation orders, and one of the seven outputs of that expert row it
+# moves survives the combine (ROADMAP, reference facts)
+COMBINE_MAX_SHARE = 1e-3
+
+
+def _combine_case(k, e, dtype):
+    jc = tiny("moe", d_model=64, moe_d_ff=32, num_shared_experts=0,
+              num_experts=e, experts_per_token=k, compute_dtype=dtype)
+    jp = jax.tree.map(np.asarray, JL.init_moe(jax.random.key(0), jc))
+    x = np.random.default_rng(0).standard_normal((2, 48, 64)).astype(
+        np.float32)
+    return (jc, TMC(**dataclasses.asdict(jc)), jp,
+            TLM.params_from_numpy(jp, device="cpu"), x)
+
+
+def _bf16_step(a: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at |a| (8 significant bits)."""
+    mag = np.maximum(np.abs(a), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("case", list(COMBINE))
+def test_combine_order_matches_jax_bf16(case):
+    """``moe_verbose`` in bf16 against jitted JAX on JAX's ``init_moe``
+    weights: a token's K picks are summed in ascending expert order, the
+    order of JAX's scatter-add of the sorted picks, so K 2, 3 and 4 are
+    bitwise; K 6 is within one bf16 step on at most COMBINE_MAX_SHARE of
+    the outputs (an expert product's rounding tie, not the combine)."""
+    k, e = COMBINE[case]
+    jc, tc, jp, tp, x = _combine_case(k, e, "bfloat16")
+    ref = np.asarray(jax.jit(lambda p, x: JL.moe_verbose(p, x, jc)[0])(
+        jp, jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+    with torch.no_grad():
+        got = TL.moe_verbose(tp, torch.from_numpy(x).to(torch.bfloat16),
+                             tc)[0].float().numpy()
+    if k <= 4:
+        np.testing.assert_array_equal(got, ref)
+        return
+    d = np.abs(got - ref)
+    assert (d <= _bf16_step(ref)).all(), d.max()
+    assert (d > 0).mean() <= COMBINE_MAX_SHARE, int((d > 0).sum())
+
+
+def test_combine_vjp_matches_jax_k4():
+    """The VJP of ``moe_verbose``'s output at K 4 / E 8 (f32) against
+    ``jax.vjp``: the input's and every weight's gradient under one random
+    cotangent."""
+    jc, tc, jp, tp, x = _combine_case(4, 8, "float32")
+    ct = np.random.default_rng(1).standard_normal(x.shape).astype(
+        np.float32)
+    jout, vjp = jax.vjp(lambda p, x: JL.moe_verbose(p, x, jc)[0], jp,
+                        jnp.asarray(x))
+    jgp, jgx = vjp(jnp.asarray(ct))
+    pg = {k: v.requires_grad_() for k, v in tp.items()}
+    xt = torch.from_numpy(x).requires_grad_()
+    out = TL.moe_verbose(pg, xt, tc)[0]
+    _close(out, jout)
+    keys = sorted(pg)
+    grads = torch.autograd.grad(out, [pg[k] for k in keys] + [xt],
+                                torch.from_numpy(ct))
+    _close(grads[-1], jgx)
+    for k, g in zip(keys, grads):
+        _close(g, jgp[k])
+        assert float(g.abs().max()) > 0, k
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dispatch_backward_equals_the_token_gather_bitwise(dtype):
+    """The dispatch reads each token's row K times through
+    ``_RepeatRows`` (each copy once), so that its backward sums a token's
+    K gradients in a fixed order with no atomics (on CUDA the backward of
+    a gather with repeated indices adds with atomics, and the stochastic
+    pair of the K 6 deepseek step differed from run to run): at K 6 its
+    gradient is bit for bit that of the plain gather of the token's row,
+    as the CPU computes it."""
+    k = 6
+    rng = np.random.default_rng(2)
+    b, t, d = 2, 9, 16
+    td = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((b, t, d)).astype(
+        np.float32)).to(td)
+    top_e = torch.from_numpy(np.stack([np.stack([rng.permutation(16)[:k]
+                                                 for _ in range(t)])
+                                       for _ in range(b)]))
+    order = torch.argsort(top_e.reshape(b, t * k), dim=-1, stable=True)
+    g = torch.from_numpy(rng.standard_normal((b, t * k, d)).astype(
+        np.float32)).to(td)
+    x1 = x.clone().requires_grad_()
+    plain = torch.gather(x1, 1, (order // k)[..., None].expand(b, t * k, d))
+    rank = torch.argsort(torch.argsort(top_e, dim=-1), dim=-1)
+    pick_row = (torch.arange(t)[:, None] * k + rank).reshape(b, t * k)
+    x2 = x.clone().requires_grad_()
+    mine = torch.gather(TL._RepeatRows.apply(x2, k), 1, torch.gather(
+        pick_row, 1, order)[..., None].expand(b, t * k, d))
+    assert torch.equal(plain, mine)
+    (ga,) = torch.autograd.grad(plain, x1, g)
+    (gb,) = torch.autograd.grad(mine, x2, g)
+    assert torch.equal(ga, gb)

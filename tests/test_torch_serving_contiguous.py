@@ -116,12 +116,22 @@ def test_greedy_generate_tokens_equal_jax():
 
 
 def test_unported_caches_raise():
-    _, tc, _, _ = _setup()
-    for kw in (dict(family="encdec"), dict(family="vlm"),
-               dict(use_mla=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    """The encdec and vlm caches wait for ROADMAP A9e; since A9d an MLA
+    model's contiguous state holds the latent cache in JAX's shapes."""
+    jc, tc, _, _ = _setup()
+    for kw in (dict(family="encdec"), dict(family="vlm")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
             init_decode_state(dataclasses.replace(tc, **kw), 2, 16,
                               device="cpu")
+    mla = dict(use_mla=True, kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8,
+               v_head_dim=8)
+    got = init_decode_state(dataclasses.replace(tc, **mla), 2, 16,
+                            device="cpu")["caches"]
+    ref = JE.init_decode_state(dataclasses.replace(jc, **mla), 2, 16,
+                               jnp.bfloat16)["caches"]
+    assert set(got) == set(ref) == {"ckv", "kpe"}
+    for k in ref:
+        assert tuple(got[k].shape) == ref[k].shape
 
 
 # ---------------------------------------------------------------------------

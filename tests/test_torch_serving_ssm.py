@@ -50,11 +50,13 @@ from repro.serving import ServeConfig as JServe  # noqa: E402
 from repro.serving import engine as JE  # noqa: E402
 from repro_torch.ckpt import restore_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import make_train_step  # noqa: E402
+from repro_torch.core import (default_bits, init_train_state,  # noqa: E402
+                              make_train_step)
 from repro_torch.kernels import ops as TO  # noqa: E402
 from repro_torch.launch import serve as TSERVE  # noqa: E402
 from repro_torch.models import lm as TLM  # noqa: E402
 from repro_torch.models.config import ModelConfig as TMC  # noqa: E402
+from repro_torch.optim import Hyper, OptimizerConfig  # noqa: E402
 from repro_torch.serving import (BatchScheduler, EngineHooks,  # noqa: E402
                                  Request, ServeConfig, decode_step,
                                  greedy_generate, init_decode_state, prefill)
@@ -447,24 +449,60 @@ def test_serve_cli_paged_mode_raises(arch):
 
 
 @pytest.mark.parametrize("kw,item", [(dict(family="encdec"), "A9e"),
-                                     (dict(family="vlm"), "A9e"),
-                                     (dict(use_mla=True), "A9d")])
+                                     (dict(family="vlm"), "A9e")])
 def test_training_engine_still_raises(kw, item):
-    """The engine trains ssm and hybrid (tests/test_torch_engine_ssm.py)
-    and moe (tests/test_torch_engine_moe.py); the families it does not
-    train yet are refused, naming their ROADMAP item."""
+    """The engine trains ssm and hybrid (tests/test_torch_engine_ssm.py),
+    moe (tests/test_torch_engine_moe.py) and MLA
+    (``test_training_engine_builds_mla``); the families it does not train
+    yet are refused, naming their ROADMAP item."""
     _, tc = _cfgs("hybrid")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         make_train_step(dataclasses.replace(tc, **kw), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(family="encdec"), dict(family="vlm"),
-                                dict(use_mla=True)])
+def test_training_engine_builds_mla():
+    """Since ROADMAP A9d the engine builds a step that trains the tiny MLA
+    moe model (its parity: tests/test_torch_engine_mla.py): a finite loss,
+    an aux, and an updated ``w_uk``."""
+    from test_torch_mla import mla_cfgs, mla_jparams
+
+    _, tc = mla_cfgs("k3")
+    p = TLM.params_from_numpy(mla_jparams("k3"), device="cpu")
+    step = make_train_step(tc, device="cpu")
+    toks = np.random.default_rng(0).integers(
+        0, tc.vocab_size, (2, 8)).astype(np.int32)
+    new, _, m = step(p, init_train_state(p, OptimizerConfig()),
+                     {"tokens": toks, "labels": toks},
+                     Hyper(lr=0.05, step=0), default_bits(tc))
+    assert np.isfinite(float(m["loss"])) and float(m["aux"]) > 0
+    assert not torch.equal(new["blocks"]["attn"]["w_uk"],
+                           p["blocks"]["attn"]["w_uk"])
+
+
+@pytest.mark.parametrize("kw", [dict(family="encdec"), dict(family="vlm")])
 def test_other_caches_still_raise(kw):
+    """The encdec and vlm caches wait for ROADMAP A9e."""
     _, tc = _cfgs("hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
         init_decode_state(dataclasses.replace(tc, **kw), 2, 16,
                           device="cpu")
+
+
+def test_mla_cache_builds():
+    """Since ROADMAP A9d an MLA model's decode state holds the latent
+    cache, {"ckv", "kpe"} in JAX's shapes, in the dtype asked for."""
+    from test_torch_mla import mla_cfgs
+
+    jc, tc = mla_cfgs("k3")
+    got = init_decode_state(tc, 2, 16, torch.bfloat16,
+                            device="cpu")["caches"]
+    ref = JE.init_decode_state(jc, 2, 16, jnp.bfloat16)["caches"]
+    assert set(got) == set(ref) == {"ckv", "kpe"}
+    for k in ref:
+        assert tuple(got[k].shape) == ref[k].shape
+        assert got[k].dtype == torch.bfloat16
+    assert tuple(got["ckv"].shape) == (tc.num_layers, 2, 16,
+                                       tc.kv_lora_rank)
 
 
 def _count_entry_points(monkeypatch):

@@ -42,6 +42,7 @@ from repro_torch.models import layers as TL  # noqa: E402
 from repro_torch.models import lm as TLM  # noqa: E402
 from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models.config import ModelConfig as TMC  # noqa: E402
+from repro_torch.util.tree import tree_leaves_with_path  # noqa: E402
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -424,9 +425,22 @@ def test_loss_fn_matches_jax(dtype, family):
     assert float(mt["aux"]) == float(mj["aux"]) == 0.0
 
 
-@pytest.mark.parametrize("kw", [dict(family="encdec"), dict(family="vlm"),
-                                dict(use_mla=True)])
+@pytest.mark.parametrize("kw", [dict(family="encdec"), dict(family="vlm")])
 def test_other_families_still_raise(kw):
+    """encdec and vlm wait for ROADMAP A9e."""
     _, tc = _cfgs("hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
         TLM.init_params(dataclasses.replace(tc, **kw), device="cpu")
+
+
+def test_mla_params_build():
+    """Since ROADMAP A9d an MLA model's parameters build, with JAX's
+    tree: MLA's ``attn`` leaves in JAX's shapes."""
+    from test_torch_mla import mla_cfgs, mla_jparams
+
+    _, tc = mla_cfgs("k3")
+    got = {k: tuple(v.shape) for k, v in tree_leaves_with_path(
+        TLM.init_params(tc, seed=0, device="cpu"))}
+    assert got == {k: v.shape for k, v in
+                   tree_leaves_with_path(mla_jparams("k3"))}
+    assert "blocks/attn/w_dkv" in got and "blocks/attn/wk" not in got

@@ -178,8 +178,10 @@ Phases (any failure exits non-zero before the result line is printed):
                below the first-2 mean, exactly 16 / 8 / 8 launches a step,
                ms/step, tokens/s, the aux, peak memory, a profile of 3
                steps; the int8 stochastic step 2 steps twice, bitwise;
-               (4) one layer, one step, 2 x 32, card against CPU: the
-               update's relative L2 whole, leaf by leaf and the router's
+               (4) one layer, one step, 2 x 32, card against CPU (both
+               parities at a quarter of the experts' width on both sides,
+               reduced): the update's relative L2 whole, leaf by leaf and
+               the router's
                within MOE_TRAIN_PARITY_TOL, MOE_TRAIN_LEAF_TOL and
                MOE_ROUTER_TOL, the dropped-K control beyond them.
 5g. mla    -- MLA (DeepSeek-V2's latent attention, the absorbed decode)
@@ -214,6 +216,57 @@ Phases (any failure exits non-zero before the result line is printed):
                within MLA_TRAIN_PARITY_TOL, MLA_TRAIN_LEAF_TOL and
                MLA_ROUTER_TOL, and with the CPU's picks replayed on the
                card within MLA_REPLAYED_TOL; the dropped-latent control
+               beyond them.
+5h. whisper -- the encoder-decoder family on whisper-tiny at full width
+               and depth (4 encoder and 4 decoder layers, d 384, 6 heads of
+               64, d_ff 1536, vocab 51865, 1500 frames; the frames are
+               standard normals from a seed, the conv frontend a stub), f32
+               masters from a seed, bf16 compute.  (1) ``greedy_generate``
+               on 8 rows of the frames and 128 prompt tokens, 32 new, bf16
+               cache, int8 (prefill and decode): exactly 48 fxp_matmul a
+               prefill and 20 a decode step (decode_prologue needs an
+               rmsnorm front; the cross-attention is plain products, as in
+               JAX), prefill ms, ms/decode step, tokens/s, peak memory, a
+               profile of 5 decode steps; the scheduler in contiguous
+               mode (the frames through its prefill hook) snapshotted
+               after 8 decode steps and restored to equal streams; (2) 2
+               rows of the frames and 32 prompt tokens, a prefill and 4
+               decode steps on the card and on the CPU under int8 and
+               emulate: the logits within WHISPER_PARITY_TOL, a zeroed
+               encoder output beyond it;
+               (3) 6 train steps a backend at 8 x 128 tokens with the
+               1500 frames (train_lm's step): exactly 96 / 48 / 48
+               launches a step, every loss finite, the descent, ms/step,
+               tokens/s, peak memory, a profile of 3 steps; the int8
+               stochastic step 2 steps twice, bitwise; (4) one step at 2 x
+               64, card against CPU under each backend: the update whole
+               and leaf by leaf within train_lm's and train_ssm's limits,
+               a zeroed encoder output beyond them.
+5i. llava  -- the vlm family on llava-next-mistral-7b at full width (d
+               4096, 32 heads and 8 KV heads of 128, d_ff 14336, vocab
+               32000, 576 patch embeddings, rope theta 1e6; the patch
+               embeddings standard normals from a seed, the vision tower a
+               stub), f32 masters from a seed, bf16 compute.  (1) The
+               earlier phases' memory freed and the fit of 32 layers
+               checked, all 32 (7.1 B masters) served by the scheduler in
+               paged mode, the text of 8 prompts of 128 tokens, 32 new,
+               int8 KV pool, the kernels' attention, int8: every request
+               finishes, exactly 96 fxp_matmul, 32 decode_prologue and 32
+               paged_attention a decode step and none a prefill chunk;
+               then the contiguous engine: a prefill of 8 rows of the 576
+               patch embeddings and 128 tokens (exactly 224 fxp_matmul),
+               32 decode steps (96 + 32 prologue each), prefill ms,
+               ms/decode step, peak memory, a profile of 5 decode steps;
+               (2) one layer, a row of the patches and 32 tokens, a
+               prefill and 4 decode steps on the card and on the CPU
+               (int8): the logits within LLAVA_PARITY_TOL, the patches
+               not projected by mm_proj beyond it; (3) 8 layers trained by
+               train_lm's step, 8 x (576 + 128), 6 steps a backend:
+               exactly 112 / 56 / 56 launches a step, the descent,
+               ms/step, peak memory, a profile of 3 steps; the int8
+               stochastic pair bitwise; (4) one layer, one step of 1 x
+               (576 + 32), card against CPU (int8): the update within
+               train_lm's and train_ssm's limits, the unprojected patches
                beyond them.
 5c. search -- the bitwidth search (``search/``), in three parts:
                (1) the LeNet-5 sweep at the JAX defaults (784-256x4-10, 3
@@ -252,8 +305,8 @@ Phases (any failure exits non-zero before the result line is printed):
                "device": {...}}``.
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
-serve_ssm, train, noise, train_lm, train_ssm, moe, mla, search and
-train_driver
+serve_ssm, train, noise, train_lm, train_ssm, moe, mla, whisper, llava,
+search and train_driver
 (for
 example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
@@ -276,8 +329,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "serve_ssm",
-          "train", "noise", "train_lm", "train_ssm", "moe", "mla", "search",
-          "train_driver")
+          "train", "noise", "train_lm", "train_ssm", "moe", "mla", "whisper",
+          "llava", "search", "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -2103,17 +2156,23 @@ def _numpy_tree(tree):
     return np.asarray(tree)
 
 
-def snapshot_restore(torch, dev, params, cfg, mode):
+def snapshot_restore(torch, dev, params, cfg, mode, hooks_for=None):
     """B equal-length prompts to the end, uninterrupted; then again,
     snapshotted after SNAPSHOT_AFTER decode steps, written and read back
     through the port's checkpoint layer, and restored into a fresh
-    scheduler on the card: the streams must be equal."""
+    scheduler on the card: the streams must be equal.  ``hooks_for(params,
+    cfg, serve, prompts)`` builds the hooks (default
+    ``EngineHooks.for_model``)."""
     import shutil
     import tempfile
 
     from repro_torch.ckpt import restore_checkpoint, save_checkpoint
     from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
                                      ServeConfig)
+
+    if hooks_for is None:
+        def hooks_for(params, cfg, serve, prompts):
+            return EngineHooks.for_model(params, cfg, serve)
 
     serve = ServeConfig(num_slots=B, eos_id=None, max_len=CONT_MAX_LEN,
                         mode=mode, block_size=BS, prefill_chunk=CONT_PROMPT,
@@ -2122,8 +2181,7 @@ def snapshot_restore(torch, dev, params, cfg, mode):
     prompts = _cont_prompts(torch, cfg, seed=12)
 
     def start():
-        sched = BatchScheduler(serve, EngineHooks.for_model(params, cfg,
-                                                            serve))
+        sched = BatchScheduler(serve, hooks_for(params, cfg, serve, prompts))
         reqs = [Request(uid=i, prompt=p.copy(), max_new_tokens=CONT_NEW)
                 for i, p in enumerate(prompts)]
         for r in reqs:
@@ -2149,7 +2207,7 @@ def snapshot_restore(torch, dev, params, cfg, mode):
         shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     resumed = BatchScheduler.restore(
-        loaded, hooks=EngineHooks.for_model(params, cfg, serve))
+        loaded, hooks=hooks_for(params, cfg, serve, prompts))
     restore_s = time.perf_counter() - t0
     done = {r.uid: list(r.generated) for r in reqs if r.done}
     done.update({r.uid: list(r.generated)
@@ -3095,13 +3153,19 @@ SSM_TRAIN_PARITY_CUTS = ((HYBRID_ARCH, "attn_every", ("int8", "emulate")),
 
 
 def _lm_batch(torch, cfg, dev, batch=TRAIN_LM_BATCH, seq=TRAIN_LM_SEQ):
+    """The synthetic batch of step 0, and the modality inputs that the
+    train driver draws for it (an encdec's frames, a vlm's patch
+    embeddings)."""
     import numpy as np
 
     from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import modality_inputs
 
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in SyntheticLMDataset(cfg.vocab_size, seq, batch,
-                                           seed=0).batch_at(0).items()}
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+           for k, v in SyntheticLMDataset(cfg.vocab_size, seq, batch,
+                                          seed=0).batch_at(0).items()}
+    out.update(modality_inputs(cfg, batch, 0, dev))
+    return out
 
 
 def train_ssm_run(torch, dev, arch, backend, launches, cfg=None,
@@ -3489,6 +3553,14 @@ MOE_TRAIN_LEAF_TOL = dict(SSM_TRAIN_LEAF_TOL)
 MOE_ROUTER_TOL = MOE_TRAIN_LEAF_TOL
 MOE_ROUTER_LEAF = "blocks/moe/router"
 MOE_TRAIN_PARITY_MIN_FREE_GB = 64.0
+# the serve and train parities (card against CPU) run the experts at
+# 1/MOE_PARITY_FF_DIV of their width, on both sides, from the same inputs
+# (reduced): the CPU's side of a full-width expert stack took 49-73 s of
+# the train parity and ~7 s of each backend's serve parity, and the
+# experts are plain products on both devices (the kernels that the parity
+# holds are the attention's, at full width).  The readings above are of
+# the full-width experts; PERF.md has the cut's
+MOE_PARITY_FF_DIV = 4
 # phase 3 at mixtral's attention (d 4096, 32 heads and 8 KV heads of 128):
 # the dense units of its train step (T = TRAIN_LM_BATCH x TRAIN_LM_SEQ),
 # q and o 4096 x 4096, k and v 4096 x 1024 (the o-projection takes W cast
@@ -3499,11 +3571,13 @@ MIXTRAL_ENGINE_UNITS = (("mixtral_q", MIXTRAL_D, MIXTRAL_D, "float32"),
                         ("mixtral_o", MIXTRAL_D, MIXTRAL_D, "bfloat16"))
 
 
-def _moe_cfg(full, layers, window=None):
-    """``full`` cut to ``layers`` layers (and its window to ``window``)."""
+def _moe_cfg(full, layers, window=None, ff_div=1):
+    """``full`` cut to ``layers`` layers (its window to ``window``, its
+    experts' width to 1/``ff_div``)."""
     import dataclasses
 
-    cfg = dataclasses.replace(full, num_layers=layers)
+    cfg = dataclasses.replace(full, num_layers=layers,
+                              moe_d_ff=full.moe_d_ff // ff_div)
     if window is not None:
         cfg = dataclasses.replace(cfg, swa_window=window)
     return cfg
@@ -3653,38 +3727,20 @@ def _unnormalised_routes(torch, L):
 
 def _moe_parity_side(torch, p, cfg, toks, backend, d, feed,
                      steps=MOE_PARITY_STEPS, cache_dtype=None):
-    """A prefill of ``toks`` and ``steps`` decode steps on ``d`` under
-    ``backend`` (a bf16 cache unless ``cache_dtype`` names another),
-    decoding ``feed`` (the card's argmax tokens) when given, else this
-    side's own.  Returns (the logits of the prefill and of each
-    step, on the host; the tokens fed; every routing pick, [token, k]; the
+    """``_parity_side`` on the tokens ``toks`` (numpy) with every routing
+    pick recorded.  Returns (the logits of the prefill and of each step,
+    on the host; the tokens fed; every routing pick, [token, k]; the
     launches of the prefill and of the steps)."""
-    from repro_torch import kernels as K
-    from repro_torch.kernels import ops as kops
     from repro_torch.models import layers as L
-    from repro_torch.serving import engine as E
 
     seen, undo = _route_recorder(L)
-    own, feed = feed is None, list(feed or [])
     try:
-        K.reset_launch_counts()
-        logits, state = E.prefill(p, cfg, {"tokens": torch.from_numpy(toks)},
-                                  toks.shape[1] + steps,
-                                  cache_dtype or torch.bfloat16,
-                                  kernel_backend=backend)
-        outs, pre = [logits.cpu()], K.launch_counts()
-        K.reset_launch_counts()
-        with kops.kernel_backend_ctx(backend, d):
-            for i in range(steps):
-                if own:
-                    feed.append(torch.argmax(outs[-1], dim=-1)[:, None]
-                                .to(torch.int32))
-                logits, state = E.decode_step(p, cfg, state, feed[i].to(d))
-                outs.append(logits.cpu())
-        dec = K.launch_counts()
+        outs, feed, launches = _parity_side(
+            torch, p, cfg, {"tokens": torch.from_numpy(toks)}, backend, d,
+            feed, steps, cache_dtype)
     finally:
         undo()
-    return outs, feed, torch.cat(seen), (pre, dec)
+    return outs, feed, torch.cat(seen), launches
 
 
 def _logit_rel(got, ref) -> float:
@@ -3706,7 +3762,8 @@ def moe_serve_parity(torch, dev):
     from repro_torch.models import lm
 
     full = get_config(MOE_ARCH)
-    cfg = _moe_cfg(full, 1, window=MOE_PARITY_WINDOW)
+    cfg = _moe_cfg(full, 1, window=MOE_PARITY_WINDOW,
+                   ff_div=MOE_PARITY_FF_DIV)
     params = lm.init_params(cfg, seed=2, device=dev)
     params_cpu = _tree_cpu(params)
     toks = np.random.default_rng(14).integers(
@@ -3717,7 +3774,8 @@ def moe_serve_parity(torch, dev):
     per_dec = {k: MOE_PARITY_STEPS * v // MOE_SERVE_LAYERS
                for k, v in MOE_DECODE_LAUNCHES.items()}
     say(f"moe serve parity: {_describe_moe(cfg, full)}, window cut to "
-        f"{MOE_PARITY_WINDOW} (reduced) so that the ring wraps: "
+        f"{MOE_PARITY_WINDOW} (reduced) so that the ring wraps, experts to "
+        f"{cfg.moe_d_ff} of {full.moe_d_ff} (reduced, both sides): "
         f"{MOE_PARITY_SLOTS} rows of {MOE_PARITY_PROMPT} prompt tokens, "
         f"{MOE_PARITY_STEPS} decode steps")
     out, gates = [], []
@@ -3811,11 +3869,13 @@ def moe_train_parity(torch, dev):
     from repro_torch.kernels import ops as kops
 
     full = get_config(MOE_ARCH)
-    cfg = _moe_cfg(full, 1)
+    cfg = _moe_cfg(full, 1, ff_div=MOE_PARITY_FF_DIV)
     backend = MOE_TRAIN_PARITY_BACKEND
     return _router_train_parity(
         torch, dev, arch=MOE_ARCH, cfg=cfg, label=f"moe train parity "
-        f"{backend}", describe=_describe_moe(cfg, full), backend=backend,
+        f"{backend}", describe=_describe_moe(cfg, full) + (
+            f", experts cut to {cfg.moe_d_ff} of {full.moe_d_ff} (reduced, "
+            "both sides)"), backend=backend,
         shape=(MOE_TRAIN_PARITY_BATCH, MOE_TRAIN_PARITY_SEQ),
         want={k: v // MOE_TRAIN_LAYERS for k, v in MOE_TRAIN_LAUNCHES.items()},
         tols=(MOE_TRAIN_PARITY_TOL[backend], MOE_TRAIN_LEAF_TOL[backend],
@@ -4066,6 +4126,9 @@ MLA_TRAIN_LEAF_TOL = dict(MOE_TRAIN_LEAF_TOL)
 MLA_ROUTER_TOL = dict(MOE_ROUTER_TOL)
 MLA_REPLAYED_TOL = 0.05
 MLA_TRAIN_PARITY_MIN_FREE_GB = 24.0
+# the train parity runs the 64 experts at 1/MOE_PARITY_FF_DIV of their
+# width on both sides (reduced; the CPU's side took 23-41 s at full width),
+# as the moe phase's parities do; the readings above are of the full width
 
 
 def _mla_cfg(full, layers):
@@ -4406,12 +4469,17 @@ def mla_train_parity(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
 
+    import dataclasses
+
     full = get_config(MLA_ARCH)
-    cfg = _mla_cfg(full, 1)
+    cfg = dataclasses.replace(_mla_cfg(full, 1),
+                              moe_d_ff=full.moe_d_ff // MOE_PARITY_FF_DIV)
     return _router_train_parity(
         torch, dev, arch=MLA_ARCH, cfg=cfg,
         label=f"mla train parity {MLA_BACKEND}",
-        describe=_describe_mla(cfg, full), backend=MLA_BACKEND,
+        describe=_describe_mla(cfg, full) + (
+            f", experts cut to {cfg.moe_d_ff} of {full.moe_d_ff} (reduced, "
+            "both sides)"), backend=MLA_BACKEND,
         shape=(MLA_TRAIN_PARITY_BATCH, MLA_TRAIN_PARITY_SEQ),
         want=MLA_LAUNCHES,
         tols=(MLA_TRAIN_PARITY_TOL[MLA_BACKEND],
@@ -4446,6 +4514,796 @@ def mla_phase(torch, dev):
     train_parity = mla_train_parity(torch, dev)
     secs = time.perf_counter() - t0
     say(f"mla: {secs:.1f} s")
+    return runs, serve_parity, train_parity, secs
+
+
+# ---------------------------------------------------------------------------
+# phase whisper: the encoder-decoder family (whisper-tiny)
+# ---------------------------------------------------------------------------
+
+# whisper-tiny (configs/whisper_tiny.py, arXiv 2212.04356: 4 encoder and 4
+# decoder layers, d 384, 6 heads of 64, d_ff 1536, vocab 51865, 1500
+# encoder frames, layernorm, a gelu MLP, sinusoidal positions) at full
+# width and depth, f32 masters from seed 0, bf16 compute; its conv
+# frontend is a stub, so the frames are standard normals from a seed.  Its
+# self-attention projections, its attention output and its MLP run on the
+# dense unit (fxp_matmul; w_up with the gelu epilogue); its cross-attention
+# is plain products, as the JAX package computes it; decode_prologue stays
+# off (it needs an rmsnorm front) and paged serving refuses cross-attention.
+# A prefill runs 6 units an encoder layer (q, k, v, o, w_up, w_down) and 6
+# a decoder layer (the same of its self-attention and MLP); a decode step
+# q, k, v (the unfused decode's projections) and the MLP's two, 5 a decoder
+# layer; a train step each of the 48 units once in the forward and once in
+# the re-linearisation, with one dx and one dW each in the backward
+WHISPER_ARCH = "whisper-tiny"
+WHISPER_UNITS = 6 * (4 + 4)
+WHISPER_PREFILL_LAUNCHES = dict(CONT_PREFILL_LAUNCHES,
+                                fxp_matmul=WHISPER_UNITS)
+WHISPER_DECODE_LAUNCHES = dict(CONT_PREFILL_LAUNCHES, fxp_matmul=5 * 4)
+WHISPER_TRAIN_LAUNCHES = dict(CONT_PREFILL_LAUNCHES,
+                              fxp_matmul=2 * WHISPER_UNITS,
+                              bp_gstep=WHISPER_UNITS,
+                              sgd_dw_update=WHISPER_UNITS)
+WHISPER_BACKENDS = ("int8", "emulate")
+# the serve parity: full width and depth, WHISPER_PARITY_SLOTS rows of the
+# 1500 frames and WHISPER_PARITY_PROMPT prompt tokens, a prefill and
+# WHISPER_PARITY_STEPS decode steps on the card and on the CPU from the
+# same weights, frames and tokens (the CPU decodes the card's argmax
+# tokens), under each backend: the logits' relative L2, the largest over
+# the prefill and the steps, within WHISPER_PARITY_TOL.  The control, the
+# card's run again with the encoder's output zeroed, must read beyond it.
+# (The frames shifted by one row read 0.0153 / 0.0105, at the sound
+# readings 0.0137 / 0.0072: at random weights the cross-attention's
+# softmax over 1500 frames is nearly flat, so no limit could tell that
+# fault; PERF.md)
+WHISPER_PARITY_SLOTS, WHISPER_PARITY_PROMPT, WHISPER_PARITY_STEPS = 2, 32, 4
+WHISPER_PARITY_TOL = {"int8": 0.05, "emulate": 0.05}
+# the train parity: one step at full width and depth, batch
+# WHISPER_TRAIN_PARITY_BATCH x WHISPER_TRAIN_PARITY_SEQ tokens with the
+# 1500 frames, card against CPU under each backend: the update's relative
+# L2 whole and of each leaf within train_lm's and train_ssm's limits; the
+# control, the card's step again with the encoder's output zeroed (every
+# encoder unit's output zero), beyond both
+WHISPER_TRAIN_PARITY_BATCH, WHISPER_TRAIN_PARITY_SEQ = 2, 64
+WHISPER_TRAIN_PARITY_TOL = dict(TRAIN_LM_PARITY_TOL)
+WHISPER_TRAIN_LEAF_TOL = dict(SSM_TRAIN_LEAF_TOL)
+
+
+def _whisper_frames(torch, cfg, rows, dev, seed=4):
+    """``rows`` frame sequences [rows, encoder_seq, d] f32: standard
+    normals from ``fold_in(key(seed), 0)`` (``util.prng.normal``)."""
+    from repro_torch.util import prng
+
+    return prng.normal(prng.fold_in(prng.key(seed), 0),
+                       (rows, cfg.encoder_seq, cfg.d_model), dev)
+
+
+def _frame_hooks(params, cfg, serve, prompts, frames):
+    """The scheduler's contiguous hooks with a prefill that hands the
+    engine each request's frames, found by its prompt (the scheduler's own
+    prefill hook passes tokens only, as the JAX package's does)."""
+    import dataclasses
+
+    from repro_torch.serving import EngineHooks
+    from repro_torch.serving import engine as E
+
+    rows = {tuple(p.tolist()): i for i, p in enumerate(prompts)}
+
+    def prefill_one(tokens):
+        i = rows[tuple(tokens[0].tolist())]
+        return E.prefill(params, cfg, {"tokens": tokens,
+                                       "frames": frames[i:i + 1]},
+                         serve.max_len, serve.torch_cache_dtype())
+    return dataclasses.replace(EngineHooks.for_model(params, cfg, serve),
+                               prefill=prefill_one)
+
+
+def _describe_whisper(cfg) -> str:
+    return (f"{WHISPER_ARCH} at full width and depth ({cfg.num_encoder_layers}"
+            f" encoder and {cfg.num_layers} decoder layers, d {cfg.d_model}, "
+            f"{cfg.num_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}, {cfg.encoder_seq} frames)")
+
+
+def whisper_serve(torch, dev):
+    """``greedy_generate`` on B rows of the frames and CONT_PROMPT prompt
+    tokens, CONT_NEW new, bf16 cache, the int8 backend (the prefill's and
+    the decode's): exactly one prefill's and CONT_NEW decode steps'
+    launches; prefill ms, ms/decode step, tokens/s, peak memory, a profile
+    of PROFILE_STEPS decode steps; then the scheduler (contiguous, the
+    frames through its prefill hook) snapshotted and restored to equal
+    streams."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.serving import engine as E
+
+    cfg = get_config(WHISPER_ARCH)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    n = _n_params(params)
+    say(f"whisper serve: {_describe_whisper(cfg)}: {n / 1e6:.2f} M f32 "
+        "masters")
+    toks = torch.from_numpy(np.stack(_cont_prompts(torch, cfg))).to(dev)
+    frames = _whisper_frames(torch, cfg, B, dev)
+    batch = {"tokens": toks, "frames": frames}
+    with kops.kernel_backend_ctx("int8", dev):
+        E.greedy_generate(params, cfg, batch, CONT_MAX_LEN, 2,
+                          torch.bfloat16, kernel_backend="int8")   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = E.greedy_generate(params, cfg, batch, CONT_MAX_LEN, CONT_NEW,
+                                torch.bfloat16, kernel_backend="int8")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = K.launch_counts()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, state = E.prefill(params, cfg, batch, CONT_MAX_LEN,
+                                  torch.bfloat16, kernel_backend="int8")
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        pre = K.launch_counts()
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        K.reset_launch_counts()
+        got, _ = E.decode_step(params, cfg, state, tok)
+        torch.cuda.synchronize()
+        dec = K.launch_counts()
+    want = {k: WHISPER_PREFILL_LAUNCHES[k]
+            + CONT_NEW * WHISPER_DECODE_LAUNCHES[k] for k in counts}
+    tokens = int(out.numel())
+    decode_ms = (1e3 * secs - prefill_ms) / CONT_NEW
+    rec = dict(run=f"whisper/serve/{WHISPER_ARCH}/int8/bfloat16",
+               arch=WHISPER_ARCH, params=n, backend="int8",
+               cache="bfloat16", counts=counts, tokens=tokens, seconds=secs,
+               tokens_per_s=tokens / secs, decode_steps=CONT_NEW,
+               prefill_ms=prefill_ms, ms_per_decode_step=decode_ms,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    say(f"whisper serve {WHISPER_ARCH} greedy_generate int8/bfloat16: {B} "
+        f"rows of {cfg.encoder_seq} frames and {CONT_PROMPT} prompt tokens, "
+        f"{tokens} tokens in {secs:.2f} s = {rec['tokens_per_s']:.1f} "
+        f"tok/s; prefill {prefill_ms:.2f} ms, {decode_ms:.2f} ms/decode "
+        f"step; peak memory {rec['peak_mem_gb']:.2f} GiB; launches {counts} "
+        f"(a prefill {pre}, a decode step {dec})")
+    require(tuple(out.shape) == (B, CONT_NEW)
+            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"whisper serve: tokens {tuple(out.shape)} out of range")
+    require(tuple(got.shape) == (B, cfg.vocab_size)
+            and bool(got.isfinite().all()),
+            "whisper serve: decode logits not finite or misshapen")
+    require(counts == want and pre == WHISPER_PREFILL_LAUNCHES
+            and dec == WHISPER_DECODE_LAUNCHES,
+            f"whisper serve: launches {counts} (a prefill {pre}, a decode "
+            f"step {dec}), expected {want} ({WHISPER_PREFILL_LAUNCHES}, "
+            f"{WHISPER_DECODE_LAUNCHES})")
+    rec["profile"] = profile_steps(
+        torch, lambda: E.decode_step(params, cfg, state, tok),
+        f"decode {WHISPER_ARCH} int8", "int8", dev)
+    del state
+    rec["snapshot"] = snapshot_restore(
+        torch, dev, params, cfg, "contiguous",
+        hooks_for=lambda p, c, serve, ps: _frame_hooks(
+            p, c, serve, ps, _whisper_frames(torch, c, B, dev, seed=5)))
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _parity_side(torch, p, cfg, batch, backend, d, feed, steps,
+                 cache_dtype=None):
+    """A prefill of ``batch`` (host tensors) and ``steps`` decode steps on
+    ``d`` under ``backend`` (a bf16 cache unless ``cache_dtype`` names
+    another), decoding ``feed`` (the card's argmax tokens) when given,
+    else this side's own.  Returns (the logits of the prefill and of each
+    step, on the host; the tokens fed; the launches of the prefill and of
+    the steps)."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving import engine as E
+
+    own, feed = feed is None, list(feed or [])
+    batch = {k: v.to(d) for k, v in batch.items()}
+    K.reset_launch_counts()
+    length = batch["tokens"].shape[1] + steps + (
+        batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0)
+    logits, state = E.prefill(p, cfg, batch, length,
+                              cache_dtype or torch.bfloat16,
+                              kernel_backend=backend)
+    outs, pre = [logits.cpu()], K.launch_counts()
+    K.reset_launch_counts()
+    with kops.kernel_backend_ctx(backend, d):
+        for i in range(steps):
+            if own:
+                feed.append(torch.argmax(outs[-1], dim=-1)[:, None]
+                            .to(torch.int32))
+            logits, state = E.decode_step(p, cfg, state, feed[i].to(d))
+            outs.append(logits.cpu())
+    return outs, feed, (pre, K.launch_counts())
+
+
+def _zeroed_encoder(torch, lm):
+    """Install into ``lm`` an ``encode`` whose output is zero (a fault
+    control); returns the undo."""
+    real = lm.encode
+    lm.encode = lambda params, cfg, frames: torch.zeros_like(
+        real(params, cfg, frames))
+    return lambda: setattr(lm, "encode", real)
+
+
+def _serve_parity(torch, dev, *, label, cfg, params, batch, tols, steps,
+                  controls, want):
+    """``batch`` served on the card and on the CPU (``_parity_side``) under
+    each backend of ``tols``: the logits within its limit, the card's
+    launches ``want`` (a prefill's, ``steps`` decode steps'), each of
+    ``controls`` (name -> (params, batch, installer or None)) beyond it.
+    Returns the readings."""
+    import numpy as np
+
+    params_cpu = _tree_cpu(params)
+    out, gates = [], []
+    for backend, tol in tols.items():
+        t0 = time.perf_counter()
+        card = _parity_side(torch, params, cfg, batch, backend, dev, None,
+                            steps)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = _parity_side(torch, params_cpu, cfg, batch, backend, "cpu",
+                           card[1], steps)
+        cpu_s = time.perf_counter() - t0
+        ctrl = {}
+        for name, (cp, cb, install) in controls.items():
+            undo = install() if install else (lambda: None)
+            try:
+                side = _parity_side(torch, cp, cfg, cb, backend, dev,
+                                    card[1], steps)
+            finally:
+                undo()
+            ctrl[name] = _logit_rel(side[0], cpu[0])
+        rows = batch["tokens"].shape[0]
+        for o in card[0]:
+            require(tuple(o.shape) == (rows, cfg.vocab_size)
+                    and bool(o.isfinite().all()),
+                    f"{label} {backend}: logits {tuple(o.shape)} not finite "
+                    "or of the wrong shape")
+        rel = _logit_rel(card[0], cpu[0])
+        steps_rel = [float((g - r).norm() / r.norm())
+                     for g, r in zip(card[0], cpu[0])]
+        agree = float(np.mean([float((g.argmax(-1) == r.argmax(-1))
+                                     .float().mean())
+                               for g, r in zip(card[0], cpu[0])]))
+        say(f"{label} {backend}: |d|/|ref| {rel:.4g} (prefill, then each "
+            f"step: {', '.join(f'{v:.4g}' for v in steps_rel)}; tol {tol}),"
+            f" argmax agreement {agree:.3f}; controls "
+            + ", ".join(f"{k} {v:.4g}" for k, v in ctrl.items())
+            + f"; launches {card[2]}; card {card_s:.2f} s, CPU "
+            f"{cpu_s:.2f} s")
+        gates.append((card[2] == want, f"{label} {backend}: card launches "
+                                       f"{card[2]}, expected {want}"))
+        gates.append((rel <= tol, f"{label} {backend}: |d|/|ref| {rel} > "
+                                  f"{tol}"))
+        gates += [(v > tol, f"{label} {backend}: the control ({k}) reads "
+                            f"{v} <= {tol}, so the limit cannot see it")
+                  for k, v in ctrl.items()]
+        out.append(dict(backend=backend, tol=f"|d|/|ref| <= {tol}",
+                        rel_l2_err=rel, rel_l2_err_by_step=steps_rel,
+                        argmax_agreement=agree, controls=ctrl,
+                        launches=card[2], card_s=card_s, cpu_s=cpu_s))
+    for ok, msg in gates:         # after every reading is printed
+        require(ok, msg)
+    del params_cpu
+    return out
+
+
+def whisper_serve_parity(torch, dev):
+    """Full-width, full-depth whisper on the card and on the CPU
+    (``_serve_parity``): the logits within WHISPER_PARITY_TOL, the zeroed
+    encoder output beyond it."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(WHISPER_ARCH)
+    params = lm.init_params(cfg, seed=2, device=dev)
+    toks = np.random.default_rng(16).integers(
+        0, cfg.vocab_size, (WHISPER_PARITY_SLOTS, WHISPER_PARITY_PROMPT))
+    batch = {"tokens": torch.from_numpy(toks.astype(np.int32)),
+             "frames": _whisper_frames(torch, cfg, WHISPER_PARITY_SLOTS,
+                                       "cpu", seed=6)}
+    say(f"whisper serve parity: {_describe_whisper(cfg)}: "
+        f"{WHISPER_PARITY_SLOTS} rows of {WHISPER_PARITY_PROMPT} prompt "
+        f"tokens, {WHISPER_PARITY_STEPS} decode steps")
+    want = (WHISPER_PREFILL_LAUNCHES,
+            {k: WHISPER_PARITY_STEPS * v
+             for k, v in WHISPER_DECODE_LAUNCHES.items()})
+    out = _serve_parity(
+        torch, dev, label="whisper parity", cfg=cfg, params=params,
+        batch=batch, tols=WHISPER_PARITY_TOL, steps=WHISPER_PARITY_STEPS,
+        want=want, controls={
+            "zeroed encoder output": (params, batch,
+                                      lambda: _zeroed_encoder(torch, lm))})
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_parity(torch, dev, *, label, cfg, backend, batch, want, tols,
+                  control):
+    """One step of ``cfg`` on the card and on the CPU (plain versions) from
+    the same seed-0 params and ``batch`` (host tensors): the update's
+    relative L2 whole and the largest leaf within ``tols``, the loss within
+    TRAIN_LM_LOSS_TOL, the card's launches ``want``; ``control`` (its name,
+    a params transform or None, and an installer or None) on the card
+    beyond both limits."""
+    from repro_torch import kernels as K
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+
+    bits = default_bits(cfg)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    params_cpu = _tree_cpu(params)
+
+    def run(p, d):
+        step, ocfg = _lm_step(torch, cfg, backend, d)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, _, m = step(p, init_train_state(p, ocfg), batch,
+                         Hyper(lr=TRAIN_LM_LR, step=0), bits)
+        res = (_tree_cpu(new), float(m["loss"]), time.perf_counter() - t0,
+               K.launch_counts())
+        del new
+        return res
+
+    got, got_loss, t_card, counts = run(params, dev)
+    ref, ref_loss, t_cpu, _ = run(params_cpu, "cpu")
+    name, transform, install = control
+    undo = install() if install else (lambda: None)
+    try:
+        bad = run(transform(params) if transform else params, dev)[0]
+    finally:
+        undo()
+
+    def readings(new):
+        whole, rel = _update_rel(ref, new, params_cpu)
+        leaf = max(rel, key=rel.get)
+        return whole, (rel[leaf], leaf), rel
+    whole, (leaf_v, leaf), rel = readings(got)
+    c_whole, (c_leaf_v, c_leaf), _ = readings(bad)
+    loss_rel = abs(got_loss - ref_loss) / abs(ref_loss)
+    say(f"{label} {backend}: update |d|/|ref| whole {whole:.4g} (tol "
+        f"{tols[0]}), largest leaf {leaf} {leaf_v:.4g} (tol {tols[1]}), "
+        f"median leaf {statistics.median(rel.values()):.4g}; loss "
+        f"{got_loss:.6f} vs {ref_loss:.6f}, rel {loss_rel:.3g} (tol "
+        f"{TRAIN_LM_LOSS_TOL}); launches {counts}; card {t_card:.2f} s, CPU "
+        f"{t_cpu:.2f} s; control ({name}): whole {c_whole:.4g}, leaf "
+        f"{c_leaf} {c_leaf_v:.4g}")
+    gates = [(counts == want, f"{label} {backend}: launches {counts}, "
+                              f"expected {want}"),
+             (loss_rel <= TRAIN_LM_LOSS_TOL, f"{label} {backend}: loss rel "
+                                             f"{loss_rel}"),
+             (whole <= tols[0], f"{label} {backend}: whole {whole} > "
+                                f"{tols[0]}"),
+             (leaf_v <= tols[1], f"{label} {backend}: {leaf} {leaf_v} > "
+                                 f"{tols[1]}"),
+             (c_whole > tols[0], f"{label} {backend}: the control reads "
+                                 f"whole {c_whole} <= {tols[0]}"),
+             (c_leaf_v > tols[1], f"{label} {backend}: the control's "
+                                  f"largest leaf reads {c_leaf_v} <= "
+                                  f"{tols[1]}")]
+    out = dict(layers=cfg.num_layers, backend=backend,
+               update_rel_l2_err=whole, update_rel_l2_err_leaf_max=[leaf_v,
+                                                                    leaf],
+               update_rel_l2_err_by_leaf=rel, tol=tols[0], leaf_tol=tols[1],
+               loss_rel_err=loss_rel, loss_tol=TRAIN_LM_LOSS_TOL,
+               control={"name": name, "whole": c_whole,
+                        "leaf": [c_leaf_v, c_leaf]},
+               counts=counts, card_s=t_card, cpu_s=t_cpu)
+    del got, ref, bad, params, params_cpu
+    torch.cuda.empty_cache()
+    for ok, msg in gates:         # after every reading is printed
+        require(ok, msg)
+    return out
+
+
+def _zeroed_encoder_units(torch):
+    """Install into ``core.steps`` an encoder unit whose output is zero, so
+    that the step's encoder output is zero (a fault control); returns the
+    undo."""
+    from repro_torch.core import steps as TS
+
+    real = TS._enc_body
+
+    def faulty(cfg, positions):
+        body = real(cfg, positions)
+
+        def zero(p, x, b_l):
+            y, aux = body(p, x, b_l)
+            return y * 0, aux
+        return zero
+    TS._enc_body = faulty
+    return lambda: setattr(TS, "_enc_body", real)
+
+
+def whisper_train_parity(torch, dev):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(WHISPER_ARCH)
+    batch = _lm_batch(torch, cfg, "cpu", WHISPER_TRAIN_PARITY_BATCH,
+                      WHISPER_TRAIN_PARITY_SEQ)
+    say(f"whisper train parity: {_describe_whisper(cfg)}, batch "
+        f"{WHISPER_TRAIN_PARITY_BATCH} x {WHISPER_TRAIN_PARITY_SEQ}")
+    return [_train_parity(
+        torch, dev, label="whisper train parity", cfg=cfg, backend=backend,
+        batch=batch, want=WHISPER_TRAIN_LAUNCHES,
+        tols=(WHISPER_TRAIN_PARITY_TOL[backend],
+              WHISPER_TRAIN_LEAF_TOL[backend]),
+        control=("zeroed encoder output", None,
+                 lambda: _zeroed_encoder_units(torch)))
+        for backend in WHISPER_BACKENDS]
+
+
+def whisper_phase(torch, dev):
+    """Phase whisper: earlier phases' memory freed, the serve (greedy
+    generation, a profile, a snapshot), its parity, the train runs under
+    each backend, the stochastic pair, then the train parity."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    runs = [whisper_serve(torch, dev)]
+    serve_parity = whisper_serve_parity(torch, dev)
+    cfg = get_config(WHISPER_ARCH)
+    say(f"whisper train: {_describe_whisper(cfg)}, batch {TRAIN_LM_BATCH} "
+        f"x {TRAIN_LM_SEQ} tokens with the frames")
+    runs += [train_ssm_run(torch, dev, WHISPER_ARCH, backend,
+                           WHISPER_TRAIN_LAUNCHES, cfg=cfg,
+                           phase="whisper_train")
+             for backend in WHISPER_BACKENDS]
+    runs.append(train_ssm_stochastic(torch, dev, WHISPER_ARCH,
+                                     WHISPER_TRAIN_LAUNCHES, cfg=cfg,
+                                     phase="whisper_train"))
+    train_parity = whisper_train_parity(torch, dev)
+    secs = time.perf_counter() - t0
+    say(f"whisper: {secs:.1f} s")
+    return runs, serve_parity, train_parity, secs
+
+
+# ---------------------------------------------------------------------------
+# phase llava: the vlm family (llava-next-mistral-7b)
+# ---------------------------------------------------------------------------
+
+# llava-next-mistral-7b (configs/llava_next_mistral_7b.py,
+# hf:llava-hf/llava-v1.6-mistral-7b-hf: a mistral-7b backbone, 32 layers,
+# d 4096, 32 heads and 8 KV heads of 128, d_ff 14336, vocab 32000, rope
+# theta 1e6, 576 patch embeddings a tile) at full width, f32 masters from
+# seed 0, bf16 compute; its vision tower is a stub, so the patch
+# embeddings are standard normals from a seed, projected by ``mm_proj`` (a
+# plain product, as in JAX).  Every layer runs q, k, v, o, gate, up and
+# down on the dense unit.  Paged mode serves its text, as JAX's paged
+# prefill takes tokens only: a prefill chunk runs unfused with no kernel
+# backend installed (no launch), a decode step the fused prologue, the
+# paged attention and the MLP's three units, each layer.  The contiguous
+# prefill with the patches runs all seven units a layer; its decode steps
+# the prologue and the MLP's three.  A train step cut to
+# LLAVA_TRAIN_LAYERS runs the seven units once in the forward and once in
+# the re-linearisation, with one dx and one dW each
+LLAVA_ARCH = "llava-next-mistral-7b"
+LLAVA_SERVE_LAYERS, LLAVA_TRAIN_LAYERS = 32, 8
+LLAVA_PAGED_DECODE_LAUNCHES = dict(CONT_PREFILL_LAUNCHES,
+                                   fxp_matmul=3 * LLAVA_SERVE_LAYERS,
+                                   decode_prologue=LLAVA_SERVE_LAYERS,
+                                   paged_attention=LLAVA_SERVE_LAYERS)
+LLAVA_PREFILL_LAUNCHES = dict(CONT_PREFILL_LAUNCHES,
+                              fxp_matmul=7 * LLAVA_SERVE_LAYERS)
+LLAVA_DECODE_LAUNCHES = dict(CONT_PREFILL_LAUNCHES,
+                             fxp_matmul=3 * LLAVA_SERVE_LAYERS,
+                             decode_prologue=LLAVA_SERVE_LAYERS)
+LLAVA_TRAIN_LAUNCHES = dict(CONT_PREFILL_LAUNCHES,
+                            fxp_matmul=2 * 7 * LLAVA_TRAIN_LAYERS,
+                            bp_gstep=7 * LLAVA_TRAIN_LAYERS,
+                            sgd_dw_update=7 * LLAVA_TRAIN_LAYERS)
+LLAVA_BACKENDS = ("int8", "emulate")
+# the serve at full depth needs the masters and, beside them, a layer's
+# bf16 casts, the KV pool and cache, and the prefill's activations
+LLAVA_SERVE_HEADROOM_GB = 8.0
+# the serve parity: llava cut to one layer, LLAVA_PARITY_SLOTS row of the
+# patches and LLAVA_PARITY_PROMPT prompt tokens, a prefill and
+# LLAVA_PARITY_STEPS decode steps on the card and on the CPU under int8;
+# the control, the card's run again with mm_proj replaced by the identity
+# (the patches not projected), beyond the limit.  The sound run read
+# 0.0683 on the prefill's logits and 0.024-0.034 on the steps', the
+# control 1.421 (PERF.md; H100 80GB HBM3, 700 W): the prefill's 608 rows
+# share each per-tensor int8 scale, so a bf16 ulp that moves a payload by
+# one step moves more rows than a decode row's does.  The limit is the
+# serve phase's int8 limit (PARITY_TOL, the same random walk of int8
+# re-quantization), twice the prefill's reading and a ninth of the
+# control's.  The train parity: one
+# step of the same cut, batch 1 x LLAVA_PARITY_PROMPT tokens with the
+# patches, int8, the update within train_lm's and train_ssm's limits, the
+# same control beyond both
+LLAVA_PARITY_SLOTS, LLAVA_PARITY_PROMPT, LLAVA_PARITY_STEPS = 1, 32, 4
+LLAVA_PARITY_TOL = {"int8": PARITY_TOL["int8"]}
+LLAVA_TRAIN_PARITY_BACKEND = "int8"
+
+
+def _llava_cfg(full, layers):
+    import dataclasses
+
+    return dataclasses.replace(full, num_layers=layers)
+
+
+def _describe_llava(cfg, full) -> str:
+    return (f"{LLAVA_ARCH} at full width (d {cfg.d_model}, {cfg.num_heads} "
+            f"heads and {cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_patches} patch "
+            f"embeddings, rope theta {cfg.rope_theta:g}), {cfg.num_layers} "
+            f"of {full.num_layers} layers")
+
+
+def _unprojected(torch, lm):
+    """Install into ``lm`` an ``embed_input`` that hands the patches to the
+    stack unprojected (``mm_proj`` the identity; a fault control in the
+    serve and the train step alike); returns the undo."""
+    real = lm.embed_input
+
+    def faulty(params, cfg, batch):
+        w = params["mm_proj"]
+        eye = torch.eye(w.shape[0], dtype=w.dtype, device=w.device)
+        return real(dict(params, mm_proj=eye), cfg, batch)
+    lm.embed_input = faulty
+    return lambda: setattr(lm, "embed_input", real)
+
+
+def _patches(torch, cfg, rows, dev, seed):
+    from repro_torch.util import prng
+
+    return prng.normal(prng.fold_in(prng.key(seed), 0),
+                       (rows, cfg.num_patches, cfg.d_model), dev)
+
+
+def llava_serve(torch, dev):
+    """The fit check, then all 32 layers: (1) the scheduler in paged mode
+    through the engine's hooks, the text of B prompts of CONT_PROMPT
+    tokens, CONT_NEW new, int8 KV pool, the kernels' attention, the int8
+    backend: every request finishes, each decode step launches exactly
+    LLAVA_PAGED_DECODE_LAUNCHES and the prefill chunks none; (2) the
+    contiguous engine: a prefill of B rows of the patch embeddings and
+    CONT_PROMPT tokens (exactly LLAVA_PREFILL_LAUNCHES), CONT_NEW decode
+    steps (LLAVA_DECODE_LAUNCHES each), prefill ms, ms/decode step,
+    tokens/s, peak memory and a profile of PROFILE_STEPS decode steps."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
+                                     ServeConfig)
+    from repro_torch.serving import engine as E
+
+    full = get_config(LLAVA_ARCH)
+    free, total = torch.cuda.mem_get_info(dev)
+    per_layer, rest = _layer_bytes(full)
+    need = (LLAVA_SERVE_LAYERS * per_layer + rest
+            + LLAVA_SERVE_HEADROOM_GB * 1e9)
+    say(f"llava serve: card memory {free / 2**30:.2f} GiB free of "
+        f"{total / 2**30:.2f} GiB before the init; a layer's masters "
+        f"{per_layer / 1e9:.3f} GB, embedding, norm and mm_proj "
+        f"{rest / 1e9:.3f} GB: {LLAVA_SERVE_LAYERS} layers and "
+        f"{LLAVA_SERVE_HEADROOM_GB} GB of headroom need "
+        f"{need / 2**30:.2f} GiB")
+    require(free >= need, f"llava serve: {free / 2**30:.2f} GiB free, "
+                          f"{LLAVA_SERVE_LAYERS} layers need "
+                          f"{need / 2**30:.2f} GiB")
+    cfg = _llava_cfg(full, LLAVA_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n = _n_params(params)
+    say(f"llava serve: {_describe_llava(cfg, full)}: {n / 1e9:.3f} B f32 "
+        f"masters ({4 * n / 2**30:.2f} GiB), drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    serve = ServeConfig(num_slots=B, eos_id=None, max_len=CONT_MAX_LEN,
+                        mode="paged", block_size=BS,
+                        prefill_chunk=CONT_PROMPT, cache_dtype="int8",
+                        attn_impl="kernel", kernel_backend="int8")
+    hooks = EngineHooks.for_model(params, cfg, serve)
+    inner, decode_s, decodes = hooks.decode, [0.0], [0]
+
+    def timed_decode(*a):
+        t = time.perf_counter()
+        out = inner(*a)
+        torch.cuda.synchronize()
+        decode_s[0] += time.perf_counter() - t
+        decodes[0] += 1
+        return out
+    hooks.decode = timed_decode
+    sched = BatchScheduler(serve, hooks)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=CONT_NEW)
+            for i, p in enumerate(_cont_prompts(torch, cfg))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    sched.run_until_drained()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    tokens = sum(len(r.generated) for r in reqs)
+    require(all(r.done and len(r.generated) == CONT_NEW for r in reqs),
+            f"llava serve: {sum(r.done for r in reqs)}/{B} finished, "
+            f"{[len(r.generated) for r in reqs]} tokens")
+    want = {k: decodes[0] * v for k, v in LLAVA_PAGED_DECODE_LAUNCHES.items()}
+    require(counts == want, f"llava serve: {decodes[0]} decode steps, "
+                            f"launches {counts}, expected {want}")
+    rec = dict(run=f"llava/serve/{LLAVA_ARCH}/paged/int8/int8",
+               arch=LLAVA_ARCH, layers=cfg.num_layers, params=n,
+               backend="int8", cache="int8", counts=counts, tokens=tokens,
+               seconds=secs, tokens_per_s=tokens / secs,
+               decode_steps=decodes[0],
+               ms_per_decode_step=1e3 * decode_s[0] / max(decodes[0], 1),
+               stats=dict(sched.stats),
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    say(f"llava serve {LLAVA_ARCH} ({cfg.num_layers} layers) paged text "
+        f"int8/int8: {tokens} tokens in {secs:.2f} s = "
+        f"{rec['tokens_per_s']:.1f} tok/s, {decodes[0]} decode steps at "
+        f"{rec['ms_per_decode_step']:.2f} ms/step, peak memory "
+        f"{rec['peak_mem_gb']:.2f} GiB, launches {counts}")
+    del sched, hooks
+    torch.cuda.empty_cache()
+
+    toks = torch.from_numpy(np.stack(_cont_prompts(torch, cfg, seed=13)))
+    batch = {"tokens": toks.to(dev),
+             "patch_embeds": _patches(torch, cfg, B, dev, seed=7)}
+    max_len = cfg.num_patches + CONT_MAX_LEN
+    torch.cuda.reset_peak_memory_stats(dev)
+    with kops.kernel_backend_ctx("int8", dev):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, state = E.prefill(params, cfg, batch, max_len,
+                                  torch.bfloat16, kernel_backend="int8")
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        pre = K.launch_counts()
+        require(int(state["pos"]) == cfg.num_patches + CONT_PROMPT,
+                f"llava prefill: pos {int(state['pos'])}")
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        out, dec = [], []
+        t0 = time.perf_counter()
+        for _ in range(CONT_NEW):
+            K.reset_launch_counts()
+            logits, state = E.decode_step(params, cfg, state, tok)
+            dec.append(K.launch_counts())
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_ms = 1e3 * (time.perf_counter() - t0) / CONT_NEW
+    require(pre == LLAVA_PREFILL_LAUNCHES
+            and all(c == LLAVA_DECODE_LAUNCHES for c in dec),
+            f"llava contiguous: a prefill launched {pre}, decode steps "
+            f"{dec[0]}..., expected {LLAVA_PREFILL_LAUNCHES} and "
+            f"{LLAVA_DECODE_LAUNCHES}")
+    require(bool(logits.isfinite().all())
+            and tuple(logits.shape) == (B, cfg.vocab_size),
+            "llava contiguous: logits not finite or misshapen")
+    cont = dict(run=f"llava/serve/{LLAVA_ARCH}/contiguous/int8/bfloat16",
+                counts={k: pre[k] + sum(c[k] for c in dec) for k in pre},
+                prefill_ms=prefill_ms, ms_per_decode_step=decode_ms,
+                tokens_per_s=B * CONT_NEW / (decode_ms * CONT_NEW / 1e3
+                                             + prefill_ms / 1e3),
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 2**30)
+    say(f"llava contiguous int8/bfloat16: a prefill of {B} rows of "
+        f"{cfg.num_patches} patch embeddings and {CONT_PROMPT} tokens in "
+        f"{prefill_ms:.1f} ms (launches {pre}), {CONT_NEW} decode steps at "
+        f"{decode_ms:.2f} ms/step (launches {dec[0]} each), peak memory "
+        f"{cont['peak_mem_gb']:.2f} GiB")
+    cont["profile"] = profile_steps(
+        torch, lambda: E.decode_step(params, cfg, state, tok),
+        f"decode {LLAVA_ARCH} contiguous int8", "int8", dev)
+    del params, state, logits
+    torch.cuda.empty_cache()
+    return rec, cont
+
+
+def llava_serve_parity(torch, dev):
+    """llava cut to one layer on the card and on the CPU
+    (``_serve_parity``, int8): the logits within LLAVA_PARITY_TOL, the
+    unprojected patches beyond it."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    full = get_config(LLAVA_ARCH)
+    cfg = _llava_cfg(full, 1)
+    params = lm.init_params(cfg, seed=2, device=dev)
+    toks = np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (LLAVA_PARITY_SLOTS, LLAVA_PARITY_PROMPT))
+    batch = {"tokens": torch.from_numpy(toks.astype(np.int32)),
+             "patch_embeds": _patches(torch, cfg, LLAVA_PARITY_SLOTS, "cpu",
+                                      seed=8)}
+    say(f"llava serve parity: {_describe_llava(cfg, full)}: "
+        f"{LLAVA_PARITY_SLOTS} row of {cfg.num_patches} patch embeddings "
+        f"and {LLAVA_PARITY_PROMPT} prompt tokens, {LLAVA_PARITY_STEPS} "
+        f"decode steps")
+    want = ({k: v // LLAVA_SERVE_LAYERS
+             for k, v in LLAVA_PREFILL_LAUNCHES.items()},
+            {k: LLAVA_PARITY_STEPS * v // LLAVA_SERVE_LAYERS
+             for k, v in LLAVA_DECODE_LAUNCHES.items()})
+    out = _serve_parity(
+        torch, dev, label="llava parity", cfg=cfg, params=params,
+        batch=batch, tols=LLAVA_PARITY_TOL, steps=LLAVA_PARITY_STEPS,
+        want=want, controls={"patches not projected by mm_proj": (
+            params, batch, lambda: _unprojected(torch, lm))})
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def llava_train_parity(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    full = get_config(LLAVA_ARCH)
+    cfg = _llava_cfg(full, 1)
+    backend = LLAVA_TRAIN_PARITY_BACKEND
+    batch = _lm_batch(torch, cfg, "cpu", LLAVA_PARITY_SLOTS,
+                      LLAVA_PARITY_PROMPT)
+    say(f"llava train parity: {_describe_llava(cfg, full)}, batch "
+        f"{LLAVA_PARITY_SLOTS} x ({cfg.num_patches} + "
+        f"{LLAVA_PARITY_PROMPT})")
+    return _train_parity(
+        torch, dev, label="llava train parity", cfg=cfg, backend=backend,
+        batch=batch,
+        want={k: v // LLAVA_TRAIN_LAYERS
+              for k, v in LLAVA_TRAIN_LAUNCHES.items()},
+        tols=(TRAIN_LM_PARITY_TOL[backend], SSM_TRAIN_LEAF_TOL[backend]),
+        control=("patches not projected by mm_proj", None,
+                 lambda: _unprojected(torch, lm)))
+
+
+def llava_phase(torch, dev):
+    """Phase llava: earlier phases' memory freed, the full-depth serve
+    (paged text, contiguous with the patches), its parity, the train runs
+    at LLAVA_TRAIN_LAYERS layers under each backend, the stochastic pair,
+    then the train parity."""
+    import gc
+
+    from repro_torch.configs import get_config
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paged, cont = llava_serve(torch, dev)
+    runs = [paged, cont]
+    serve_parity = llava_serve_parity(torch, dev)
+    full = get_config(LLAVA_ARCH)
+    cfg = _llava_cfg(full, LLAVA_TRAIN_LAYERS)
+    say(f"llava train: {_describe_llava(cfg, full)} (reduced from "
+        f"{full.num_layers}), batch {TRAIN_LM_BATCH} x ({cfg.num_patches} + "
+        f"{TRAIN_LM_SEQ})")
+    runs += [train_ssm_run(torch, dev, LLAVA_ARCH, backend,
+                           LLAVA_TRAIN_LAUNCHES, cfg=cfg,
+                           phase="llava_train")
+             for backend in LLAVA_BACKENDS]
+    runs.append(train_ssm_stochastic(torch, dev, LLAVA_ARCH,
+                                     LLAVA_TRAIN_LAUNCHES, cfg=cfg,
+                                     phase="llava_train"))
+    train_parity = llava_train_parity(torch, dev)
+    secs = time.perf_counter() - t0
+    say(f"llava: {secs:.1f} s")
     return runs, serve_parity, train_parity, secs
 
 
@@ -5116,6 +5974,18 @@ def main(argv=None) -> int:
         runs += mla_runs
         dump(mla=mla_runs, mla_serve_parity=mla_serve_par,
              mla_train_parity=mla_train_par, seconds=mla_s)
+    if "whisper" in phases:
+        w_runs, w_serve_par, w_train_par, w_s = timed(
+            "whisper", lambda: whisper_phase(torch, dev))
+        runs += w_runs
+        dump(whisper=w_runs, whisper_serve_parity=w_serve_par,
+             whisper_train_parity=w_train_par, seconds=w_s)
+    if "llava" in phases:
+        l_runs, l_serve_par, l_train_par, l_s = timed(
+            "llava", lambda: llava_phase(torch, dev))
+        runs += l_runs
+        dump(llava=l_runs, llava_serve_parity=l_serve_par,
+             llava_train_parity=l_train_par, seconds=l_s)
     if "search" in phases:
         search_runs, search_s = timed("search",
                                       lambda: search_phase(torch, dev))

@@ -1,6 +1,5 @@
 """Train/eval step builders: the TaxoNN engine against the autodiff baseline
-(port of ``core/steps.py``: the dense, moe, ssm and hybrid families, single
-device).
+(port of ``core/steps.py``: every family, single device).
 
 ``make_train_step(cfg, policy, optim_cfg, options, device=None)`` returns
 
@@ -13,8 +12,9 @@ engine="autodiff" -- autograd over the whole loss and one optimizer apply
                      (the "conventional accelerator" baseline, and the
                      engine's correctness oracle)
 
-``bits`` is a dict of BitSchedules keyed by stack name ("blocks"); they are
-runtime data, so one step object serves every schedule.  A moe layer's
+``bits`` is a dict of BitSchedules keyed by stack name ("blocks", and
+"enc_blocks" for encdec); they are runtime data, so one step object serves
+every schedule.  A moe layer's
 body returns its load-balance aux; the engine seeds it with ``AUX_COEF *
 grad_scale`` in each layer's VJP, so its gradient reaches the router and
 the layer input through the routing probabilities (the pick fractions
@@ -25,7 +25,15 @@ engine unit is a group (the shared block, then K Mamba layers), so its
 schedule has one entry a group; the weight-tied ``shared_attn`` block is
 the engine's shared operand, quantized with each group's weight format,
 its gradient summed over the groups and applied once after the reverse
-loop with its own optimizer state.  The step is
+loop with its own optimizer state.  The encoder-decoder runs its encoder
+stack through the engine first (``_enc_body``, its own schedule
+"enc_blocks"), quantizes the encoder's output once in the last encoder
+unit's activation format and hands it to every decoder unit as the
+unquantized shared operand; the decoder's summed dS goes back through
+``enc_norm`` into the encoder's reverse loop, whose layer keys are the
+decoder's (the same ``rng``, as JAX passes it to both).  A vlm's
+``mm_proj`` is a boundary leaf, its patch rows are dropped after the
+final norm.  The step is
 functional: it returns new parameter and state trees and leaves its inputs
 as they were.  It runs on CUDA unless ``device`` names another device, and
 raises when CUDA is absent (``repro_torch.resolve_device``).  ``rng`` keys
@@ -52,9 +60,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.taxonn import (QuantPolicy, backward_stack,
-                                     default_bits_for, forward_stack,
-                                     quantize_weight_tree)
+from repro_torch.core.taxonn import (QuantPolicy, _blend_quant,
+                                     backward_stack, default_bits_for,
+                                     forward_stack, quantize_weight_tree)
 from repro_torch.kernels.ops import kernel_backend_ctx, resolve_backend
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
@@ -95,7 +103,11 @@ def num_scan_units(cfg: ModelConfig) -> int:
 
 
 def default_bits(cfg: ModelConfig, enabled: bool = True) -> dict:
-    return {"blocks": default_bits_for(num_scan_units(cfg), enabled)}
+    bits = {"blocks": default_bits_for(num_scan_units(cfg), enabled)}
+    if cfg.family == "encdec":
+        bits["enc_blocks"] = default_bits_for(cfg.num_encoder_layers,
+                                              enabled)
+    return bits
 
 
 # ---------------------------------------------------------------------------
@@ -186,15 +198,26 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int, *,
 def _make_body(cfg: ModelConfig, positions):
     """body(params_slice, x, bits_l, *shared) -> (y, aux): the blocks of one
     unit (``lm.unit_blocks``), their aux summed.  The hybrid's unit is a
-    group, the shared block then its K Mamba layers."""
+    group, the shared block then its K Mamba layers; an encdec's is a
+    decoder block, whose shared operand is the encoder's output."""
     B.require_ported(cfg)
+    hybrid = cfg.family == "hybrid"
 
     def body(p, x, b_l, *shared):
         aux = None
-        for kind, bp, _ in lm.unit_blocks(p, cfg, *shared):
-            x, a = lm.block_fn(kind)(bp, x, cfg, positions)
+        for kind, bp, _ in lm.unit_blocks(p, cfg, *(shared if hybrid
+                                                     else ())):
+            x, a = lm.block_fn(kind)(bp, x, cfg, positions,
+                                     *(() if hybrid else shared))
             aux = a if aux is None else aux + a
         return x, aux
+    return body
+
+
+def _enc_body(cfg: ModelConfig, positions):
+    """The encoder's unit: one non-causal transformer block."""
+    def body(p, x, b_l):
+        return B.transformer_block(p, x, cfg, positions, causal=False)
     return body
 
 
@@ -206,7 +229,10 @@ def _embed_fn(cfg: ModelConfig, batch, policy: QuantPolicy, bits0):
         if policy.quantize_weights:
             emb = quantize_weight_tree(emb, bits0["w_i"], bits0["w_f"],
                                        bits0["enabled"], True)
-        x0, _ = lm.embed_input({"embed": emb}, cfg, batch)
+        p = {"embed": emb}
+        if cfg.family == "vlm":
+            p["mm_proj"] = bnd["mm_proj"]
+        x0, _ = lm.embed_input(p, cfg, batch)
         return x0
     return f
 
@@ -214,9 +240,14 @@ def _embed_fn(cfg: ModelConfig, batch, policy: QuantPolicy, bits0):
 def _head_fn(cfg: ModelConfig, batch, policy: QuantPolicy, bits_last):
     """(loss, metrics) from the boundary params and the stack's output; the
     head weight (the tied embedding's transpose) is quantized with the last
-    layer's weight format."""
+    layer's weight format.  A vlm's patch rows are dropped after the final
+    norm."""
+    np_off = batch["patch_embeds"].shape[1] if cfg.family == "vlm" else 0
+
     def f(bnd, xf):
         x = L.apply_norm(bnd["final_norm"], xf, cfg)
+        if np_off:
+            x = x[:, np_off:, :]
         w = bnd["embed"].T if cfg.tie_embeddings else bnd["lm_head"]
         if policy.quantize_weights:
             w = quantize_weight_tree(w, bits_last["w_i"], bits_last["w_f"],
@@ -349,25 +380,53 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
                                      hyper.step)
         main_bits = bits["blocks"].to(dev)
         bnd = {k: params[k] for k in boundary_keys(params)}
+        bnd_g = _requires_grad(bnd)
         tokens = batch["tokens"]
         bsz, tlen = tokens.shape
-        positions = torch.arange(tlen, device=dev).expand(bsz, tlen)
+        total_t = tlen + (batch["patch_embeds"].shape[1]
+                          if cfg.family == "vlm" else 0)
+        positions = torch.arange(total_t, device=dev).expand(bsz, total_t)
+
+        # ---- encoder forward (encdec), and enc_norm under autograd -------
+        if cfg.family == "encdec":
+            enc_bits = bits["enc_blocks"].to(dev)
+            dt = lm.compute_dtype(cfg)
+            frames = batch["frames"].to(dt)
+            enc_x0 = frames + lm._sinusoid(frames.shape[1], cfg.d_model,
+                                           device=dev).to(dt)
+            s_len = frames.shape[1]
+            enc_body = _enc_body(cfg, torch.arange(s_len, device=dev)
+                                 .expand(bsz, s_len))
+            e_last, enc_caches, _ = forward_stack(
+                enc_body, params["enc_blocks"], enc_x0, enc_bits, policy)
+            with torch.enable_grad():
+                e_last = e_last.detach().requires_grad_()
+                enc_out = L.apply_norm(bnd_g["enc_norm"], e_last, cfg)
 
         # ---- embed, kept under autograd for the input-side gradient -----
-        bnd_g = _requires_grad(bnd)
         with torch.enable_grad():
             x0 = _embed_fn(cfg, batch, policy, _bits_edge(main_bits, 0))(
                 bnd_g)
 
         # ---- main stack forward, caching quantized X_i -------------------
         # the hybrid's shared operand: the weight-tied block, quantized
-        # with each group's weight format
+        # with each group's weight format; the encdec's: the encoder's
+        # output, an activation quantized once here in the last encoder
+        # unit's activation format
         body = _make_body(cfg, positions)
-        shared = ((params["shared_attn"],) if cfg.family == "hybrid"
-                  else ())
+        shared, quantize_shared = (), cfg.family == "hybrid"
+        if cfg.family == "hybrid":
+            shared = (params["shared_attn"],)
+        elif cfg.family == "encdec":
+            enc_q = enc_out.detach()
+            if policy.quantize_acts:
+                eb = _bits_edge(enc_bits, -1)
+                enc_q = _blend_quant(enc_q, eb["a_i"], eb["a_f"],
+                                     eb["enabled"])
+            shared = (enc_q,)
         x_final, caches, aux_sum = forward_stack(
             body, params["blocks"], x0.detach(), main_bits, policy,
-            shared=shared)
+            shared=shared, quantize_shared=quantize_shared)
 
         # ---- head (loss), seeded with grad_scale --------------------------
         head_f = _head_fn(cfg, batch, policy, _bits_edge(main_bits, -1))
@@ -386,17 +445,36 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
         G_in, new_blocks, new_blocks_opt, gsq, dshared = backward_stack(
             body, params["blocks"], opt_state["blocks"], caches, main_bits,
             G_final, hyper, policy, optim_cfg, AUX_COEF, base_key=rng,
-            shared=shared)
+            shared=shared, quantize_shared=quantize_shared)
+        del caches
         new_params, new_opt = dict(params), dict(opt_state)
         new_params["blocks"], new_opt["blocks"] = new_blocks, new_blocks_opt
 
         # ---- the shared block's one update, from dS summed over groups ---
-        if shared:
+        if cfg.family == "hybrid":
             d_sh = tree_map(lambda g: g / scale, dshared[0])
             new_params["shared_attn"], new_opt["shared_attn"] = apply_update(
                 params["shared_attn"], d_sh, opt_state["shared_attn"],
                 hyper, optim_cfg)
             gsq = gsq + _sq_sum(d_sh, gsq)
+
+        # ---- encoder backward (encdec): dS, summed over the decoder's
+        # layers in the scaled domain, through enc_norm and the encoder's
+        # reverse loop, keyed as the decoder's -----------------------------
+        d_enc_norm = None
+        if cfg.family == "encdec":
+            with torch.enable_grad():
+                d_enc_norm, d_e_last = _grad_leaves(
+                    [enc_out], (bnd_g["enc_norm"], e_last),
+                    [dshared[0].to(enc_out.dtype)])
+            del enc_out, dshared
+            _, new_enc, new_enc_opt, gsq_e, _ = backward_stack(
+                enc_body, params["enc_blocks"], opt_state["enc_blocks"],
+                enc_caches, enc_bits, d_e_last, hyper, policy, optim_cfg,
+                AUX_COEF, base_key=rng)
+            new_params["enc_blocks"] = new_enc
+            new_opt["enc_blocks"] = new_enc_opt
+            gsq = gsq + gsq_e
 
         # ---- boundary updates (embed: head + input contributions) --------
         with torch.enable_grad():
@@ -404,6 +482,10 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
         d_bnd = tree_map(lambda a, b: (a.to(torch.float32)
                                        + b.to(torch.float32)) / scale,
                          d_bnd_head, d_bnd_embed)
+        if d_enc_norm is not None:
+            d_bnd["enc_norm"] = tree_map(
+                lambda a, g: a + g.to(torch.float32) / scale,
+                d_bnd["enc_norm"], d_enc_norm)
         for k in bnd:
             new_params[k], new_opt[k] = apply_update(
                 bnd[k], d_bnd[k], opt_state[k], hyper, optim_cfg)

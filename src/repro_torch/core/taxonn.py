@@ -29,11 +29,13 @@ are JAX's and so are the draws (``util.prng``).
 The JAX package runs both passes as ``lax.scan`` over stacked [L, ...]
 leaves; here they are Python loops over layer views of the same stacked
 leaves, and the X_i caches are a list.  ``shared`` is the JAX package's
-operand that every unit reads besides its own slice (the hybrid's
-weight-tied attention block): a tuple of trees handed to the body after
-its bits, quantized with each unit's weight format, and differentiated
-in every unit's VJP at the step-start weights; the backward sums its
-gradient over the units.  ``QuantPolicy.bit_anneal`` carries a
+operand that every unit reads besides its own slice: a tuple of trees
+handed to the body after its bits and differentiated in every unit's VJP
+at its step-start value; the backward sums its gradient over the units.
+With ``quantize_shared`` (the hybrid's weight-tied attention block) each
+unit quantizes it with its own weight format; without (the
+encoder-decoder's encoder output, an activation that the caller quantizes
+once) it enters every unit as it is.  ``QuantPolicy.bit_anneal`` carries a
 step-indexed F-bit ramp (``search.anneal``) that
 ``core.steps.make_train_step`` applies to the step's bits.  The JAX package's options for the multi-device engine (the
 dW all-reduce, its codec, overlap and transports, ``grad_tap_stochastic``)
@@ -204,14 +206,16 @@ def _num_units(stacked) -> int:
 
 @torch.no_grad()
 def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
-                  bits: BitSchedule, policy: QuantPolicy, shared: tuple = ()):
+                  bits: BitSchedule, policy: QuantPolicy, shared: tuple = (),
+                  quantize_shared: bool = True):
     """body_fn(params_slice, x, bits_layer, *shared) -> (y, aux).
 
     Returns (x_final, caches, aux_sum): ``caches[i]`` is layer i's
     *quantized* input, exactly what the backward re-linearises at, so the
     forward and backward see the same numerics.  Runs without autograd.
     ``shared`` (a tuple of trees) is quantized with each unit's weight
-    format.
+    format, or with ``quantize_shared=False`` (a shared activation, which
+    the caller quantized once) handed over as it is.
     """
     enabled = bits.enabled
     x, caches, aux_sum = x0, [], None
@@ -222,7 +226,8 @@ def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
         wq = quantize_weight_tree(_slice(stacked, i), b_l["w_i"],
                                   b_l["w_f"], enabled,
                                   policy.quantize_weights)
-        sq = _quantize_shared(shared, b_l, enabled, policy)
+        sq = (_quantize_shared(shared, b_l, enabled, policy)
+              if quantize_shared else shared)
         x, aux = body_fn(wq, xq, b_l, *sq)
         del wq, sq      # one unit's quantized weights at a time
         caches.append(xq)
@@ -237,7 +242,8 @@ def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
 def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
                    bits: BitSchedule, G_out: torch.Tensor, hyper: Hyper,
                    policy: QuantPolicy, optim_cfg: OptimizerConfig,
-                   aux_coef: float, base_key=None, shared: tuple = ()):
+                   aux_coef: float, base_key=None, shared: tuple = (),
+                   quantize_shared: bool = True):
     """The reverse loop over layers.  Per layer (the paper's steps 1-4 in
     one TDM frame):
 
@@ -253,10 +259,12 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
     nearest, as the JAX package does.
 
     ``shared`` is an input of every layer's VJP, taken with respect to the
-    unquantized tree (the STE), and is not updated inside the loop: every
-    layer sees the step-start shared weights.  Its gradient dS is summed
-    in f32 over the layers and stays in the scaled domain (the caller
-    un-scales it and applies its update).
+    unquantized tree (the STE; quantized in each layer only with
+    ``quantize_shared``, as in ``forward_stack``), and is not updated
+    inside the loop: every layer sees its step-start value.  Its gradient
+    dS is summed in f32 over the layers and stays in the scaled domain
+    (the caller un-scales it: the hybrid applies it as the shared block's
+    update, the encoder-decoder sends it back through the encoder).
 
     Returns (G_in, new_stacked, new_opt, grad_sq_sum, dS), dS a tuple like
     ``shared``.
@@ -285,7 +293,8 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
             xx = caches[i].detach().requires_grad_()
             wq = quantize_weight_tree(pw, b_l["w_i"], b_l["w_f"], enabled,
                                       policy.quantize_weights)
-            sq = _quantize_shared(sw, b_l, enabled, policy)
+            sq = (_quantize_shared(sw, b_l, enabled, policy)
+                  if quantize_shared else sw)
             y, aux = body_fn(wq, xx, b_l, *sq)
             del wq, sq  # autograd keeps what the VJP needs of them
             outs, seeds = [y], [G.to(y.dtype)]

@@ -15,13 +15,19 @@ paged or contiguous.
         --prompt-len 12 --max-new 8 --profile 3
 
 Port of ``repro/launch/serve.py``.  ``--mode auto`` is paged where
-``paged_supported`` holds (the dense and moe families with GQA attention
-and no sliding window) and contiguous otherwise (ssm and hybrid, whose
-state is no KV pool, a sliding window's ring, as in mixtral-8x7b and
+``paged_supported`` holds (the dense, moe and vlm families with GQA
+attention and no sliding window) and contiguous otherwise (ssm and hybrid,
+whose state is no KV pool, a sliding window's ring, as in mixtral-8x7b and
 h2o-danube-3-4b, and MLA's latent cache, as in deepseek-v2-lite-16b;
-``--mode paged`` raises for them, as in JAX).  The port serves the dense,
-moe (MLA included), ssm and hybrid families; the others wait for ROADMAP
-A9e.  Contiguous mode keeps
+``--mode paged`` raises for them, as in JAX).  A vlm (llava) serves its
+text only, paged, as JAX's paged prefill takes tokens only.  The
+scheduler's prefill hook hands the engine only the prompt's tokens, as
+JAX's does, so an encoder-decoder (whisper), whose prefill needs its
+encoder frames, and a vlm in contiguous mode, whose prefill needs its
+patch embeddings, are refused before a weight is drawn (JAX's CLI fails
+on the missing input); whisper serves through the engine's own
+``prefill``/``decode_step``/``greedy_generate`` with its frames.
+Contiguous mode keeps
 the JAX scheduler's one decode position for the whole batch, so this CLI
 runs it only on equal-length prompts with no ``--eos-id`` (requests
 admitted together finish together).  It runs on
@@ -151,6 +157,13 @@ def main(argv=None) -> dict:
     mode = args.mode
     if mode == "auto":
         mode = "paged" if paged_supported(cfg) else "contiguous"
+    if cfg.family == "encdec" or (cfg.family == "vlm"
+                                  and mode == "contiguous"):
+        need = "frames" if cfg.family == "encdec" else "patch_embeds"
+        ap.error(f"{cfg.name} ({cfg.family}): the scheduler's prefill hook "
+                 f"passes only the prompt's tokens, and this prefill needs "
+                 f"its {need}; serve it through serving.engine's prefill/"
+                 f"decode_step/greedy_generate with the {need}")
     if mode == "contiguous" and (hi != args.prompt_len
                                  or args.eos_id is not None):
         ap.error("contiguous mode decodes the whole batch at one position: "

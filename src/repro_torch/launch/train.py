@@ -21,6 +21,11 @@ the JAX package's, so either driver resumes the other's checkpoints.
 stochastically with the JAX driver's keys, ``fold_in(key(1), step)`` a
 step, so the noise is JAX's and depends only on the step: the resume
 payload carries no PRNG state and a resumed run draws the same noise.
+The synthetic loader makes tokens and labels only; an encoder-decoder's
+``frames`` [B, encoder_seq, D] and a vlm's ``patch_embeds``
+[B, num_patches, D] are standard normals drawn a step, as the JAX driver
+draws them, from ``fold_in(key(2), step)`` and ``fold_in(key(3), step)``
+(``util.prng.normal``), so a resumed run replays them too.
 
 ``--bit-anneal`` ramps the F bits with the step (``search.anneal``); the
 spec rides in the checkpoint, and a resume under another spec is refused.
@@ -80,6 +85,22 @@ def _reduce(cfg):
     if cfg.family == "vlm":
         changes.update(num_patches=8)
     return dataclasses.replace(cfg, **changes)
+
+
+def modality_inputs(cfg, bsz: int, step: int, device) -> dict:
+    """The inputs beside the tokens that a step of ``cfg`` needs, drawn as
+    the JAX driver draws them for ``step``: an encdec's ``frames`` from
+    ``fold_in(key(2), step)``, a vlm's ``patch_embeds`` from
+    ``fold_in(key(3), step)``, standard normals on ``device``."""
+    if cfg.family == "encdec":
+        return {"frames": prng.normal(prng.fold_in(prng.key(2), step),
+                                      (bsz, cfg.encoder_seq, cfg.d_model),
+                                      device)}
+    if cfg.family == "vlm":
+        return {"patch_embeds": prng.normal(
+            prng.fold_in(prng.key(3), step),
+            (bsz, cfg.num_patches, cfg.d_model), device)}
+    return {}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -266,11 +287,13 @@ def main(argv=None):
             rng = (prng.fold_in(prng.key(1), step) if args.stochastic
                    else None)
             skips = loader.skips
-            batch = loader.get(step)
+            batch = dict(loader.get(step))
             if loader.skips != skips:
                 print(f"[train] step {step}: no batch within "
                       f"{args.deadline_s} s, the previous one stands in",
                       flush=True)
+            batch.update(modality_inputs(cfg, batch["tokens"].shape[0],
+                                         step, dev))
             params, opt_state, metrics = step_fn(params, opt_state, batch,
                                                  hyper, bits, rng)
             losses.append(float(metrics["loss"]))

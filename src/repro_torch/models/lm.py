@@ -1,23 +1,28 @@
-"""Model assembly of the dense, moe (with MLA or GQA), ssm and hybrid
-families (port of
-those families of ``models/lm.py``): parameters, the embedding, the layer
-stack, the chunked cross-entropy head and the loss.
+"""Model assembly (port of ``models/lm.py``): parameters, the embedding,
+the layer stacks, the encoder, the chunked cross-entropy head and the loss
+of every family.
 
   dense/moe : embed -> L x transformer_block -> norm -> CE head
+  vlm       : [patch_embeds @ mm_proj ; text embeds] -> dense stack
+              (loss on the text positions only)
   ssm       : embed -> L x mamba_block -> norm -> CE head
   hybrid    : embed -> G x (shared transformer block ; K x mamba_block)
               -> ...
+  encdec    : frames + sinusoid -> enc stack (non-causal) -> enc_norm;
+              tokens + sinusoid -> dec stack (cross = encoder output)
+              -> norm -> CE head
 
 Parameters are a nested dict of tensors in the JAX package's layout: the
-``blocks`` leaves are stacked on a leading layer axis, so ``wq`` is
-[L, D, H, hd] and a moe block's experts ``moe/w_gate`` [L, E, D, F]; the
-hybrid's Mamba leaves are [G, K, ...] and its one weight-tied
-``shared_attn`` block is unstacked.  ``params_from_numpy``
-carries a JAX parameter pytree across (given as numpy arrays, e.g.
-``jax.tree.map(np.asarray, params)``).  JAX's layer ``xscan`` is a Python
-loop here.  A block with ``use_mla`` (deepseek-v2-lite) holds MLA's
-``attn`` leaves (``wq`` [L, D, H, dn+dr], ``w_dkv`` [L, D, r], ...).  vlm
-and encdec raise (ROADMAP A9e).
+``blocks`` (and encdec's ``enc_blocks``) leaves are stacked on a leading
+layer axis, so ``wq`` is [L, D, H, hd] and a moe block's experts
+``moe/w_gate`` [L, E, D, F]; the hybrid's Mamba leaves are [G, K, ...]
+and its one weight-tied ``shared_attn`` block is unstacked; a vlm holds
+``mm_proj`` [D, D], an encdec ``enc_norm`` beside its stacks.
+``params_from_numpy`` carries a JAX parameter pytree across (given as
+numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``).  JAX's layer
+``xscan`` is a Python loop here.  A block with ``use_mla``
+(deepseek-v2-lite) holds MLA's ``attn`` leaves (``wq`` [L, D, H, dn+dr],
+``w_dkv`` [L, D, r], ...).
 """
 from __future__ import annotations
 
@@ -59,9 +64,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
               "final_norm": L.init_norm(D, cfg, gen.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = L._randn(gen, (D, V), D ** -0.5)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         params["blocks"] = _stacked_init(
             cfg.num_layers, lambda: B.init_transformer_block(gen, cfg))
+        if cfg.family == "vlm":
+            params["mm_proj"] = L._randn(gen, (D, D), D ** -0.5)
+    elif cfg.family == "encdec":
+        params["enc_blocks"] = _stacked_init(
+            cfg.num_encoder_layers,
+            lambda: B.init_transformer_block(gen, cfg))
+        params["enc_norm"] = L.init_norm(D, cfg, gen.device)
+        params["blocks"] = _stacked_init(
+            cfg.num_layers, lambda: B.init_decoder_block(gen, cfg))
     elif cfg.family == "ssm":
         params["blocks"] = _stacked_init(
             cfg.num_layers, lambda: B.init_mamba_block(gen, cfg))
@@ -75,8 +89,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
 
 # How each family's main stack consumes operands that are not the layer's
 # own parameters or the flowing activation (the JAX package's contract for
-# its stage-sharded pipeline; the port's engine covers "none" and
-# "weights"):
+# its stage-sharded pipeline; the port's single-device engine passes the
+# "weights" and "activation" kinds as ``core.taxonn``'s shared operand):
 #   "none"       self-contained per-layer bodies (dense/moe/vlm/ssm)
 #   "weights"    a weight-tied block applied by every unit (the hybrid's
 #                shared attention block)
@@ -130,20 +144,44 @@ def layer_params(blocks: dict, i) -> dict:
 AUX_COEF = 0.01  # MoE load-balance coefficient (the dense aux is zero)
 
 
+def _sinusoid(t: int, d: int, offset=0, device=None) -> torch.Tensor:
+    """Sinusoidal positions [t, d] f32 of positions offset..offset+t-1:
+    sin on the even columns, cos on the odd, angle pos / 10000^(i/d)."""
+    pos = (torch.arange(t, dtype=torch.float32, device=device)
+           + offset)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10_000.0, device=device), dim / d)
+    pe = torch.zeros((t, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
 def embed_input(params, cfg: ModelConfig, batch: dict):
-    """Returns (x0 [B, T, D] in the compute dtype, positions [B, T])."""
+    """Returns (x0 [B, T, D] in the compute dtype, positions [B, T]).  A
+    vlm's T counts its ``patch_embeds`` (projected by ``mm_proj``) before
+    the text; an encdec's decoder input carries the sinusoid."""
+    dt = compute_dtype(cfg)
     tokens = batch["tokens"].long()
-    x = params["embed"].to(compute_dtype(cfg))[tokens]
+    x = params["embed"].to(dt)[tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if cfg.family == "vlm":
+        patches = batch["patch_embeds"].to(dt) @ params["mm_proj"].to(dt)
+        x = torch.cat([patches, x], dim=1)
+    if cfg.family == "encdec":
+        x = x + _sinusoid(x.shape[1], cfg.d_model, device=x.device).to(dt)
     b, t = x.shape[0], x.shape[1]
     positions = torch.arange(t, device=x.device).expand(b, t)
     return x, positions
 
 
 def block_fn(kind: str):
-    """The training block of ``kind`` ("attn" or "mamba")."""
-    return B.transformer_block if kind == "attn" else B.mamba_block
+    """The training block of ``kind``: "attn" (the transformer block),
+    "mamba", or "dec" (the decoder block, which also takes the encoder's
+    output)."""
+    return {"attn": B.transformer_block, "mamba": B.mamba_block,
+            "dec": B.decoder_block}[kind]
 
 
 def stack_units(cfg: ModelConfig) -> int:
@@ -153,12 +191,14 @@ def stack_units(cfg: ModelConfig) -> int:
 
 def unit_blocks(unit, cfg: ModelConfig, shared=None):
     """One unit of the main stack in order: (kind, block params, k) per
-    block, kind "attn" (the transformer block) or "mamba".  A dense, moe
-    or ssm unit is one layer (k None); a hybrid unit is a group, whose
-    parameters are [K, ...]: the weight-tied ``shared`` block (k None),
-    then Mamba layer k for each k."""
+    block, kind "attn" (the transformer block), "mamba" or "dec" (the
+    encdec's decoder block).  A dense, moe, vlm, ssm or encdec unit is one
+    layer (k None); a hybrid unit is a group, whose parameters are
+    [K, ...]: the weight-tied ``shared`` block (k None), then Mamba layer
+    k for each k."""
     if cfg.family != "hybrid":
-        yield ("mamba" if cfg.family == "ssm" else "attn"), unit, None
+        kind = {"ssm": "mamba", "encdec": "dec"}.get(cfg.family, "attn")
+        yield kind, unit, None
         return
     yield "attn", shared, None
     for k in range(hybrid_groups(cfg)[1]):
@@ -169,7 +209,7 @@ def walk_stack(params, cfg: ModelConfig):
     """The main stack in order: one (kind, block params, cache index) per
     block application (``unit_blocks`` of each unit).  The cache index
     names the block's slice of the stacked decode caches: (None, i) in the
-    dense, moe and ssm stacks; in the hybrid's, ("attn", g) for the g-th
+    dense, moe, vlm, ssm and encdec (decoder) stacks; in the hybrid's, ("attn", g) for the g-th
     application of the weight-tied shared block and ("mamba", (g, k)) for
     Mamba layer k of group g."""
     hybrid = cfg.family == "hybrid"
@@ -182,13 +222,32 @@ def walk_stack(params, cfg: ModelConfig):
 
 
 def apply_stack(params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor):
-    """The main stack, block by block. Returns (x_final, aux_sum)."""
+                positions: torch.Tensor, enc_out=None):
+    """The main stack, block by block (an encdec's decoder blocks over
+    ``enc_out``). Returns (x_final, aux_sum)."""
+    if cfg.family == "encdec":
+        assert enc_out is not None
+    extra = (enc_out,) if cfg.family == "encdec" else ()
     auxs = []
     for kind, p, _ in walk_stack(params, cfg):
-        x, aux = block_fn(kind)(p, x, cfg, positions)
+        x, aux = block_fn(kind)(p, x, cfg, positions, *extra)
         auxs.append(aux)
     return x, torch.sum(torch.stack(auxs))
+
+
+def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The Whisper encoder over precomputed (stub) frame embeddings
+    [B, S, D]: the sinusoid added in the compute dtype, the non-causal
+    transformer blocks, ``enc_norm``."""
+    dt = compute_dtype(cfg)
+    x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model,
+                                  device=frames.device).to(dt)
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for i in range(cfg.num_encoder_layers):
+        x, _ = B.transformer_block(layer_params(params["enc_blocks"], i), x,
+                                   cfg, positions, causal=False)
+    return L.apply_norm(params["enc_norm"], x, cfg)
 
 
 def ce_loss_head(params, cfg: ModelConfig, x: torch.Tensor,
@@ -236,10 +295,15 @@ def ce_from_weight(w: torch.Tensor, cfg: ModelConfig, x: torch.Tensor,
 
 def loss_fn(params, cfg: ModelConfig, batch: dict):
     """The autodiff path's training loss (the baseline that the TaxoNN
-    engine is validated against).  Returns (total, metrics)."""
+    engine is validated against; a vlm's loss over its text positions
+    only).  Returns (total, metrics)."""
+    enc_out = (encode(params, cfg, batch["frames"])
+               if cfg.family == "encdec" else None)
     x, positions = embed_input(params, cfg, batch)
-    x, aux = apply_stack(params, cfg, x, positions)
+    x, aux = apply_stack(params, cfg, x, positions, enc_out)
     x = L.apply_norm(params["final_norm"], x, cfg)
+    if cfg.family == "vlm":
+        x = x[:, batch["patch_embeds"].shape[1]:, :]
     loss, metrics = ce_loss_head(params, cfg, x, batch["labels"])
     metrics["aux"] = aux
     return loss + AUX_COEF * aux, metrics
@@ -247,8 +311,10 @@ def loss_fn(params, cfg: ModelConfig, batch: dict):
 
 def forward_hidden(params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Forward to the final hidden states (after the final norm)."""
+    enc_out = (encode(params, cfg, batch["frames"])
+               if cfg.family == "encdec" else None)
     x, positions = embed_input(params, cfg, batch)
-    x, _ = apply_stack(params, cfg, x, positions)
+    x, _ = apply_stack(params, cfg, x, positions, enc_out)
     return L.apply_norm(params["final_norm"], x, cfg)
 
 

@@ -307,11 +307,11 @@ def make_lm_probe(cfg, ocfg: Optional[OptimizerConfig] = None,
     ``kernel_backend`` (default: the policy's "auto", int8 on CUDA and off
     on the CPU) lets a CPU sweep run the int8 plain versions that a card's
     sweep runs as kernels.  The probes sweep the engine's units (the
-    hybrid's are its groups).  Families other than dense, moe, ssm and
-    hybrid raise ``NotImplementedError`` (ROADMAP A9) in
-    ``make_train_step``, before their encoder frames or patch embeddings
-    would be drawn.
+    hybrid's are its groups).  An encdec's probe batches carry
+    ``frames`` and a vlm's ``patch_embeds``, the JAX sweep's draws for
+    probe step i (``launch.train.modality_inputs``).
     """
+    from repro_torch.launch.train import modality_inputs
     from repro_torch.models import lm
 
     dev = resolve_device(device)
@@ -325,9 +325,12 @@ def make_lm_probe(cfg, ocfg: Optional[OptimizerConfig] = None,
 
     ds = SyntheticLMDataset(cfg.vocab_size, seq_len, sweep.batch,
                             seed=sweep.seed)
-    batches = [{k: torch.from_numpy(v).to(dev)
-                for k, v in ds.batch_at(i).items()}
-               for i in range(sweep.probe_steps)]
+    batches = []
+    for i in range(sweep.probe_steps):
+        b = {k: torch.from_numpy(v).to(dev)
+             for k, v in ds.batch_at(i).items()}
+        b.update(modality_inputs(cfg, b["tokens"].shape[0], i, dev))
+        batches.append(b)
 
     params0 = (lm.init_params(cfg, seed=sweep.seed, device=dev)
                if params0 is None else _on_device(params0, dev))

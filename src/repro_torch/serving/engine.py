@@ -1,7 +1,8 @@
 """Serving engine (port of ``serving/engine.py``): prefill + one-token
-decode against contiguous per-slot caches for the dense, moe, ssm and
-hybrid families, and the paged KV pool for the dense and moe families
-without a sliding window.
+decode against contiguous per-slot caches for every family, and the paged
+KV pool for the dense, moe and vlm families without MLA or a sliding
+window (the vlm's paged path serves text only, as JAX's paged prefill
+takes tokens only).
 
 Contiguous caches, stacked on leading layer axes, with the JAX package's
 keys, shapes and dtypes, {"caches": ..., "pos": int32 scalar}:
@@ -17,6 +18,16 @@ keys, shapes and dtypes, {"caches": ..., "pos": int32 scalar}:
             "mamba": {"h": [G, K, B, H, N, P] f32,
                       "conv": [G, K, B, K-1, d_inner + 2N]}}
            (the weight-tied block keeps one KV cache per application)
+  encdec : {"self": {"k", "v": [L, B, max_len, kv_heads, head_dim]},
+            "cross_k", "cross_v": [L, B, encoder_seq, kv_heads, head_dim]}
+           (the decoder's self-attention ring and the cross-attention's
+           K/V, computed once from the encoder's output at prefill)
+
+A vlm's prefill takes ``patch_embeds`` [B, num_patches, D] beside the
+tokens: the patches sit at positions 0..num_patches-1 and the text after
+them, so ``pos`` after the prefill counts both.  An encdec's prefill
+takes ``frames`` [B, encoder_seq, D] and runs the encoder; its decode
+adds the sinusoid of ``pos`` to the token's embedding.
 
 ``pos`` is ONE position for the whole slot batch, as in the JAX package:
 ``decode_step`` writes every slot's token at ``pos`` and attends over
@@ -27,8 +38,6 @@ device and ``decode_step`` writes them IN PLACE; ``merge_slot`` writes a
 one-row prefill's caches into a slot, on each leaf's batch axis.
 ``prefill`` installs ``kernel_backend or "auto"`` (int8 on CUDA) around
 the prompt's forward; ``decode_step`` runs under the caller's backend.
-The other families' caches (cross-attention, patches) wait for ROADMAP
-A9e and raise.
 
 The pool stores every layer's K/V in fixed-size blocks on a leading block
 axis: [L, N_blocks, block, kv_heads, head_dim].  A request owns an ordered
@@ -92,6 +101,12 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
             "mamba": _stacked_zeros(S.init_mamba_cache(cfg, batch,
                                                        cache_dtype, "meta"),
                                     (G, K), device)}
+    elif cfg.family == "encdec":
+        one = B.init_decoder_cache(cfg, batch, max_len, cfg.encoder_seq,
+                                   cache_dtype, "meta")
+        caches = {"self": _stacked_zeros(one.pop("self"),
+                                         (cfg.num_layers,), device),
+                  **_stacked_zeros(one, (cfg.num_layers,), device)}
     else:
         caches = _stacked_zeros(B.init_block_cache(cfg, batch, max_len,
                                                    cache_dtype, "meta"),
@@ -101,10 +116,23 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
 
 def _cache_at(caches: dict, at) -> dict:
     """One block's caches: views of the stacked leaves at ``at``, a cache
-    index of ``lm.walk_stack``."""
+    index of ``lm.walk_stack`` (nested dicts, as encdec's ``self``, keep
+    their nesting)."""
     tree, i = at
-    return {k: t[i] for k, t in (caches if tree is None
-                                 else caches[tree]).items()}
+    return _views(caches if tree is None else caches[tree], i)
+
+
+def _views(tree: dict, i) -> dict:
+    return {k: _views(t, i) if isinstance(t, dict) else t[i]
+            for k, t in tree.items()}
+
+
+def _copy_into(dst: dict, src: dict) -> None:
+    for k, t in dst.items():
+        if isinstance(t, dict):
+            _copy_into(t, src[k])
+        else:
+            t.copy_(src[k])
 
 
 def _slot_write(dst: dict, src: dict, i: int, axis: int) -> None:
@@ -131,6 +159,10 @@ def merge_slot(cfg: ModelConfig, caches: dict, one: dict, i: int) -> dict:
     return caches
 
 
+_DECODE = {"attn": B.transformer_block_decode,
+           "mamba": B.mamba_block_decode, "dec": B.decoder_block_decode}
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, state: dict, tokens):
     """One decode step. tokens: [B, 1] int32.  Returns (logits [B, V] f32,
@@ -139,9 +171,11 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens):
     pos = int(state["pos"])
     caches = state["caches"]
     x = _embed_tokens(params, cfg, tokens, dt)
+    if cfg.family == "encdec":
+        x = x + lm._sinusoid(1, cfg.d_model, offset=pos,
+                             device=x.device).to(dt)
     for kind, p, at in lm.walk_stack(params, cfg):
-        step = (B.transformer_block_decode if kind == "attn"
-                else B.mamba_block_decode)
+        step = _DECODE[kind]
         x, _ = step(p, x, cfg, _cache_at(caches, at), pos)
     logits = _logits(params, cfg, x)[:, 0, :]
     return logits, {"caches": caches,
@@ -152,7 +186,9 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,
             cache_dtype=torch.bfloat16, kernel_backend: Optional[str] = None):
     """Run the full-context forward, returning (last_logits [B, V] f32,
     decode state).  ``kernel_backend`` selects the dense-unit datapath of
-    the prefill matmuls (None = "auto": off on the CPU, int8 on CUDA)."""
+    the prefill matmuls (None = "auto": off on the CPU, int8 on CUDA).
+    ``batch`` holds ``tokens`` [B, T] and, for a vlm, ``patch_embeds``
+    [B, P, D] or, for an encdec, ``frames`` [B, S, D]."""
     device = params["embed"].device
     with kernel_backend_ctx(kernel_backend or "auto", device):
         return _prefill_impl(params, cfg, batch, max_len, cache_dtype)
@@ -164,6 +200,8 @@ def _prefill_impl(params, cfg: ModelConfig, batch: dict, max_len: int,
     B.require_ported(cfg)
     device = params["embed"].device
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    enc_out = (lm.encode(params, cfg, batch["frames"])
+               if cfg.family == "encdec" else None)
     x, positions = lm.embed_input(params, cfg, batch)
     b, t = x.shape[0], x.shape[1]
     caches = init_decode_state(cfg, b, max_len, cache_dtype,
@@ -172,10 +210,12 @@ def _prefill_impl(params, cfg: ModelConfig, batch: dict, max_len: int,
         if kind == "attn":
             x, c = B.transformer_block_prefill(p, x, cfg, positions,
                                                max_len, cache_dtype)
+        elif kind == "dec":
+            x, c = B.decoder_block_prefill(p, x, cfg, positions, enc_out,
+                                           max_len, cache_dtype)
         else:
             x, c = B.mamba_block_prefill(p, x, cfg, positions, cache_dtype)
-        for k, dst in _cache_at(caches, at).items():
-            dst.copy_(c[k])
+        _copy_into(_cache_at(caches, at), c)
     logits = _logits(params, cfg, x)[:, -1, :]
     return logits, {"caches": caches,
                     "pos": torch.tensor(t, dtype=torch.int32)}
@@ -184,8 +224,9 @@ def _prefill_impl(params, cfg: ModelConfig, batch: dict, max_len: int,
 def greedy_generate(params, cfg: ModelConfig, batch: dict, max_len: int,
                     num_steps: int, cache_dtype=torch.bfloat16,
                     kernel_backend: Optional[str] = None) -> torch.Tensor:
-    """Prefill + greedy decode loop (the reference serving driver).
-    Returns the generated tokens [B, num_steps] int32."""
+    """Prefill + greedy decode loop (the reference serving driver);
+    ``batch`` is the prefill's (tokens and any patch embeddings or
+    frames).  Returns the generated tokens [B, num_steps] int32."""
     logits, state = prefill(params, cfg, batch, max_len, cache_dtype,
                             kernel_backend=kernel_backend)
     out = []
@@ -205,9 +246,9 @@ PAGED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def paged_supported(cfg: ModelConfig) -> bool:
-    """Paged decode covers the GQA-KV attention families (the port serves
-    dense and moe so); MLA latents, SWA rings, SSM state and
-    cross-attention keep the contiguous path, as in the JAX package."""
+    """Paged decode covers the GQA-KV attention families (dense, moe and
+    the vlm's text); MLA latents, SWA rings, SSM state and cross-attention
+    keep the contiguous path, as in the JAX package."""
     return (cfg.family in PAGED_FAMILIES and not cfg.use_mla
             and cfg.swa_window is None)
 

@@ -1,6 +1,7 @@
 """JAX's threefry2x32 PRNG in torch integer ops: the parts of ``jax.random``
-the layer engine draws from (``key``, ``fold_in``, ``random_bits``,
-``uniform``), bit for bit.
+the layer engine and the train driver draw from (``key``, ``fold_in``,
+``random_bits``, ``uniform`` bit for bit; ``normal`` within a few f32
+ulps).
 
 The JAX package has no module to mirror here: this follows
 ``jax/_src/prng.py::_threefry_random_bits_partitionable`` and
@@ -16,7 +17,17 @@ The JAX package has no module to mirror here: this follows
   * the 32 random bits of flat (row-major) index ``i`` are the two words of
     ``threefry2x32(k, (i >> 32, i & 0xffffffff))`` XORed;
   * a uniform f32 in [0, 1) is ``(bits >> 9) | 0x3f800000`` viewed as f32,
-    minus 1.0.
+    minus 1.0;
+  * a standard normal f32 (``jax/_src/random.py::_normal_real``) is
+    ``sqrt(2) * erf_inv(u)``, ``u`` that uniform scaled to
+    [nextafter(-1, 0), 1) as ``max(lo, f * (hi - lo) + lo)``, and
+    ``erf_inv`` the single-precision polynomial of M. Giles,
+    "Approximating the erfinv function" (GPU Computing Gems, 2011), as
+    XLA expands it, op by op.  The uniform is JAX's bit for bit; the
+    polynomial's ``log1p`` and ``sqrt`` are PyTorch's, which round a few
+    values otherwise than XLA's: a draw is within 5e-7 of JAX's
+    (``tests/test_torch_engine_encdec.py``), and bitwise the same on
+    every run of the port.
 
 torch has no uint32 arithmetic, so every word lives in int64 and is masked
 to 32 bits after each add and shift.  These are integer ops, so a draw on
@@ -141,3 +152,42 @@ def uniform_rows(k: torch.Tensor, shape, offset: int = 0,
     keys = keys.to(device, non_blocking=True)
     bits = _bits(keys[:, :1], keys[:, 1:], shape[1:], device)
     return _to_uniform(bits).reshape(shape)
+
+
+# M. Giles' single-precision erfinv: the coefficients of p(w) for
+# w = -log1p(-x^2) below 5 (in w - 2.5) and from 5 up (in sqrt(w) - 3),
+# highest power first, as XLA's ErfInv expands them
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """The inverse error function of f32 ``x`` as XLA computes it (Giles'
+    polynomial, each op rounded to f32; +-inf at +-1)."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i]),
+                           torch.tensor(_ERFINV_GE5[i])).to(x.device)
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return torch.where(torch.abs(x) == 1.0, x * float("inf"), p * x)
+
+
+def normal(k: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.normal(k, shape, jnp.float32)``: the uniform in
+    [nextafter(-1, 0), 1) from ``k``'s bits, then ``sqrt(2) * erf_inv``
+    (module docstring)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    hi = np.float32(1.0)
+    f = uniform(k, shape, device)
+    u = torch.maximum(f * float(hi - lo) + float(lo),
+                      torch.tensor(float(lo), device=f.device))
+    return float(np.float32(np.sqrt(2))) * erf_inv(u)

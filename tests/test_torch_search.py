@@ -396,13 +396,27 @@ def test_lm_sweep_plan_matches_jax_hybrid():
 
 
 @pytest.mark.parametrize("family", ["encdec", "vlm"])
-def test_lm_sweep_refuses_other_families(family):
+def test_lm_sweep_refuses_other_families(family, monkeypatch):
     """The JAX sweep draws encoder frames or patch embeddings for encdec
-    and vlm; the port's engine trains the dense, moe, ssm and hybrid
-    families only (ROADMAP A9e)."""
-    cfg = dataclasses.replace(ModelConfig(**TINY), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        TS.run_sweep_lm(cfg, None, TS.SweepConfig(**LM_SWEEP), seq_len=16,
+    and vlm; since ROADMAP A9e the port's engine trains both, and its
+    probes draw the same inputs (``launch.train.modality_inputs``, JAX's
+    normals within 2^-21 relative): a 2-step probe at a mixed schedule on
+    JAX's weights reads JAX's probe loss within the sweep's rel 2e-3.  A
+    family outside the JAX package's six is still refused."""
+    jc = tiny(family)
+    tc = ModelConfig(**dataclasses.asdict(jc))
+    jp = jax.tree.map(np.asarray, JLM.init_params(jax.random.key(0), jc))
+    jprobe = _jax_lm_probe(monkeypatch, jc)
+    tprobe, n = TS.make_lm_probe(tc, None, TS.SweepConfig(
+        **dict(LM_SWEEP, probe_steps=2)), seq_len=16, device="cpu",
+        params0=jp)
+    assert n == 2
+    fmts = [(2, 6), (1, 3)]
+    assert tprobe(t_sched(fmts)) == pytest.approx(jprobe(j_sched(fmts)),
+                                                  rel=2e-3)
+    with pytest.raises(ValueError, match="unknown model family"):
+        TS.run_sweep_lm(dataclasses.replace(tc, family="retnet"), None,
+                        TS.SweepConfig(**LM_SWEEP), seq_len=16,
                         device="cpu")
 
 

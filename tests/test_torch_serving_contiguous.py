@@ -47,6 +47,7 @@ from repro_torch.models import layers as TL
 from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
                                  ServeConfig, decode_step, greedy_generate,
                                  init_decode_state, prefill)
+from repro_torch.util.tree import tree_leaves_with_path
 
 from test_torch_serving import _cfgs, _close, _params
 
@@ -116,13 +117,24 @@ def test_greedy_generate_tokens_equal_jax():
 
 
 def test_unported_caches_raise():
-    """The encdec and vlm caches wait for ROADMAP A9e; since A9d an MLA
-    model's contiguous state holds the latent cache in JAX's shapes."""
+    """Since A9e the encdec and vlm caches build in JAX's tree and shapes
+    (the decoder's self-attention ring and the cross K/V; the vlm's KV
+    ring); a family outside the six is refused; since A9d an MLA model's
+    contiguous state holds the latent cache in JAX's shapes."""
     jc, tc, _, _ = _setup()
-    for kw in (dict(family="encdec"), dict(family="vlm")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
-            init_decode_state(dataclasses.replace(tc, **kw), 2, 16,
-                              device="cpu")
+    for kw in (dict(family="encdec", num_encoder_layers=1, encoder_seq=6),
+               dict(family="vlm", num_patches=3)):
+        got = init_decode_state(dataclasses.replace(tc, **kw), 2, 16,
+                                device="cpu")["caches"]
+        ref = JE.init_decode_state(dataclasses.replace(jc, **kw), 2, 16,
+                                   jnp.bfloat16)["caches"]
+        flat = jax.tree_util.tree_leaves_with_path(ref)
+        assert len(flat) == len(tree_leaves_with_path(got))
+        for (path, r), (_, g) in zip(flat, tree_leaves_with_path(got)):
+            assert tuple(g.shape) == r.shape, path
+    with pytest.raises(ValueError, match="unknown model family"):
+        init_decode_state(dataclasses.replace(tc, family="retnet"), 2, 16,
+                          device="cpu")
     mla = dict(use_mla=True, kv_lora_rank=16, qk_nope_dim=8, qk_rope_dim=8,
                v_head_dim=8)
     got = init_decode_state(dataclasses.replace(tc, **mla), 2, 16,

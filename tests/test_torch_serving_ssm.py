@@ -452,12 +452,16 @@ def test_serve_cli_paged_mode_raises(arch):
                                      (dict(family="vlm"), "A9e")])
 def test_training_engine_still_raises(kw, item):
     """The engine trains ssm and hybrid (tests/test_torch_engine_ssm.py),
-    moe (tests/test_torch_engine_moe.py) and MLA
-    (``test_training_engine_builds_mla``); the families it does not train
-    yet are refused, naming their ROADMAP item."""
+    moe (tests/test_torch_engine_moe.py), MLA
+    (``test_training_engine_builds_mla``) and, since ROADMAP ``item``, the
+    encdec and vlm families (tests/test_torch_engine_encdec.py): their
+    step builds; a family outside the JAX package's six still raises."""
     _, tc = _cfgs("hybrid")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        make_train_step(dataclasses.replace(tc, **kw), device="cpu")
+    cfg = dataclasses.replace(tc, **kw)
+    assert make_train_step(cfg, device="cpu").backend == "off"
+    with pytest.raises(ValueError, match="unknown model family"):
+        make_train_step(dataclasses.replace(tc, family="retnet"),
+                        device="cpu")
 
 
 def test_training_engine_builds_mla():
@@ -481,10 +485,21 @@ def test_training_engine_builds_mla():
 
 @pytest.mark.parametrize("kw", [dict(family="encdec"), dict(family="vlm")])
 def test_other_caches_still_raise(kw):
-    """The encdec and vlm caches wait for ROADMAP A9e."""
-    _, tc = _cfgs("hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
-        init_decode_state(dataclasses.replace(tc, **kw), 2, 16,
+    """Since ROADMAP A9e the encdec and vlm caches build (the encdec's
+    decoder ring and cross K/V, the vlm's KV ring); the paged pool still
+    refuses the encdec's cross-attention, as JAX's does, and a family
+    outside the six raises."""
+    jc, tc = _cfgs("hybrid")
+    cfg = dataclasses.replace(tc, **kw)
+    caches = init_decode_state(cfg, 2, 16, device="cpu")["caches"]
+    want = {"self", "cross_k", "cross_v"} if kw["family"] == "encdec" \
+        else {"k", "v"}
+    assert set(caches) == want
+    if kw["family"] == "encdec":
+        with pytest.raises(ValueError, match="paged KV unsupported"):
+            TE.init_paged_state(cfg, 4, 4, device="cpu")
+    with pytest.raises(ValueError, match="unknown model family"):
+        init_decode_state(dataclasses.replace(tc, family="retnet"), 2, 16,
                           device="cpu")
 
 

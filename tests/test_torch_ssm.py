@@ -427,10 +427,16 @@ def test_loss_fn_matches_jax(dtype, family):
 
 @pytest.mark.parametrize("kw", [dict(family="encdec"), dict(family="vlm")])
 def test_other_families_still_raise(kw):
-    """encdec and vlm wait for ROADMAP A9e."""
+    """Since ROADMAP A9e the encdec and vlm parameters build (the
+    encoder's stack and ``enc_norm``; ``mm_proj``); a family outside the
+    JAX package's six still raises."""
     _, tc = _cfgs("hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9e"):
-        TLM.init_params(dataclasses.replace(tc, **kw), device="cpu")
+    p = TLM.init_params(dataclasses.replace(tc, **kw), device="cpu")
+    assert ({"enc_blocks", "enc_norm"} <= set(p) if kw["family"] == "encdec"
+            else p["mm_proj"].shape == (tc.d_model, tc.d_model))
+    with pytest.raises(ValueError, match="unknown model family"):
+        TLM.init_params(dataclasses.replace(tc, family="retnet"),
+                        device="cpu")
 
 
 def test_mla_params_build():

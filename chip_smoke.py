@@ -257,7 +257,9 @@ Phases (any failure exits non-zero before the result line is printed):
                patch embeddings and 128 tokens (exactly 224 fxp_matmul),
                32 decode steps (96 + 32 prologue each), prefill ms,
                ms/decode step, peak memory, a profile of 5 decode steps;
-               (2) one layer, a row of the patches and 32 tokens, a
+               (2) one layer (its MLP at a quarter of its width on both
+               sides, LLAVA_PARITY_FF_DIV, reduced; so too in (4)), a row
+               of the patches and 32 tokens, a
                prefill and 4 decode steps on the card and on the CPU
                (int8): the logits within LLAVA_PARITY_TOL, the patches
                not projected by mm_proj beyond it; (3) 8 layers trained by
@@ -285,6 +287,29 @@ Phases (any failure exits non-zero before the result line is printed):
                the JAX suite's EXPORT_PLAN: ok, every diff 0, one
                decode_prologue launch each.  Probes, seconds and ms a
                probe step printed.
+5j. dist   -- the cross-replica dW reduction and the kernel tune cache on
+               full-width qwen1.5-0.5b: (a) the int8 block-scaled codec
+               (``quant.compression``) on the card bitwise its CPU run at
+               each per-layer dW leaf shape and at 3 x 256 + 17 elements
+               with an all-zero block; (b) over a one-rank NCCL "data"
+               mesh (``launch.mesh.make_mesh``, a FileStore),
+               ``dense_psum_tree`` bitwise the identity and
+               ``compressed_psum_tree`` / ``compressed_psum`` (its NCCL
+               all-gather) bitwise the codec round trip; (c) one
+               train_lm step a backend (int8, emulate) with ``compress_dw``
+               over that mesh: bitwise the same step with ``compress_dw``
+               and no axes, different from the step without the codec
+               (a control whose max |d| must be > 0), exactly train_lm's
+               launches a step; the codec's device ms a step (every
+               stack leaf through ``compressed_psum`` 24 times, under
+               torch.profiler); (d) ``launch.train.main`` with
+               --compress-dw, 3 steps, no checkpoint: every loss finite,
+               launches 3 x train_lm's; (e) the tune cache primed with
+               ``train_tune_shapes`` for qwen: the steps of (c) make no
+               miss; an emulate step under a cache derived for half the
+               card's SM count against the card's own (reported, equal or
+               not); each cache's snapshot, reloaded, replays its step
+               bitwise.
 5d. train_driver -- the port's train driver (``launch.train.main``) on
                the same full-width qwen1.5-0.5b with --quantize,
                --stochastic and --bit-anneal 0:16,3:14,6:12, int8 on the
@@ -297,7 +322,8 @@ Phases (any failure exits non-zero before the result line is printed):
                restore onto the card warns and recovers step 5, bitwise
                A's by crc32.  Run B, a subprocess, is killed at step 6
                (exit 41) after its step-5 checkpoint landed; run B' resumes
-               it from step 5 and
+               it from step 5, installs the checkpoint's tune-cache
+               decisions (N > 0) and
                must end with every crc32 of its checkpoint 8 equal to A's
                and the same logged losses.
 6. summary  -- one line of each phase's seconds, one ``{"kernels":
@@ -306,7 +332,7 @@ Phases (any failure exits non-zero before the result line is printed):
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
 serve_ssm, train, noise, train_lm, train_ssm, moe, mla, whisper, llava,
-search and train_driver
+search, dist and train_driver
 (for
 example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
@@ -330,7 +356,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "serve_ssm",
           "train", "noise", "train_lm", "train_ssm", "moe", "mla", "whisper",
-          "llava", "search", "train_driver")
+          "llava", "search", "dist", "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -5031,20 +5057,32 @@ LLAVA_SERVE_HEADROOM_GB = 8.0
 # patches, int8, the update within train_lm's and train_ssm's limits, the
 # same control beyond both
 LLAVA_PARITY_SLOTS, LLAVA_PARITY_PROMPT, LLAVA_PARITY_STEPS = 1, 32, 4
+# both parities run the MLP at 1/LLAVA_PARITY_FF_DIV of its width on both
+# sides (reduced, to make room for the dist phase: the CPU's side of the
+# full-width layer took 21 s of the train parity and 11 s of the serve
+# parity); the attention stays at full width, and the full-width
+# MLP runs through the kernels in the serve and the train runs.  The
+# readings above are of the full width; PERF.md has the cut's
+LLAVA_PARITY_FF_DIV = 4
 LLAVA_PARITY_TOL = {"int8": PARITY_TOL["int8"]}
 LLAVA_TRAIN_PARITY_BACKEND = "int8"
 
 
-def _llava_cfg(full, layers):
+def _llava_cfg(full, layers, ff_div=1):
+    """``full`` cut to ``layers`` layers (its MLP's width to
+    1/``ff_div``)."""
     import dataclasses
 
-    return dataclasses.replace(full, num_layers=layers)
+    return dataclasses.replace(full, num_layers=layers,
+                               d_ff=full.d_ff // ff_div)
 
 
 def _describe_llava(cfg, full) -> str:
+    ff = (f"{cfg.d_ff}" if cfg.d_ff == full.d_ff else
+          f"{cfg.d_ff} of {full.d_ff} (reduced, both sides)")
     return (f"{LLAVA_ARCH} at full width (d {cfg.d_model}, {cfg.num_heads} "
             f"heads and {cfg.num_kv_heads} KV heads of {cfg.head_dim}, d_ff "
-            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.num_patches} patch "
+            f"{ff}, vocab {cfg.vocab_size}, {cfg.num_patches} patch "
             f"embeddings, rope theta {cfg.rope_theta:g}), {cfg.num_layers} "
             f"of {full.num_layers} layers")
 
@@ -5227,7 +5265,7 @@ def llava_serve_parity(torch, dev):
     from repro_torch.models import lm
 
     full = get_config(LLAVA_ARCH)
-    cfg = _llava_cfg(full, 1)
+    cfg = _llava_cfg(full, 1, ff_div=LLAVA_PARITY_FF_DIV)
     params = lm.init_params(cfg, seed=2, device=dev)
     toks = np.random.default_rng(17).integers(
         0, cfg.vocab_size, (LLAVA_PARITY_SLOTS, LLAVA_PARITY_PROMPT))
@@ -5257,7 +5295,7 @@ def llava_train_parity(torch, dev):
     from repro_torch.models import lm
 
     full = get_config(LLAVA_ARCH)
-    cfg = _llava_cfg(full, 1)
+    cfg = _llava_cfg(full, 1, ff_div=LLAVA_PARITY_FF_DIV)
     backend = LLAVA_TRAIN_PARITY_BACKEND
     batch = _lm_batch(torch, cfg, "cpu", LLAVA_PARITY_SLOTS,
                       LLAVA_PARITY_PROMPT)
@@ -5305,6 +5343,276 @@ def llava_phase(torch, dev):
     secs = time.perf_counter() - t0
     say(f"llava: {secs:.1f} s")
     return runs, serve_parity, train_parity, secs
+
+
+# ---------------------------------------------------------------------------
+# phase 5j: the cross-replica dW reduction and the kernel tune cache
+# ---------------------------------------------------------------------------
+
+# the codec's ragged length: 3 blocks of 256 and 17 over
+DIST_RAGGED = 3 * 256 + 17
+DIST_DRIVER_STEPS = 3
+DIST_DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
+                    "--compress-dw", "--kernel-backend", "auto",
+                    "--optimizer", TRAIN_LM_OPTIMIZER,
+                    "--seq-len", str(TRAIN_LM_SEQ),
+                    "--global-batch", str(TRAIN_LM_BATCH),
+                    "--steps", str(DIST_DRIVER_STEPS), "--log-every", "1",
+                    "--deadline-s", str(600.0)]
+
+
+def _layer_leaves(params) -> dict:
+    """{path: layer 0's slice} of the stack's leaves: the shapes whose dW
+    the engine reduces a leaf at a time."""
+    from repro_torch.util.tree import tree_leaves_with_path
+
+    return {p: x[0] for p, x in tree_leaves_with_path(params["blocks"])}
+
+
+def _dist_step(torch, cfg, backend, dev, **policy_kw):
+    from repro_torch.core import QuantPolicy, StepOptions, make_train_step
+    from repro_torch.optim import OptimizerConfig
+
+    ocfg = OptimizerConfig(kind=TRAIN_LM_OPTIMIZER)
+    return make_train_step(cfg, QuantPolicy(grad_scale=TRAIN_LM_GRAD_SCALE,
+                                            **policy_kw),
+                           ocfg, StepOptions(kernel_backend=backend),
+                           device=dev), ocfg
+
+
+def _codec_device_ms(torch, leaves, mesh, layers):
+    """The device ms of a step's codec: every stack leaf's dW through
+    ``compressed_psum`` over ``mesh`` (compress, the NCCL all-gathers,
+    decompress), ``layers`` times, under torch.profiler; None where the
+    profiler records no device time (then "not measured")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist import compressed_psum
+
+    xs = [x.to(torch.float32) for x in leaves.values()]
+    for x in xs:                                  # warm-up
+        compressed_psum(x, ("data",), mesh=mesh)
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except (RuntimeError, AssertionError) as e:
+        say(f"dist codec: torch.profiler failed to start: {e}")
+        return None
+    for _ in range(layers):
+        for x in xs:
+            compressed_psum(x, ("data",), mesh=mesh)
+    torch.cuda.synchronize()
+    prof.stop()
+    events = prof.profiler.kineto_results.events()
+    ms = sum(e.duration_ns() / 1e6 for e in events
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and not e.is_user_annotation())
+    return ms if ms > 0 else None
+
+
+def dist_phase(torch, dev):
+    """The codec on the card, the one-rank NCCL psums, the engine's
+    compressed steps, the --compress-dw driver and the tune cache (module
+    docstring, phase 5j)."""
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.dist import (compressed_psum, compressed_psum_tree,
+                                  dense_psum_tree, mesh_ctx)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+    from repro_torch.quant.compression import compress_int8, decompress_int8
+    from repro_torch.util.tree import tree_leaves as _leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    rec = dict(run="dist")
+    cfg = get_config(LM_ARCH)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    leaves = _layer_leaves(params)
+
+    # (a) the codec on the card is bitwise its CPU run
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    shapes = {p: tuple(x.shape) for p, x in leaves.items()}
+    shapes["ragged"] = (DIST_RAGGED,)
+    n_codec = 0
+    for name, shape in shapes.items():
+        x = torch.randn(shape, generator=gen, device=dev) * 1e-3
+        if name == "ragged":
+            x[256:512] = 0.0                      # an all-zero block
+        q, s = compress_int8(x)
+        qc, sc = compress_int8(x.cpu())
+        back = decompress_int8(q, s, shape)
+        require(_same_bits(torch, q, qc) and _same_bits(torch, s, sc)
+                and _same_bits(torch, back, decompress_int8(qc, sc, shape)),
+                f"dist codec {name} {shape}: the card's payload, scales or "
+                f"decompression differ from the CPU's")
+        n_codec += 1
+    say(f"dist codec: {n_codec} shapes (qwen's {len(leaves)} per-layer dW "
+        f"leaves and {DIST_RAGGED} elements) bitwise the CPU's")
+
+    store = tempfile.mkdtemp(prefix="chip-smoke-dist-") + "/store"
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        # (b) one rank: the dense psum is the identity, the compressed one
+        # the codec round trip, through NCCL's all_reduce / all_gather
+        tree = {p: torch.randn(x.shape, generator=gen, device=dev)
+                for p, x in leaves.items()}
+        dense = dense_psum_tree(tree, mesh, ("data",))
+        comp = compressed_psum_tree(tree, mesh, ("data",))
+        for p, x in tree.items():
+            trip = decompress_int8(*compress_int8(x), x.shape)
+            require(_same_bits(torch, dense[p], x),
+                    f"dist dense_psum_tree {p}: not the identity")
+            require(_same_bits(torch, comp[p], trip),
+                    f"dist compressed_psum_tree {p}: not the round trip")
+            gathered = compressed_psum(x, ("data",), mesh=mesh)
+            require(_same_bits(torch, gathered, trip),
+                    f"dist compressed_psum {p}: the all-gather path is not "
+                    f"the round trip")
+        say(f"dist psum: {len(tree)} leaves over a one-rank NCCL 'data' "
+            f"mesh, dense bitwise the identity, compressed bitwise the "
+            f"round trip (tree and all-gather paths)")
+        del tree, dense, comp
+
+        # (c) + (e): the engine's steps, primed cache
+        kops.clear_tune_cache()
+        n_sm = sm_count(dev)
+        primed = kops.prime_tune_cache(kops.train_tune_shapes(
+            cfg, TRAIN_LM_BATCH, TRAIN_LM_SEQ), n_sm=n_sm)
+        misses0 = kops.tune_cache_stats()["misses"]
+        batch = _lm_batch(torch, cfg, dev)
+        bits = default_bits(cfg)
+
+        def run(backend, **kw):
+            step, ocfg = _dist_step(torch, cfg, backend, dev, **kw)
+            state = init_train_state(params, ocfg)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            with mesh_ctx(mesh):
+                p, _, m = step(params, state, batch,
+                               Hyper(lr=TRAIN_LM_LR, step=0), bits)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            require(counts == TRAIN_LM_LAUNCHES,
+                    f"dist {backend} {kw}: launches {counts}, expected "
+                    f"{TRAIN_LM_LAUNCHES}")
+            require(math.isfinite(float(m["loss"])),
+                    f"dist {backend} {kw}: loss {float(m['loss'])}")
+            return p
+
+        def max_diff(a, b):
+            return max(float((x - y).abs().max()) for x, y in
+                       zip(_leaves(a), _leaves(b)))
+
+        def same(a, b):
+            return all(_same_bits(torch, x, y)
+                       for x, y in zip(_leaves(a), _leaves(b)))
+
+        steps = {}
+        for backend in TRAIN_LM_RUNS:
+            mesh_p = run(backend, compress_dw=True, dw_psum_axes=("data",))
+            solo = run(backend, compress_dw=True)
+            plain = run(backend)
+            require(same(mesh_p, solo),
+                    f"dist {backend}: the step over the one-rank mesh is not "
+                    f"bitwise the step with the codec and no axes")
+            control = max_diff(mesh_p, plain)
+            require(control > 0, f"dist {backend}: the codec moved nothing")
+            steps[backend] = dict(bitwise_mesh_vs_solo=True,
+                                  control_max_abs_diff=control)
+            say(f"dist {backend}: the compressed step over the mesh bitwise "
+                f"the no-axes codec step; against no codec max |d| "
+                f"{control:.3e}; launches {TRAIN_LM_LAUNCHES} each")
+            if backend == "emulate":
+                own, own_snap = plain, kops.tune_cache_snapshot()
+            del mesh_p, solo
+            if backend != "emulate":
+                del plain
+        misses = kops.tune_cache_stats()["misses"] - misses0
+        require(misses == 0, f"dist: {misses} tune-cache misses after "
+                             f"priming {len(primed)} train shapes")
+        rec.update(steps=steps, primed=len(primed), misses=misses)
+
+        # (e) a cache derived for half the card's SMs, and the replays
+        kops.clear_tune_cache()
+        kops.prime_tune_cache(kops.train_tune_shapes(
+            cfg, TRAIN_LM_BATCH, TRAIN_LM_SEQ), n_sm=n_sm // 2)
+        half = run("emulate")
+        half_snap = kops.tune_cache_snapshot()
+        splits = sum(a["decision"] != b["decision"]
+                     for k, a in half_snap.items()
+                     for b in [own_snap.get(k, a)])
+        equal = same(half, own)
+        half_diff = 0.0 if equal else max_diff(half, own)
+        for label, snap, want in (("half", half_snap, half),
+                                  ("own", own_snap, own)):
+            kops.clear_tune_cache()
+            kops.load_tune_cache(snap)
+            again = run("emulate")
+            require(same(again, want),
+                    f"dist: the emulate step under the reloaded {label} "
+                    f"cache is not bitwise its first run")
+            del again
+        say(f"dist tune cache: {len(primed)} train shapes primed for {n_sm} "
+            f"SMs, 0 misses in the steps; for {n_sm // 2} SMs "
+            f"{splits} decisions differ and the emulate step is "
+            f"{'bitwise equal' if equal else f'not equal (max |d| {half_diff:.3e})'}"
+            f"; each reloaded snapshot replays its step bitwise")
+        rec.update(half_sm=n_sm // 2, sm=n_sm, decisions_differ=splits,
+                   emulate_equal_at_half_sm=equal,
+                   emulate_max_abs_diff_at_half_sm=half_diff)
+        del half, own
+        kops.clear_tune_cache()
+
+        # the codec's device ms a step
+        rec["codec_device_ms_per_step"] = _codec_device_ms(
+            torch, leaves, mesh, cfg.num_layers)
+        say(f"dist codec: {rec['codec_device_ms_per_step']} device ms a "
+            f"step ({cfg.num_layers} layers x {len(leaves)} leaves)")
+    finally:
+        dist.destroy_process_group()
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the driver with --compress-dw
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = train.main(DIST_DRIVER_ARGS)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = {k: v * DIST_DRIVER_STEPS for k, v in TRAIN_LM_LAUNCHES.items()}
+    require(counts == want, f"dist driver: launches {counts}, expected "
+                            f"{want}")
+    require(len(losses) == DIST_DRIVER_STEPS
+            and all(math.isfinite(v) for v in losses),
+            f"dist driver: losses {losses}")
+    rec.update(driver_losses=losses, driver_counts=counts,
+               driver_seconds=time.perf_counter() - t0, counts=counts)
+    kops.clear_tune_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"dist driver --compress-dw: {DIST_DRIVER_STEPS} steps in "
+        f"{rec['driver_seconds']:.1f} s (with its init), losses {losses}, "
+        f"launches {counts}; dist: {rec['seconds']:.1f} s")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -5543,6 +5851,12 @@ def train_driver(torch, dev):
             DRIVER_ARGS + ["--ckpt-dir", str(dir_b), "--resume"], 0)
         require(f"resumed from step {DRIVER_RESUME}" in out_r.stdout,
                 f"train_driver B': {out_r.stdout[-2000:]}")
+        restored = re.search(r"restored (\d+) tune-cache decision\(s\) "
+                             r"from checkpoint", out_r.stdout)
+        require(restored is not None and int(restored[1]) > 0,
+                f"train_driver B': installed no tune-cache decision from "
+                f"the checkpoint: {out_r.stdout[-2000:]}")
+        rec["tune_decisions_restored"] = int(restored[1])
         log_r = _step_lines(out_r.stdout)
         require(sorted(log_r) == list(range(DRIVER_RESUME, DRIVER_STEPS))
                 and all(log_r[s][0] == log_a[s][0] for s in log_r),
@@ -5559,7 +5873,9 @@ def train_driver(torch, dev):
         say(f"train_driver: B killed at step {DRIVER_CRASH} (exit "
             f"{FAULT_EXIT_CODE}, step-5 batch held {stall} s, "
             f"{rec['seconds_b']:.1f} s); B' resumed from step "
-            f"{DRIVER_RESUME} ({rec['seconds_b_resumed']:.1f} s): all "
+            f"{DRIVER_RESUME} ({rec['seconds_b_resumed']:.1f} s, "
+            f"{rec['tune_decisions_restored']} tune-cache decisions "
+            f"installed from the checkpoint): all "
             f"{len(crc_r)} crc32s of checkpoint {DRIVER_STEPS} equal A's, "
             f"losses of steps {DRIVER_RESUME}-{DRIVER_STEPS - 1} equal "
             f"A's as strings")
@@ -5991,6 +6307,10 @@ def main(argv=None) -> int:
                                       lambda: search_phase(torch, dev))
         runs += search_runs
         dump(search=search_runs, seconds=search_s)
+    if "dist" in phases:
+        dist_rec = timed("dist", lambda: dist_phase(torch, dev))
+        runs.append(dist_rec)
+        dump(dist=dist_rec)
     if "train_driver" in phases:
         drv = timed("train_driver", lambda: train_driver(torch, dev))
         runs.append(drv)

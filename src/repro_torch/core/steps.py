@@ -44,8 +44,11 @@ ignores it, as JAX's does.  ``StepOptions.bit_anneal`` (or the policy's)
 ramps the F bits with the step (``search.anneal``): the taxonn step
 applies the ramp to ``bits`` at ``hyper.step``, the autodiff step accepts
 it and ignores it, and the returned step exposes it as ``.bit_anneal``.
-Pipeline execution (with its ``grad_tap_stochastic``) and the overlap and
-transport options wait for multi-GPU (ROADMAP A11).
+``QuantPolicy.compress_dw``, ``dw_psum_axes`` and ``dw_num_replicas``
+reach the engine's blocking update with the policy (the cross-replica dW
+reduction, ``core.taxonn``).  Pipeline execution (with its
+``grad_tap_stochastic``) and the overlap and transport options wait for
+the rest of multi-GPU (ROADMAP A11).
 ``capture_resume_extra`` and ``apply_resume_extra`` carry the train
 driver's resume payload; the noise and the anneal depend only on the
 step, so the payload needs no PRNG state, and the anneal spec rides along
@@ -63,7 +66,9 @@ from repro_torch import resolve_device
 from repro_torch.core.taxonn import (QuantPolicy, _blend_quant,
                                      backward_stack, default_bits_for,
                                      forward_stack, quantize_weight_tree)
-from repro_torch.kernels.ops import kernel_backend_ctx, resolve_backend
+from repro_torch.kernels.ops import (foreign_tune_entries, kernel_backend_ctx,
+                                     load_tune_cache, resolve_backend,
+                                     tune_cache_snapshot)
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import lm
@@ -122,9 +127,11 @@ def capture_resume_extra(cfg: ModelConfig, step: int, *, loader=None,
                          anneal=None) -> dict:
     """The checkpoint ``extra`` payload that makes a restart BITWISE: the
     data-pipeline step, so the step-indexed loader replays the exact batch
-    stream (the lr schedule is a function of the step too).  The keys are
-    the JAX package's; its transport and kernel tune caches are written
-    empty, since the port has no tuner (ROADMAP A8, A11).  ``anneal`` (a
+    stream (the lr schedule is a function of the step too), and the kernel
+    tune cache (``kernels.ops.tune_cache_snapshot``), so that the resumed
+    run launches the original run's splits on any card.  The keys are the
+    JAX package's; the transport cache is written empty until the
+    transports come (ROADMAP A11).  ``anneal`` (a
     spec or an ``AnnealSchedule``) is recorded as its canonical spec: the
     annealed bits are a function of the step, so resume is bitwise
     anyway, and the spec only guards against resuming under another ramp.
@@ -136,7 +143,7 @@ def capture_resume_extra(cfg: ModelConfig, step: int, *, loader=None,
         "family": cfg.family,
         "data_step": int(step),
         "transport_cache": {},
-        "tune_cache": {},
+        "tune_cache": tune_cache_snapshot(),
     }
     if anneal is not None:
         extra["bit_anneal"] = AnnealSchedule.parse(anneal).spec
@@ -156,9 +163,11 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int, *,
     whose save convention was step == next data step).
 
     A checkpoint of another arch is refused: restoring qwen state into
-    gemma is silent corruption the shape check alone may not catch.  A
-    JAX-written payload's transport and tune caches are not installed (the
-    port has no tuner).  A payload annealed under another spec than
+    gemma is silent corruption the shape check alone may not catch.  The
+    payload's tune-cache decisions are installed (``load_tune_cache``:
+    existing entries win); a JAX-written payload's kinds and its transport
+    cache are counted and skipped.  A payload annealed under another spec
+    than
     ``anneal`` is refused; a spec on one side only warns, since the
     effective bits change at the restart boundary."""
     extra = extra or {}
@@ -181,13 +190,20 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int, *,
             f"bit-anneal mismatch at resume: checkpoint={ckpt_anneal!r} "
             f"current={cur_anneal!r} — the effective bit schedule changes "
             f"at the restart boundary", RuntimeWarning, stacklevel=2)
-    caches = {k: len(extra.get(k) or {})
-              for k in ("transport_cache", "tune_cache")}
-    if any(caches.values()):
-        print(f"[train] checkpoint carries {caches['transport_cache']} "
-              f"transport-cache and {caches['tune_cache']} tune-cache "
-              f"decision(s); the port has no tuner and does not install "
-              f"them", flush=True)
+    n_transport = len(extra.get("transport_cache") or {})
+    if n_transport:
+        print(f"[train] checkpoint carries {n_transport} transport-cache "
+              f"decision(s); the port has no transports yet and does not "
+              f"install them", flush=True)
+    tune = extra.get("tune_cache")
+    if tune:
+        n = load_tune_cache(tune)
+        skipped = foreign_tune_entries(tune)
+        if n or skipped:
+            print(f"[train] restored {n} tune-cache decision(s) from "
+                  f"checkpoint" + (f"; skipped {skipped} of the JAX "
+                                   f"package's" if skipped else ""),
+                  flush=True)
     return int(extra.get("data_step", ckpt_step))
 
 
@@ -294,7 +310,7 @@ class StepOptions:
     ``bit_anneal`` takes a spec string (normalised to an
     ``AnnealSchedule``) or an ``AnnealSchedule``.  (The JAX package's
     pipeline, overlap and transport fields come with multi-GPU: ROADMAP
-    A11.)"""
+    A11's later items.)"""
 
     engine: str = "taxonn"
     kernel_backend: Optional[str] = None

@@ -1,5 +1,5 @@
 """The TaxoNN engine: SGD unrolled into an explicit per-layer G-chain (port
-of ``core/taxonn.py``, single device, blocking path).
+of ``core/taxonn.py``, blocking path).
 
 The paper's Eq. (2)-(9): back-propagation is not autograd over the whole
 model but an explicit reverse loop over layers whose carry is the paper's
@@ -37,10 +37,19 @@ unit quantizes it with its own weight format; without (the
 encoder-decoder's encoder output, an activation that the caller quantizes
 once) it enters every unit as it is.  ``QuantPolicy.bit_anneal`` carries a
 step-indexed F-bit ramp (``search.anneal``) that
-``core.steps.make_train_step`` applies to the step's bits.  The JAX package's options for the multi-device engine (the
-dW all-reduce, its codec, overlap and transports, ``grad_tap_stochastic``)
-are not fields of the port's ``QuantPolicy`` yet: they come with
-multi-GPU (A11).
+``core.steps.make_train_step`` applies to the step's bits.
+
+Cross-replica dW (``QuantPolicy.compress_dw``, ``dw_psum_axes``,
+``dw_num_replicas``): each leaf's dW is reduced over the mesh axes
+``dw_psum_axes`` of the ambient mesh (``dist.mesh_ctx``) where the JAX
+package reduces it, after the un-scaling and before ``quantize_update``:
+through the int8 wire format (``dist.collectives.compressed_psum``) with
+``compress_dw``, else a dense all-reduce.  With ``compress_dw`` and no
+axes it is the codec round trip.  Only the stacks' dW is reduced, as in
+the JAX step: the boundary and shared updates use each replica's own
+gradient.  The overlapped reduce, its transports and the sharded update
+(``overlap``, ``overlap_depth``, ``dw_transport``) and
+``grad_tap_stochastic`` come with the rest of multi-GPU (A11).
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.dist.collectives import compressed_psum, dense_psum
 from repro_torch.optim import Hyper, OptimizerConfig, apply_update
 from repro_torch.quant.fixed_point import (BitSchedule, make_bit_schedule,
                                            maybe_quantize, quantize_ste,
@@ -79,6 +89,15 @@ class QuantPolicy:
     # effective per-layer F bits become a step-indexed ramp applied on top
     # of the run's BitSchedule.  None = no anneal.
     bit_anneal: Optional[str] = None
+    # Route each layer's dW through the int8 block-scaled wire format in the
+    # backward loop (dist.collectives.compressed_psum).  With
+    # ``dw_psum_axes`` naming axes of the ambient mesh (dist.mesh_ctx) the
+    # all-reduce moves compressed bytes; with no axes it is the codec round
+    # trip, ``dw_num_replicas`` its simulated replica count.  With axes
+    # named and ``compress_dw=False`` the reduction is a dense all-reduce.
+    compress_dw: bool = False
+    dw_psum_axes: tuple = ()
+    dw_num_replicas: Optional[int] = None
 
     @staticmethod
     def off() -> "QuantPolicy":
@@ -153,6 +172,18 @@ def quantize_update(g: torch.Tensor, b_l: dict, key, enabled,
     lr = torch.clamp_min(lr, 1e-20) if isinstance(lr, torch.Tensor) \
         else max(lr, 1e-20)
     return upd / lr
+
+
+def _reduce_dw(dw: torch.Tensor, policy: QuantPolicy) -> torch.Tensor:
+    """One leaf's dW reduced across replicas as the policy asks: the int8
+    wire format (a codec round trip with no axes), a dense all-reduce over
+    ``dw_psum_axes``, or as it is."""
+    if policy.compress_dw:
+        return compressed_psum(dw, policy.dw_psum_axes,
+                               num_replicas=policy.dw_num_replicas)
+    if policy.dw_psum_axes:
+        return dense_psum(dw, policy.dw_psum_axes)
+    return dw
 
 
 def _bits_layer(bits: BitSchedule, i: int) -> dict:
@@ -250,7 +281,9 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
       1. re-linearise the layer body at (q(W_i), X_i) under autograd;
       2. dW_i, G_i <- the VJP seeded by G_{i+1};
       3. G_i <- q(G_i), the low-bit backward signal sent upstream;
-      4. W_i <- W_i - lr * dW_i at once, before layer i-1's VJP starts.
+      4. W_i <- W_i - lr * dW_i at once, before layer i-1's VJP starts,
+         each dW leaf first reduced across replicas where the policy asks
+         (``_reduce_dw``).
 
     Gradient scale: ``G_out`` arrives scaled by ``policy.grad_scale``; dW is
     un-scaled just before the update, G stays scaled.  With
@@ -320,6 +353,7 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
             for j, path in enumerate(_leaf_paths(p_l)):
                 dw = grads[j].to(torch.float32) * inv_scale
                 grads[j] = None
+                dw = _reduce_dw(dw, policy)
                 dw = quantize_update(dw, b_l, key, enabled, policy, hyper)
                 new_p, new_o = apply_update(
                     _only(p_l, path), _only(dw, path, leaf=True),

@@ -10,7 +10,8 @@
 Each wrapper (``WRAPPERS``, by kernel name) launches its CUDA kernel
 (``csrc/``) for CUDA tensors, runs its plain PyTorch version for CPU
 tensors, and counts its launches in ``<wrapper>.launches``.  ``ops`` holds
-the kernel-backend knob and the ``*_op`` entry points.
+the kernel-backend knob, the ``*_op`` entry points and the tune cache of
+the launches (``tune_*``, ``prime_tune_cache``).
 """
 from repro_torch.kernels import (bp_fused_unit, bp_gstep, decode_prologue,
                                  fxp_matmul, ops, paged_attention,

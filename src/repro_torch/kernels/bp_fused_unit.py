@@ -39,7 +39,8 @@ import torch
 from repro_torch import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import (ACT_CODES, bits_args, check_operands,
-                                        cuda_device, lr_args, sm_count)
+                                        cuda_device, lr_args, sm_count,
+                                        tuned)
 from repro_torch.quant.int8 import int8_spec
 
 # csrc/bp_fused_unit.cu's constants
@@ -114,6 +115,15 @@ def _plan(t: int, din: int, dout: int, n_sm: int, datapath: str = "emulate",
     chunks = -(-slices // cluster)
     return Plan(cluster, chunks, (chunks * cluster, -(-din // TI)),
                 _smem(datapath), chunks * t * din if chunks > 1 else 0)
+
+
+def tuned_plan(t: int, din: int, dout: int, n_sm: int,
+               datapath: str) -> Plan:
+    """``_plan``'s launch through the tune cache (``common.tuned``)."""
+    cluster, chunks, grid, smem, scratch = tuned(
+        "bp_fused_unit", (t, din, dout, datapath), n_sm,
+        lambda: _plan(t, din, dout, n_sm, datapath))
+    return Plan(cluster, chunks, tuple(grid), smem, scratch)
 
 
 def _vec(t: torch.Tensor, datapath: str) -> int:
@@ -212,13 +222,14 @@ bp_fused_unit.launches = 0
 
 def _launch(g, w, x, z, lr, g_bits, w_bits, w_out_bits, act, datapath,
             g_scale, x_scale, plan: Optional[Plan] = None):
-    """Launch the kernel by ``_plan``, or by ``plan`` where one is given."""
+    """Launch the kernel by the tune cache's plan (``tuned_plan``), or by
+    ``plan`` where one is given (which bypasses the cache)."""
     dev = cuda_device("bp_fused_unit", (g, w, x, z))
     fns = _lib()
     t, dout = g.shape
     din = w.shape[0]
     if plan is None:
-        plan = _plan(t, din, dout, sm_count(dev), datapath)
+        plan = tuned_plan(t, din, dout, sm_count(dev), datapath)
     gout = torch.empty((t, din), dtype=torch.float32, device=dev)
     wout = torch.empty((din, dout), dtype=torch.float32, device=dev)
     scratch = None

@@ -36,7 +36,7 @@ from repro_torch import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import (ACT_CODES, bits_args,
                                         check_operands, cuda_device,
-                                        sm_count)
+                                        sm_count, tuned)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _FN = {}
@@ -108,6 +108,16 @@ def _plan(t: int, din: int, dout: int, n_sm: int, datapath: str = "emulate",
     return Plan(path, rows, cols, grid, splits, vec)
 
 
+def tuned_plan(t: int, din: int, dout: int, n_sm: int,
+               datapath: str) -> Plan:
+    """``_plan``'s launch through the tune cache (``common.tuned``), keyed
+    as the product G @ Wᵀ: m = t, n = din, k = dout."""
+    plan = tuned("bp_gstep", (t, din, dout, datapath), n_sm,
+                 lambda: _plan(t, din, dout, n_sm, datapath))
+    path, rows, cols, grid, splits, vec = plan
+    return Plan(path, rows, cols, tuple(grid), splits, vec)
+
+
 def _k_ranges(plan: Plan, dout: int, datapath: str) -> list:
     """The Dout range ``(lo, hi)`` of each split, in split order."""
     bk = TILE_K[datapath]
@@ -176,14 +186,15 @@ bp_gstep.launches = 0
 
 def _launch(g, w, z, g_bits, act, datapath, scale, tensors,
             plan: Optional[Plan] = None):
-    """One launch; ``plan`` defaults to ``_plan``'s (a check may force
-    another row count of the short path or split count of the tiled)."""
+    """One launch; ``plan`` defaults to the tune cache's (``tuned_plan``; a
+    check may force another row count of the short path or split count of
+    the tiled, which bypasses the cache)."""
     dev = cuda_device("bp_gstep", tensors)
     fns = _lib()
     t, dout = g.shape
     din = w.shape[0]
     if plan is None:
-        plan = _plan(t, din, dout, sm_count(dev), datapath)
+        plan = tuned_plan(t, din, dout, sm_count(dev), datapath)
     out = torch.empty((t, din), dtype=torch.float32, device=dev)
     zp = None if z is None else z.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream

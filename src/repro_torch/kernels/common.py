@@ -5,8 +5,16 @@
 ``int8_dot`` is the exact int8 x int8 -> int32 product.  The TPU's two-slot
 DMA helper ``db_step`` has no counterpart here: on Hopper, overlap of copies
 with compute lives inside each CUDA kernel.
+
+The tune cache (``tuned`` and the snapshot/load/dump API that
+``kernels.ops`` exports) holds each kernel's launch decisions; it lives
+here, beside ``sm_count``, so that every kernel wrapper reaches it without
+importing ``ops``.
 """
 from __future__ import annotations
+
+import json
+import os
 
 import torch
 
@@ -141,3 +149,198 @@ def lr_args(lr, device) -> tuple:
     if isinstance(lr, torch.Tensor):
         return 0.0, lr.to(device=device, dtype=torch.float32).reshape(1)
     return float(lr), None
+
+
+# ---------------------------------------------------------------------------
+# The tune cache: each kernel's launch decisions
+# ---------------------------------------------------------------------------
+#
+# A decision is the launch that a kernel's own ``_plan`` picks for a shape:
+# fxp_matmul's ``Plan``, bp_gstep's ``Plan``, sgd_dw_update's ``(kind, per,
+# s)``, bp_fused_unit's and decode_prologue's ``Plan``, paged_attention's
+# chunk count.  The plans read the card's SM count, and the emulate
+# datapath's split partial sums are added in f32, so the bits of an emulate
+# result depend on the split count.  The key is the kernel, the shape, the
+# datapath and the element sizes, NOT the SM count: each entry records the
+# SM count it was derived for beside its ``source``, and a restored entry
+# is replayed on any card, so a resumed run launches the original run's
+# split counts.  The kinds are named after the port's kernels; the JAX
+# package's kinds (``JAX_TUNE_KINDS``) budget a TPU core's VMEM and are
+# skipped on load, as the JAX loader skips these.
+
+TUNE_KINDS = {
+    # kind: (key fields, decision length; 0 = an int).  The matmul kernels'
+    # key is the product [m, k] @ [k, n] they compute: fxp_matmul X @ W,
+    # bp_gstep G @ Wᵀ ([t, dout] @ [dout, din]), sgd_dw_update Xᵀ @ G
+    # ([din, t] @ [t, dout]).  dp: the datapath; xb, wb: element sizes.
+    "fxp_matmul": (("m", "n", "k", "dp", "xb", "wb"), 6),
+    "bp_gstep": (("m", "n", "k", "dp"), 6),
+    "sgd_dw_update": (("m", "n", "k", "dp"), 3),
+    "bp_fused_unit": (("t", "din", "dout", "dp"), 5),
+    "decode_prologue": (("b", "d", "h", "hkv", "hd", "dp", "xb"), 7),
+    "paged_attention": (("n", "bs", "m", "hkv", "hd", "g", "item"), 0),
+}
+JAX_TUNE_KINDS = ("blocks", "fused", "paged", "prologue")
+DATAPATHS = ("emulate", "int8")
+# the SM count decisions are derived for where no card is present: an H100
+# SXM's (the CPU tests and a CPU run's priming)
+DEFAULT_SM_COUNT = 132
+
+# (kind, *key) -> {"decision": ..., "source": str, "sm": int or None}
+_TUNE_CACHE: dict = {}
+_TUNE_STATS = {"hits": 0, "misses": 0}
+_TUNE_ENV_LOADED = False
+
+
+def default_sm_count() -> int:
+    """The current CUDA device's SM count, or ``DEFAULT_SM_COUNT``
+    without a card."""
+    if torch.cuda.is_available():
+        return sm_count(torch.device("cuda", torch.cuda.current_device()))
+    return DEFAULT_SM_COUNT
+
+
+def _maybe_load_env_cache() -> None:
+    """One-shot lazy load of REPRO_TUNE_CACHE (a ``dump_tune_cache``
+    file)."""
+    global _TUNE_ENV_LOADED
+    if _TUNE_ENV_LOADED:
+        return
+    _TUNE_ENV_LOADED = True
+    path = os.environ.get("REPRO_TUNE_CACHE", "").strip()
+    if path:
+        with open(path) as f:
+            snap = json.load(f)
+        n = load_tune_cache(snap)
+        print(f"[kernels] loaded {n} tune-cache decision(s) from {path}",
+              flush=True)
+
+
+def tuned(kind: str, key: tuple, n_sm: int, derive):
+    """The decision of ``kind`` for ``key``: the cached one where there is
+    one (a restored entry wins whatever SM count it was derived for), else
+    ``derive()``, recorded as computed for ``n_sm`` SMs."""
+    _maybe_load_env_cache()
+    ent = _TUNE_CACHE.get((kind,) + key)
+    if ent is not None:
+        _TUNE_STATS["hits"] += 1
+        return ent["decision"]
+    _TUNE_STATS["misses"] += 1
+    decision = derive()
+    _TUNE_CACHE[(kind,) + key] = {"decision": decision, "source": "computed",
+                                  "sm": int(n_sm)}
+    return decision
+
+
+def tune_cache_stats() -> dict:
+    """Entries, and the lookups that hit or missed since the last
+    ``clear_tune_cache``."""
+    return dict(_TUNE_STATS, entries=len(_TUNE_CACHE))
+
+
+def tune_key(kind: str, key: tuple) -> str:
+    """The snapshot key, e.g. ``"kind=bp_gstep,m=1024,n=896,k=4864,
+    dp=int8"``."""
+    fields = TUNE_KINDS[kind][0]
+    return ",".join(["kind=" + kind]
+                    + [f"{f}={a}" for f, a in zip(fields, key)])
+
+
+def _plain(d):
+    """A decision as JSON and msgpack take it: tuples become lists."""
+    if isinstance(d, (tuple, list)):
+        return [_plain(v) for v in d]
+    return d
+
+
+def _decision(d, length: int):
+    """A snapshot's decision back as the tuples ``tuned`` hands out;
+    raises ValueError or TypeError on a malformed one."""
+    if length == 0:
+        if isinstance(d, bool) or not isinstance(d, int):
+            raise TypeError(f"decision {d!r} is not an int")
+        return d
+    if not isinstance(d, list) or len(d) != length:
+        raise ValueError(f"decision {d!r} is not a list of {length}")
+    out = []
+    for v in d:
+        if isinstance(v, list):
+            if not all(isinstance(u, int) and not isinstance(u, bool)
+                       for u in v):
+                raise TypeError(f"decision field {v!r}")
+            v = tuple(v)
+        elif not isinstance(v, (int, str)):
+            raise TypeError(f"decision field {v!r}")
+        out.append(v)
+    return tuple(out)
+
+
+def tune_cache_snapshot() -> dict:
+    """Copy of the cache with JSON-friendly keys (``tune_key``) and
+    values ``{"decision", "source", "sm"}``."""
+    _maybe_load_env_cache()
+    snap = {}
+    for key in sorted(_TUNE_CACHE, key=repr):
+        ent = _TUNE_CACHE[key]
+        snap[tune_key(key[0], key[1:])] = {
+            "decision": _plain(ent["decision"]), "source": ent["source"],
+            "sm": ent["sm"]}
+    return snap
+
+
+def dump_tune_cache(path: str) -> None:
+    """Persist the cache as JSON; point REPRO_TUNE_CACHE at the file to
+    preload a later process."""
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(tune_cache_snapshot(), f, indent=2, sort_keys=True)
+
+
+def foreign_tune_entries(snapshot: dict) -> int:
+    """How many entries of ``snapshot`` are the JAX package's kinds (which
+    ``load_tune_cache`` skips)."""
+    n = 0
+    for skey in snapshot or {}:
+        parts = dict(p.split("=", 1) for p in str(skey).split(",")
+                     if "=" in p)
+        n += parts.get("kind") in JAX_TUNE_KINDS
+    return n
+
+
+def load_tune_cache(snapshot: dict, *, overwrite: bool = False) -> int:
+    """Inverse of ``tune_cache_snapshot``: install persisted decisions
+    (from a checkpoint's resume ``extra``, a serve snapshot or a dump) so
+    that a resumed run replays the original run's launches.  Existing
+    entries win unless ``overwrite``; restored rows carry
+    ``restored:<original source>`` provenance and the SM count they were
+    derived for.  Returns the number of entries installed; malformed
+    entries and the JAX package's kinds are skipped."""
+    n = 0
+    for skey, entry in (snapshot or {}).items():
+        try:
+            parts = dict(p.split("=", 1) for p in skey.split(","))
+            kind = parts.pop("kind")
+            fields, length = TUNE_KINDS[kind]
+            key = tuple(parts[f] if f == "dp" else int(parts[f])
+                        for f in fields)
+            if "dp" in fields and key[fields.index("dp")] not in DATAPATHS:
+                raise ValueError(f"datapath in {skey!r}")
+            decision = _decision(entry["decision"], length)
+            sm = entry.get("sm")
+            sm = None if sm is None else int(sm)
+            source = f"restored:{entry.get('source', '?')}"
+        except (KeyError, ValueError, AttributeError, TypeError):
+            continue
+        if not overwrite and (kind,) + key in _TUNE_CACHE:
+            continue
+        _TUNE_CACHE[(kind,) + key] = {"decision": decision, "source": source,
+                                      "sm": sm}
+        n += 1
+    return n
+
+
+def clear_tune_cache() -> None:
+    _TUNE_CACHE.clear()
+    _TUNE_STATS.update(hits=0, misses=0)

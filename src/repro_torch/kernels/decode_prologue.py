@@ -38,7 +38,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.common import int8_dot, sm_count
+from repro_torch.kernels.common import int8_dot, sm_count, tuned
 from repro_torch.quant.int8 import quantize_int8, quantize_int8_absmax
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -142,6 +142,14 @@ def _plan(b: int, d: int, h: int, hkv: int, hd: int, n_sm: int,
                          f"{nt} tiles")
     smem = _smem(rows, bk, wb, 1 if datapath == "int8" else x_bytes)
     return Plan(strips, passes, s, rows, bk, smem, piece)
+
+
+def tuned_plan(b: int, d: int, h: int, hkv: int, hd: int, n_sm: int,
+               datapath: str, x_bytes: int) -> Plan:
+    """``_plan``'s launch through the tune cache (``common.tuned``)."""
+    return Plan(*tuned(
+        "decode_prologue", (b, d, h, hkv, hd, datapath, x_bytes), n_sm,
+        lambda: _plan(b, d, h, hkv, hd, n_sm, datapath, x_bytes)))
 
 
 def _lib():
@@ -289,8 +297,8 @@ fused_prologue.launches = 0
 
 def _launch(x2, nscale, wq2, wk2, wv2, biases, positions, wscales, *,
             use_rope, theta, eps, h, hkv, hd, plan: Optional[Plan] = None):
-    """One launch; ``plan`` defaults to ``_plan``'s (a check may force
-    another split count)."""
+    """One launch; ``plan`` defaults to the tune cache's (``tuned_plan``; a
+    check may force another split count, which bypasses the cache)."""
     dev = x2.device
     if dev.type != "cuda":
         raise RuntimeError(f"decode_prologue: no kernel for {dev}")
@@ -317,8 +325,8 @@ def _launch(x2, nscale, wq2, wk2, wv2, biases, positions, wscales, *,
     if biases is not None and any(bb.dtype != torch.float32 for bb in biases):
         raise TypeError("decode_prologue: biases must be f32")
     if plan is None:
-        plan = _plan(b, d, h, hkv, hd, sm_count(dev),
-                     "int8" if int8 else "emulate", x2.element_size())
+        plan = tuned_plan(b, d, h, hkv, hd, sm_count(dev),
+                          "int8" if int8 else "emulate", x2.element_size())
     # scratch: the normed rows, k-major by pass and whole W tiles (int8
     # payloads or the compute dtype), and their activation scales
     rows_p = plan.passes * plan.rows

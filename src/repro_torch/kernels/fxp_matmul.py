@@ -22,7 +22,8 @@ into up to ``PLAN_MAX_SPLITS`` tile-aligned ranges whose CTAs form a
 thread-block cluster and sum their partials in shared memory.  Larger M
 takes 64x64 output tiles (f32 register tiles, or int8 tensor cores), with
 the same K split where the tiles cannot fill the card.  Either way one
-launch a product.
+launch a product.  ``_launch`` takes its plan from the tune cache
+(``tuned_plan``): a cached decision, else ``_plan``'s, recorded.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ import torch
 from repro_torch import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import (ACT_CODES, bits_args, cuda_device,
-                                        sm_count)
+                                        sm_count, tuned)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _FN = {}
@@ -117,6 +118,16 @@ def _plan(m: int, k: int, n: int, n_sm: int, datapath: str = "emulate",
     return Plan("tiled", STRIP, bk, _pow2_floor(s), vx, vw)
 
 
+def tuned_plan(m: int, k: int, n: int, n_sm: int, datapath: str,
+               x_bytes: int, w_bytes: int) -> Plan:
+    """``_plan``'s launch through the tune cache (``common.tuned``): the
+    cached decision for this product, datapath and element sizes, else
+    ``_plan``'s for ``n_sm`` SMs, recorded."""
+    return Plan(*tuned(
+        "fxp_matmul", (m, n, k, datapath, x_bytes, w_bytes), n_sm,
+        lambda: _plan(m, k, n, n_sm, datapath, x_bytes, w_bytes)))
+
+
 def _k_ranges(plan: Plan, k: int) -> list:
     """The K range ``(lo, hi)`` of each split, in split order."""
     nt = -(-k // plan.bk)
@@ -191,15 +202,15 @@ fxp_matmul.launches = 0
 
 def _launch(x, w, xa_bits, w_bits, out_bits, act, datapath, scale,
             plan: Optional[Plan] = None):
-    """One launch; ``plan`` defaults to ``_plan``'s (a check may pass
-    another split count)."""
+    """One launch; ``plan`` defaults to the tune cache's (``tuned_plan``; a
+    check may pass another split count, which bypasses the cache)."""
     dev = cuda_device("fxp_matmul", (x, w))
     fns = _lib()
     m, k = x.shape
     n = w.shape[1]
     if plan is None:
-        plan = _plan(m, k, n, sm_count(dev), datapath, x.element_size(),
-                     w.element_size())
+        plan = tuned_plan(m, k, n, sm_count(dev), datapath,
+                          x.element_size(), w.element_size())
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     launch = (int(plan.path == "tiled"), plan.splits,

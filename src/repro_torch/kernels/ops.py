@@ -14,10 +14,21 @@ otherwise), as the JAX package does, and hand the payloads to the kernels.
 The ``dense_*`` helpers are the dense unit's forward and backward on the
 kernels, with per-call absmax scales and no (I,F) rounding.
 
-The JAX package's block tuners and tune cache (``tune_*``) budget a TPU
-core's VMEM and fall back to jnp where a shape does not fit; they are not
-ported, and nothing gates the kernels here: on CUDA tensors every kernel
-launches at any shape (the kernels mask ragged edges).
+The tuners (``tune_blocks``, ``tune_fused``, ``tune_paged``,
+``tune_prologue``) and the tune cache keep the JAX package's names and
+lifecycle: prime at driver start-up from the run's shapes
+(``train_tune_shapes``, ``serve_tune_shapes``), ``tune_cache_snapshot()``
+into the checkpoint's and the serve snapshot's ``extra``,
+``load_tune_cache()`` on restore (no-clobber, ``restored:`` provenance),
+``dump_tune_cache()``/``REPRO_TUNE_CACHE`` for a file.  The JAX tuners
+budget a TPU core's VMEM and send a shape that does not fit to jnp; here
+nothing gates the kernels (every shape launches, the kernels mask ragged
+edges), so a decision is the launch each kernel's own ``_plan`` picks for
+the card's SM count: the K or token split, whose f32 partial sums set the
+emulate datapath's bits.  The cache (``kernels.common``) is keyed without
+the SM count, so a resumed run replays the original run's splits on any
+card.  ``resolve_double_buffer`` has no counterpart: each CUDA kernel
+keeps its own ``cp.async`` ring.
 """
 from __future__ import annotations
 
@@ -27,8 +38,19 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import bp_fused_unit as _FU
+from repro_torch.kernels import bp_gstep as _GS
+from repro_torch.kernels import decode_prologue as _DP
+from repro_torch.kernels import fxp_matmul as _FM
+from repro_torch.kernels import paged_attention as _PA
+from repro_torch.kernels import sgd_dw_update as _SD
 from repro_torch.kernels.bp_fused_unit import bp_fused_unit
 from repro_torch.kernels.bp_gstep import bp_gstep
+from repro_torch.kernels.common import (TUNE_KINDS, clear_tune_cache,
+                                        default_sm_count, dump_tune_cache,
+                                        foreign_tune_entries, load_tune_cache,
+                                        tune_cache_snapshot, tune_cache_stats,
+                                        tune_key)
 from repro_torch.kernels.fxp_matmul import fxp_matmul
 from repro_torch.kernels.sgd_dw_update import sgd_dw_update
 from repro_torch.quant.int8 import quantize_int8_absmax, quantize_int8_auto
@@ -66,6 +88,182 @@ def kernel_backend_ctx(backend: Optional[str], device=None):
 
 def current_backend() -> str:
     return _BACKEND.get()
+
+
+# ---------------------------------------------------------------------------
+# The tuners and the priming of the tune cache
+# ---------------------------------------------------------------------------
+
+def _datapath(itemsize: int) -> str:
+    return "int8" if itemsize == 1 else "emulate"
+
+
+def _resolve(kind: str, key: tuple, n_sm: int):
+    """The decision of ``kind`` for a cache key (``TUNE_KINDS`` fields),
+    through the kernel's own ``tuned_plan``."""
+    if kind == "fxp_matmul":
+        m, n, k, dp, xb, wb = key
+        return _FM.tuned_plan(m, k, n, n_sm, dp, xb, wb)
+    if kind == "bp_gstep":
+        m, n, k, dp = key
+        return _GS.tuned_plan(m, n, k, n_sm, dp)
+    if kind == "sgd_dw_update":
+        m, n, k, dp = key
+        return _SD.tuned_plan(k, m, n, n_sm, dp)
+    if kind == "bp_fused_unit":
+        return _FU.tuned_plan(*key[:3], n_sm, key[3])
+    if kind == "decode_prologue":
+        b, d, h, hkv, hd, dp, xb = key
+        return _DP.tuned_plan(b, d, h, hkv, hd, n_sm, dp, xb)
+    if kind == "paged_attention":
+        return _PA.tuned_chunks(*key, n_sm)
+    raise KeyError(f"no tune-cache kind {kind!r}; the kinds are "
+                   f"{tuple(TUNE_KINDS)}")
+
+
+def tune_blocks(m: int, n: int, k: int, itemsize: int = 4, *,
+                kernel: str = "fxp_matmul", x_itemsize: Optional[int] = None,
+                n_sm: Optional[int] = None):
+    """The launch of the product [m, k] @ [k, n] by ``kernel``:
+    ``fxp_matmul`` (X @ W, the forward), ``bp_gstep`` (G @ Wᵀ: m tokens,
+    k = Dout, n = Din) or ``sgd_dw_update`` (Xᵀ @ G: m = Din, k tokens,
+    n = Dout).  ``itemsize`` 1 is the int8 datapath, else emulate with W's
+    element size (``x_itemsize`` X's, default the same; bp_gstep and
+    sgd_dw_update take f32).  ``n_sm`` defaults to the card's SM count
+    (``common.DEFAULT_SM_COUNT`` without one).  Decisions persist in the
+    tune cache; restored entries win."""
+    key = (int(m), int(n), int(k), _datapath(itemsize))
+    if kernel == "fxp_matmul":
+        key += (int(x_itemsize or itemsize), int(itemsize))
+    elif kernel not in ("bp_gstep", "sgd_dw_update"):
+        raise ValueError(f"tune_blocks: no matmul kernel {kernel!r}")
+    return _resolve(kernel, key, n_sm or default_sm_count())
+
+
+def tune_fused(t: int, din: int, dout: int, itemsize: int = 4, *,
+               n_sm: Optional[int] = None):
+    """bp_fused_unit's plan (cluster, Dout chunks) of a TDM frame."""
+    return _resolve("bp_fused_unit",
+                    (int(t), int(din), int(dout), _datapath(itemsize)),
+                    n_sm or default_sm_count())
+
+
+def tune_paged(num_blocks: int, block_size: int, max_blocks_per_seq: int,
+               kv_heads: int, head_dim: int, groups: int,
+               itemsize: int = 4, *, n_sm: Optional[int] = None) -> int:
+    """paged_attention's chunk count for a pool of ``num_blocks`` blocks of
+    ``block_size`` tokens whose tables hold ``max_blocks_per_seq`` blocks;
+    ``itemsize`` is the pool's element size."""
+    key = (num_blocks, block_size, max_blocks_per_seq, kv_heads, head_dim,
+           groups, itemsize)
+    return _resolve("paged_attention", tuple(int(v) for v in key),
+                    n_sm or default_sm_count())
+
+
+def tune_prologue(d: int, h: int, hkv: int, hd: int, itemsize: int = 4, *,
+                  rows: int = 1, x_itemsize: int = 2,
+                  n_sm: Optional[int] = None):
+    """decode_prologue's plan for ``rows`` decode rows of width ``d``;
+    ``itemsize`` is the weight payload's size (1 on the int8 datapath),
+    ``x_itemsize`` the compute dtype's."""
+    key = (int(rows), int(d), int(h), int(hkv), int(hd),
+           _datapath(itemsize), int(x_itemsize))
+    return _resolve("decode_prologue", key, n_sm or default_sm_count())
+
+
+def prime_tune_cache(shapes: dict, *, n_sm: Optional[int] = None) -> dict:
+    """Derive and cache the decisions a run will need (call at driver
+    start-up, after any checkpoint restore: restored entries are cache
+    hits and are not re-derived).  ``shapes`` maps a kind of
+    ``TUNE_KINDS`` to its cache keys (``train_tune_shapes``,
+    ``serve_tune_shapes``).  Returns {snapshot key: decision}."""
+    n_sm = n_sm or default_sm_count()
+    return {tune_key(kind, tuple(key)): _resolve(kind, tuple(key), n_sm)
+            for kind, keys in shapes.items() for key in keys}
+
+
+def _dtype_bytes(name: str) -> int:
+    return torch.empty((), dtype=getattr(torch, name)).element_size()
+
+
+def _unit_products(cfg) -> list:
+    """The dense units of one of ``cfg``'s transformer blocks:
+    ``(din, dout, w_bytes)`` with W's element size on the emulate datapath
+    (the f32 masters; the output projection's W is cast to the compute
+    dtype).  MLA, the experts and the Mamba layers are plain products."""
+    xb = _dtype_bytes(cfg.compute_dtype)
+    d = int(cfg.d_model)
+    out = []
+    if cfg.num_heads and not cfg.use_mla:
+        hw = int((cfg.padded_heads or cfg.num_heads) * cfg.head_dim)
+        kvw = int(cfg.num_kv_heads * cfg.head_dim)
+        out += [(d, hw, 4), (d, kvw, 4), (hw, d, xb)]
+    if cfg.d_ff and cfg.family != "moe":
+        out += _mlp_products(cfg)
+    return out
+
+
+def _mlp_products(cfg) -> list:
+    d, ff = int(cfg.d_model), int(cfg.d_ff)
+    return [(d, ff, 4), (ff, d, 4)]
+
+
+def _engine_keys(t: int, products, xb: int) -> dict:
+    """The cache keys of dense_fwd / dense_bwd_dx / dense_bwd_dw at ``t``
+    tokens for each product, on both datapaths."""
+    keys = {"fxp_matmul": [], "bp_gstep": [], "sgd_dw_update": []}
+    for din, dout, wb in products:
+        for dp, xbytes, wbytes in (("int8", 1, 1), ("emulate", xb, wb)):
+            keys["fxp_matmul"].append((t, dout, din, dp, xbytes, wbytes))
+            keys["bp_gstep"].append((t, din, dout, dp))
+            keys["sgd_dw_update"].append((din, dout, t, dp))
+    return keys
+
+
+def train_tune_shapes(cfg, global_batch: int, seq_len: int) -> dict:
+    """The ``prime_tune_cache`` shape set of a train run: what the
+    engine's dense units launch (``dense_fwd``, ``dense_bwd_dx``,
+    ``dense_bwd_dw``) for each distinct product of ``cfg``'s units at
+    t = batch x seq tokens (a vlm's patches count; an encoder's units run
+    at batch x ``encoder_seq``), on both datapaths."""
+    b = int(global_batch)
+    t = b * (int(seq_len)
+             + (int(cfg.num_patches) if cfg.family == "vlm" else 0))
+    xb = _dtype_bytes(cfg.compute_dtype)
+    stacks = [(t, _unit_products(cfg))]
+    if cfg.family == "encdec":
+        stacks.append((b * int(cfg.encoder_seq), _unit_products(cfg)))
+    shapes: dict = {}
+    for tt, products in stacks:
+        for kind, keys in _engine_keys(tt, products, xb).items():
+            shapes.setdefault(kind, {}).update(dict.fromkeys(keys))
+    return {kind: list(keys) for kind, keys in shapes.items()}
+
+
+def serve_tune_shapes(cfg, *, num_blocks: int, block_size: int,
+                      max_blocks_per_seq: int, cache_itemsize: int = 4,
+                      num_slots: int = 1) -> dict:
+    """The ``prime_tune_cache`` shape set of the paged serving path: the
+    paged-attention chunking for the pool, the decode prologue and the
+    decode rows' MLP products at M = ``num_slots``, on both datapaths."""
+    d = int(cfg.d_model)
+    h = int(cfg.padded_heads or cfg.num_heads)
+    hkv = int(cfg.num_kv_heads)
+    hd = int(cfg.head_dim)
+    xb = _dtype_bytes(cfg.compute_dtype)
+    m = int(num_slots)
+    shapes = {
+        "paged_attention": [(int(num_blocks), int(block_size),
+                             int(max_blocks_per_seq), hkv, hd,
+                             max(1, h // max(hkv, 1)), int(cache_itemsize))],
+        "decode_prologue": [(m, d, h, hkv, hd, "int8", xb),
+                            (m, d, h, hkv, hd, "emulate", xb)],
+        "fxp_matmul": []}
+    if cfg.d_ff and cfg.family != "moe":
+        for din, dout, wb in _mlp_products(cfg):
+            shapes["fxp_matmul"] += [(m, dout, din, "int8", 1, 1),
+                                     (m, dout, din, "emulate", xb, wb)]
+    return shapes
 
 
 def fxp_matmul_op(x, w, *, xa_bits=(4, 10), w_bits=(2, 12), out_bits=(4, 10),

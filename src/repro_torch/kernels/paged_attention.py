@@ -19,7 +19,9 @@ across calls for each (device, stream) (the kernel leaves it zero again):
 calls on one stream run in order, so they never share a ticket, and calls
 on two streams get two buffers.  The kernel takes ``hd`` a multiple of 8
 and pool bases aligned to 8 elements (at most 16 bytes); it refuses
-anything else.
+anything else.  The chunk count is the call's tune-cache decision
+(``tuned_chunks``); the kernel's CHUNK is compiled in, so a cached count
+that disagrees with it is refused.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import math
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels.common import sm_count, tuned
 
 NEG_INF = -1e30  # matches models.layers.NEG_INF
 
@@ -57,6 +60,21 @@ def _chunks(m: int, bs: int) -> list:
     the last."""
     n = m * bs
     return [(s, min(s + CHUNK, n)) for s in range(0, n, CHUNK)]
+
+
+def tuned_chunks(n: int, bs: int, m: int, hkv: int, hd: int, groups: int,
+                 item: int, n_sm: int) -> int:
+    """The chunk count of a call through the tune cache (``common.tuned``),
+    keyed as the JAX package's paged tuner: pool blocks, block size,
+    blocks a slot, KV heads, head dim, groups and the pool's element size.
+    Raises where a cached count is not the kernel's (``_chunks``)."""
+    s = tuned("paged_attention", (n, bs, m, hkv, hd, groups, item), n_sm,
+              lambda: len(_chunks(m, bs)))
+    if s != len(_chunks(m, bs)):
+        raise ValueError(f"paged_attention: a tune-cache decision of {s} "
+                         f"chunks for {m} blocks of {bs}; the kernel takes "
+                         f"{len(_chunks(m, bs))}")
+    return s
 
 
 def _scratch_shapes(b: int, h: int, hd: int, m: int, bs: int) -> dict:
@@ -171,6 +189,7 @@ def _launch(q, pool_l, tables, lens, groups, scale):
             raise ValueError("paged_attention: operands must be contiguous "
                              f"on {dev}")
     out = torch.empty_like(q)
+    tuned_chunks(n, bs, m, hkv, hd, groups, kp.element_size(), sm_count(dev))
     shapes = _scratch_shapes(b, h, hd, m, bs)
     n_probs, n_stats, n_part = (math.prod(v) for v in shapes.values())
     scratch = torch.empty(n_probs + n_stats + n_part, dtype=torch.float32,

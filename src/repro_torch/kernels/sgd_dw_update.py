@@ -34,7 +34,8 @@ import torch
 from repro_torch import _build
 from repro_torch.kernels import ref
 from repro_torch.kernels.common import (bits_args, check_operands,
-                                        cuda_device, lr_args, sm_count)
+                                        cuda_device, lr_args, sm_count,
+                                        tuned)
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FN = {}
@@ -88,6 +89,14 @@ def _plan(t: int, din: int, dout: int, n_sm: int,
     s = 1 << (s.bit_length() - 1)
     per = -(-nk // s)
     return kind, per, -(-nk // per)
+
+
+def tuned_plan(t: int, din: int, dout: int, n_sm: int,
+               datapath: str) -> tuple:
+    """``_plan``'s launch through the tune cache (``common.tuned``), keyed
+    as the product Xᵀ @ G: m = din, n = dout, k = t."""
+    return tuple(tuned("sgd_dw_update", (din, dout, t, datapath), n_sm,
+                       lambda: _plan(t, din, dout, n_sm, datapath)))
 
 
 def _vec(t: torch.Tensor, datapath: str) -> int:
@@ -153,11 +162,12 @@ sgd_dw_update.launches = 0
 
 
 def _launch(x, g, w, lr, w_bits, datapath, scale, tensors):
+    """One launch by the tune cache's plan (``tuned_plan``)."""
     dev = cuda_device("sgd_dw_update", tensors)
     fns = _lib()
     t, din = x.shape
     dout = g.shape[1]
-    kind, per, s = _plan(t, din, dout, sm_count(dev), datapath)
+    kind, per, s = tuned_plan(t, din, dout, sm_count(dev), datapath)
     out = torch.empty((din, dout), dtype=torch.float32, device=dev)
     wp = None if w is None else w.data_ptr()
     lr_val, lr_t = lr_args(lr, dev)

@@ -187,6 +187,28 @@ def main(argv=None) -> dict:
           f"attn_impl={args.attn_impl}", flush=True)
 
     hooks = EngineHooks.for_model(params, cfg, serve)
+
+    if mode == "paged":
+        # prime the kernel tune cache for this serve's decode shapes (paged
+        # attention, the fused prologue and the decode rows' MLP products)
+        # so that the first decode tick finds its launches decided; after
+        # the hooks, which refuse a family that paged mode cannot serve
+        from repro_torch.kernels.ops import (prime_tune_cache,
+                                             serve_tune_shapes,
+                                             tune_cache_stats)
+        derived = tune_cache_stats()["misses"]
+        tuned = prime_tune_cache(serve_tune_shapes(
+            cfg, num_blocks=serve.resolved_num_blocks,
+            block_size=serve.block_size,
+            max_blocks_per_seq=serve.max_blocks_per_seq,
+            cache_itemsize=torch.empty(
+                (), dtype=serve.torch_cache_dtype()).element_size(),
+            num_slots=serve.num_slots))
+        derived = tune_cache_stats()["misses"] - derived
+        print(f"[serve] kernel tune cache primed: {derived}/{len(tuned)} "
+              f"shape(s) derived, {len(tuned) - derived} already cached",
+              flush=True)
+
     decode_s = [0.0]
     inner = hooks.decode
 

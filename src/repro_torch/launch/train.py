@@ -36,8 +36,14 @@ serving export ``bit_plan_serve.json`` under ``--ckpt-dir`` (or
 ``artifacts/``), checks the train<->serve int8 parity
 (``search.export``) and trains with the plan.
 
-The JAX driver's mesh, pipeline, overlap, transport and dW-compression
-flags wait for multi-GPU (ROADMAP A11); argparse refuses them.
+``--compress-dw`` routes each layer's dW through the int8 block-scaled
+wire format (``dist.collectives.compressed_psum``) in the engine's
+backward loop: on one device the codec round trip, as the JAX driver's.
+The kernel tune cache is primed for the run's shapes after any restore,
+so the checkpoint's decisions stay cache hits (``kernels.ops``).  The JAX
+driver's mesh, pipeline, overlap and transport flags wait for the rest of
+multi-GPU (ROADMAP A11: the overlap and transports, the pipeline, the
+sharded driver); the driver refuses them by name.
 """
 from __future__ import annotations
 
@@ -57,6 +63,8 @@ from repro_torch.core.steps import (apply_resume_extra, capture_resume_extra,
                                     default_bits, init_train_state)
 from repro_torch.data import SyntheticLMDataset, StragglerTolerantLoader
 from repro_torch.ft import FaultPlan
+from repro_torch.kernels.ops import (prime_tune_cache, train_tune_shapes,
+                                     tune_cache_stats)
 from repro_torch.models import lm
 from repro_torch.optim import Hyper, OptimizerConfig, cosine_schedule
 from repro_torch.util import prng
@@ -103,6 +111,12 @@ def modality_inputs(cfg, bsz: int, step: int, device) -> dict:
     return {}
 
 
+# the JAX driver's flags of multi-GPU items not ported yet (refused by name)
+LATER_A11_FLAGS = ("--data", "--model", "--pipe", "--pipeline-schedule",
+                   "--virtual-stages", "--microbatches", "--overlap",
+                   "--overlap-depth", "--transport")
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen1.5-0.5b")
@@ -146,6 +160,11 @@ def _parser() -> argparse.ArgumentParser:
                          "(and updates with --quantize-updates); noise is "
                          "keyed per (step, layer, batch row), as the JAX "
                          "driver keys it")
+    ap.add_argument("--compress-dw", action="store_true",
+                    help="route per-layer dW through the int8 block-scaled "
+                         "wire format inside the backward loop")
+    for flag in LATER_A11_FLAGS:
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--quantize-updates", action="store_true",
                     help="strict paper mode: quantize q(alpha*dW) in the "
                          "layer's gradient (I,F) format before the update")
@@ -173,7 +192,16 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     """Train; returns the per-step losses (floats)."""
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
+    later = [f for f in LATER_A11_FLAGS
+             if getattr(args, f[2:].replace("-", "_")) is not None]
+    if later:
+        ap.error(f"{', '.join(later)}: the port has the blocking dW "
+                 f"reduction and --compress-dw only; the mesh, pipeline, "
+                 f"overlap and transport options wait for the rest of "
+                 f"ROADMAP A11 (dist/async_collectives, dist/pipeline, "
+                 f"dist/sharding and dist/api)")
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch)
@@ -186,6 +214,7 @@ def main(argv=None):
     policy = (QuantPolicy(grad_scale=64.0) if args.quantize
               else QuantPolicy.off())
     policy = dataclasses.replace(policy, kernel_backend=args.kernel_backend,
+                                 compress_dw=args.compress_dw,
                                  stochastic=args.stochastic,
                                  quantize_updates=args.quantize_updates,
                                  bit_anneal=args.bit_anneal)
@@ -236,6 +265,17 @@ def main(argv=None):
         start_step = apply_resume_extra(extra, cfg, ckpt_step,
                                         anneal=args.bit_anneal)
         print(f"[train] resumed from step {start_step}", flush=True)
+
+    # prime the kernel tune cache for this run's shapes after the restore:
+    # the checkpoint's entries are cache hits (kept with their restored:
+    # provenance and replayed, never re-derived)
+    derived = tune_cache_stats()["misses"]
+    tuned = prime_tune_cache(train_tune_shapes(cfg, args.global_batch,
+                                               args.seq_len))
+    derived = tune_cache_stats()["misses"] - derived
+    print(f"[train] kernel tune cache primed: {derived}/{len(tuned)} "
+          f"shape(s) derived, {len(tuned) - derived} already cached",
+          flush=True)
 
     ckpt = (AsyncCheckpointer(args.ckpt_dir,
                               fault=plan.ckpt_fault if plan else None)

@@ -31,9 +31,11 @@ tables and the prefix index), in the JAX package's format, so it rides
 either package's checkpoint layer and either package's
 ``BatchScheduler.restore`` continues the stream with identical outputs.
 numpy has no bfloat16: a bf16 cache is snapshotted widened to f32
-(exactly) and restored into the hooks' cache dtype.  The kernel tuners are
-not ported (ROADMAP A8), so a paged snapshot's ``tune_cache`` is written
-empty and a JAX snapshot's decisions are not installed.
+(exactly) and restored into the hooks' cache dtype.  A paged snapshot
+carries the kernel tune cache (``kernels.ops.tune_cache_snapshot``) as
+the JAX format's JSON bytes, and ``restore`` installs its decisions (a
+JAX snapshot's kinds are skipped), so the restored serve replays the
+original launches.
 """
 from __future__ import annotations
 
@@ -46,6 +48,7 @@ from typing import Any, Callable, Deque, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.serving.paging import (BlockPool, PoolExhausted, PrefixIndex,
                                         blocks_for)
 
@@ -175,7 +178,6 @@ class EngineHooks:
         block bytes do not depend on chunking; the contiguous prefill runs
         under ``engine.prefill``'s own "auto" (int8 on CUDA), as the JAX
         package's does."""
-        from repro_torch.kernels import ops as kops
         from repro_torch.serving import engine as E
 
         device = params["embed"].device
@@ -646,10 +648,9 @@ class BatchScheduler:
             "kernel_backend": (0 if c.kernel_backend is None else
                                1 + _KERNEL_BACKENDS.index(c.kernel_backend)),
         }
-        # the JAX format's tune-cache decisions, as JSON bytes; the port
-        # has no tuner (ROADMAP A8), so there are none
-        base["tune_cache"] = np.frombuffer(json.dumps({}).encode(),
-                                           np.uint8).copy()
+        # the tune-cache decisions as the JAX format's JSON bytes
+        base["tune_cache"] = np.frombuffer(
+            json.dumps(kops.tune_cache_snapshot()).encode(), np.uint8).copy()
         base["pool"] = _to_host(self.pool)
         base["block_pool"] = self.block_pool.snapshot()
         base["prefix"] = (self.prefix.snapshot() if self.prefix is not None
@@ -691,12 +692,15 @@ class BatchScheduler:
                 kernel_backend=kb)
             tc = snap.get("tune_cache")
             if tc is not None and np.asarray(tc).size:
-                n = len(json.loads(np.asarray(tc, np.uint8).tobytes()
-                                   .decode()))
-                if n:
-                    print(f"[serve] snapshot carries {n} tune-cache "
-                          f"decision(s); the port has no tuner and does not "
-                          f"install them", flush=True)
+                tune = json.loads(np.asarray(tc, np.uint8).tobytes()
+                                  .decode())
+                n = kops.load_tune_cache(tune)
+                skipped = kops.foreign_tune_entries(tune)
+                if n or skipped:
+                    print(f"[serve] restored {n} tune-cache decision(s) "
+                          f"from snapshot" + (
+                              f"; skipped {skipped} of the JAX package's"
+                              if skipped else ""), flush=True)
             sched = cls(config, dataclasses.replace(hooks, init_state=pool))
             sched.block_pool = BlockPool.restore(snap["block_pool"])
             if config.prefix_sharing:

@@ -69,6 +69,7 @@ from repro_torch.util.tree import tree_leaves_with_path as _leaves
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke as CS  # noqa: E402  (its tolerance constants)
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 TINY = dict(name="t-dense", family="dense", num_layers=2, d_model=32,
             num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=128,
@@ -378,10 +379,25 @@ def test_update_sensitivity_justifies_card_tolerance():
     dict(overlap="on"), dict(dw_transport="ring"),
     dict(bit_anneal="0:16")])
 def test_unported_policy_options_raise(policy_kw):
-    """The JAX policy's multi-device options are not fields of the port's
-    policy yet: asking for one fails at once.  Its anneal is ported
-    (``search.anneal``): ``bit_anneal`` is accepted, and the step built from
-    the policy applies the ramp to its bits."""
+    """The JAX policy's overlap and transport options are not fields of
+    the port's policy yet: asking for one fails at once.  The blocking dW
+    reduction's fields are ported (``dist.collectives``): ``compress_dw``
+    is accepted, and axes named with no process group to reduce over
+    raise in the step rather than skip the reduction.  Its anneal is
+    ported (``search.anneal``): ``bit_anneal`` is accepted, and the step
+    built from the policy applies the ramp to its bits."""
+    if "compress_dw" in policy_kw or "dw_psum_axes" in policy_kw:
+        pol = QuantPolicy(**policy_kw)
+        assert (pol.compress_dw, pol.dw_psum_axes) == (
+            policy_kw.get("compress_dw", False),
+            policy_kw.get("dw_psum_axes", ()))
+        if pol.dw_psum_axes:
+            _, tc, _, _ = _setup("tiny")
+            ocfg = OptimizerConfig(kind="sgd")
+            step = make_train_step(tc, pol, ocfg, device="cpu")
+            with pytest.raises(RuntimeError, match="needs a process group"):
+                _run(step, _tparams("tiny"), ocfg, _batch(), default_bits(tc))
+        return
     if "bit_anneal" in policy_kw:
         pol = QuantPolicy(**policy_kw)
         assert pol.bit_anneal == "0:16"

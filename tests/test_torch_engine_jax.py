@@ -23,6 +23,7 @@ from repro_torch.core import (QuantPolicy, StepOptions, default_bits,
 from repro_torch.optim import OptimizerConfig
 
 from test_torch_engine import GRID, _batch, _leaves, _run, _setup, _tparams
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 
 @functools.lru_cache(maxsize=None)

@@ -69,6 +69,7 @@ from repro_torch.util.tree import tree_map  # noqa: E402
 
 sys.path.insert(0, str(ROOT))
 import chip_smoke as CS  # noqa: E402  (the mla phase's constants)
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 LR = 0.05
 # the names through which the port reaches each of the six kernels

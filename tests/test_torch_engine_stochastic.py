@@ -45,6 +45,7 @@ from repro_torch.optim import Hyper, OptimizerConfig
 from repro_torch.util import prng
 
 from test_torch_engine import GRID, _batch, _leaves, _setup, _tparams
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 J_RNG = jax.random.fold_in(jax.random.key(1), 3)
 RNG = np.asarray(jax.random.key_data(J_RNG))

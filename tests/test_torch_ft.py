@@ -23,6 +23,8 @@ from repro_torch.data import (DataProducerError, StragglerTolerantLoader,
                               SyntheticLMDataset)
 from repro_torch.ft import (ENV_KNOB, FAULT_EXIT_CODE, FaultEvent, FaultPlan,
                             flip_one_bit)
+from repro_torch.kernels.ops import (clear_tune_cache, tune_blocks,
+                                     tune_cache_snapshot)
 
 
 def tree():
@@ -229,13 +231,17 @@ def test_capture_and_apply_resume_extra(tmp_path, capsys):
     loader = StragglerTolerantLoader(lambda s: {"x": np.zeros(2)},
                                      deadline_s=2.0)
     loader.get(0)
+    clear_tune_cache()
+    # a decision with a nested tuple and flags rides the manifest too
+    tune_blocks(1024, 896, 4864, 1, kernel="bp_gstep")
     extra = capture_resume_extra(cfg, 7, loader=loader,
                                  user_extra={"loss": 1.5})
     loader.close()
     assert extra["resume_schema"] == RESUME_SCHEMA
     assert extra["arch"] == cfg.name and extra["data_step"] == 7
     assert extra["loss"] == 1.5 and extra["loader"]["served"] == 1
-    assert extra["transport_cache"] == {} and extra["tune_cache"] == {}
+    assert extra["transport_cache"] == {}
+    assert extra["tune_cache"] == tune_cache_snapshot()
 
     # it round-trips the checkpoint manifest
     save_checkpoint(tmp_path, 7, tree(), extra=extra)
@@ -244,7 +250,13 @@ def test_capture_and_apply_resume_extra(tmp_path, capsys):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert apply_resume_extra(extra2, cfg, 7) == 7
-    assert capsys.readouterr().out == ""  # empty caches: nothing to say
+    # the cache holds the payload's decisions already: nothing installed
+    assert capsys.readouterr().out == ""
+    clear_tune_cache()
+    assert apply_resume_extra(extra2, cfg, 7) == 7
+    assert capsys.readouterr().out == ("[train] restored 1 tune-cache "
+                                       "decision(s) from checkpoint\n")
+    clear_tune_cache()
 
     with pytest.raises(ValueError, match="refusing to resume"):
         apply_resume_extra({"arch": cfg.name}, get_config("gemma-7b"), 7)
@@ -254,17 +266,34 @@ def test_capture_and_apply_resume_extra(tmp_path, capsys):
 
 
 def test_apply_resume_extra_of_a_jax_payload(capsys):
-    """A JAX-written payload's caches are named in one line and not
-    installed; its bit-anneal spec gets the JAX package's warning."""
+    """A JAX-written payload's transport cache is named and not installed,
+    its tune-cache kinds are counted and skipped, the port's own kinds in
+    it are installed; its bit-anneal spec gets the JAX package's
+    warning."""
     cfg = get_config("qwen1.5-0.5b")
+    port = "kind=sgd_dw_update,m=8,n=8,k=64,dp=int8"
     extra = {"arch": cfg.name, "data_step": 12,
              "transport_cache": {"compressed=False,bytes=8192,g=4":
                                  {"transport": "ring"}},
-             "tune_cache": {"a": {}, "b": {}}}
-    assert apply_resume_extra(extra, cfg, 12) == 12
+             "tune_cache": {
+                 "kind=blocks,m=32,n=16,k=48,item=4,acc=4,db=True":
+                 {"decision": [32, 16, 48], "source": "computed"},
+                 "a": {},
+                 port: {"decision": ["int8", 1, 1], "source": "computed",
+                        "sm": 114}}}
+    clear_tune_cache()
+    try:
+        assert apply_resume_extra(extra, cfg, 12) == 12
+        assert tune_cache_snapshot() == {port: {
+            "decision": ["int8", 1, 1], "source": "restored:computed",
+            "sm": 114}}
+    finally:
+        clear_tune_cache()
     out = capsys.readouterr().out.splitlines()
-    assert out == ["[train] checkpoint carries 1 transport-cache and 2 "
-                   "tune-cache decision(s); the port has no tuner and does "
-                   "not install them"]
+    assert out == ["[train] checkpoint carries 1 transport-cache "
+                   "decision(s); the port has no transports yet and does "
+                   "not install them",
+                   "[train] restored 1 tune-cache decision(s) from "
+                   "checkpoint; skipped 1 of the JAX package's"]
     with pytest.warns(RuntimeWarning, match="bit-anneal mismatch"):
         assert apply_resume_extra({"bit_anneal": "0:16,100:12"}, cfg, 3) == 3

@@ -64,6 +64,37 @@ def test_port_modules_import_without_jax():
     assert int(out.stdout.split()[-1]) >= 17
 
 
+# the cross-replica dW reduction's modules (dist/, launch/mesh,
+# quant/compression), checked like every port module above and run here
+# in a fresh interpreter without JAX
+DW_REDUCTION = ("dist/__init__.py", "dist/collectives.py", "launch/mesh.py",
+                "quant/compression.py")
+
+
+def test_the_dw_reduction_modules_stand_alone():
+    assert all(PORT / m in PORT_FILES for m in DW_REDUCTION)
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "import torch\n"
+        "from repro_torch.dist import compressed_psum, dense_psum\n"
+        "from repro_torch.launch import mesh\n"
+        "from repro_torch.quant.compression import compress_int8\n"
+        "x = torch.arange(300.0)\n"
+        "assert torch.equal(dense_psum(x), x)\n"
+        "y = compressed_psum(x, (), num_replicas=2)\n"
+        "assert y.shape == x.shape and compress_int8(x)[1].numel() == 2\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_clean_env(),
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
+
+
 def test_serve_entry_point_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device would run")

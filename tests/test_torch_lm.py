@@ -52,6 +52,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import lm as TLM
 from repro_torch.models.config import ModelConfig as TMC
 from repro_torch.util.tree import tree_leaves, tree_map
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 TINY = dict(name="t-dense", family="dense", num_layers=2, d_model=32,
             num_heads=4, num_kv_heads=2, d_ff=64, vocab_size=128,

@@ -20,6 +20,7 @@ from hypothesis import strategies as st
 from repro.quant import fixed_point as JF
 from repro_torch.quant import fixed_point as TF
 from repro_torch.util import prng
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 SEEDS = st.one_of(st.sampled_from([0, 1, 2 ** 31 - 1, 2 ** 32 - 1]),
                   st.integers(0, 2 ** 32 - 1))

@@ -45,6 +45,7 @@ from repro_torch.serving import (BatchScheduler, BlockPool, EngineHooks,
                                  PoolExhausted, PrefixIndex, Request,
                                  ServeConfig)
 from repro_torch.serving import engine as TE
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 BS, MAXB = 8, 6                    # block size, blocks per slot
 

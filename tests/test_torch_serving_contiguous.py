@@ -23,6 +23,7 @@ Tolerances, and why:
 """
 import copy
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +51,7 @@ from repro_torch.serving import (BatchScheduler, EngineHooks, Request,
 from repro_torch.util.tree import tree_leaves_with_path
 
 from test_torch_serving import _cfgs, _close, _params
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 CACHES = {"float32": (jnp.float32, torch.float32),
           "int8": (jnp.int8, torch.int8)}
@@ -296,7 +298,9 @@ def test_snapshot_restore_continues_identically(tmp_path, mode):
     again.run_until_drained()
     _same_tree(snap, kept)
     if mode == "paged":
-        assert bytes(snap["tune_cache"]) == b"{}"
+        # the port's tune cache as the JAX format's JSON bytes
+        assert json.loads(bytes(snap["tune_cache"])) == \
+            TO.tune_cache_snapshot()
         assert all(isinstance(v, int) for v in snap["serve"].values())
 
 

@@ -40,6 +40,7 @@ from repro.launch import train as j_train
 from repro.models import lm as JLM
 from repro.optim import OptimizerConfig as JOCfg
 from repro_torch.launch import train
+from test_torch_encdec import _one_thread  # noqa: E402,F401 (autouse)
 
 STEPS = 6
 ARCH = "qwen1.5-0.5b"
@@ -135,8 +136,9 @@ def test_stochastic_driver_losses_match_the_jax_driver(runs,
 
 def test_port_resumes_a_jax_checkpoint_of_step_4(runs, tmp_path, capsys):
     """The JAX driver's own step-4 checkpoint (``--ckpt-every 3``), with
-    its primed tune cache in the payload: the port resumes at step 4 and
-    its two steps agree with the JAX driver's."""
+    its primed tune cache in the payload, whose kinds the port skips: the
+    port resumes at step 4 and its two steps agree with the JAX
+    driver's."""
     root, jax_losses, _, _ = runs
     d = tmp_path / "ck"
     shutil.copytree(root / "jax", d)
@@ -145,7 +147,7 @@ def test_port_resumes_a_jax_checkpoint_of_step_4(runs, tmp_path, capsys):
     losses = train.main(COMMON + ["--device", "cpu", "--ckpt-dir", str(d)])
     out = capsys.readouterr().out
     assert "resumed from step 4" in out
-    assert re.search(r"checkpoint carries 0 transport-cache and [1-9]\d* "
-                     r"tune-cache decision\(s\); the port has no tuner", out)
+    assert re.search(r"restored 0 tune-cache decision\(s\) from checkpoint; "
+                     r"skipped [1-9]\d* of the JAX package's", out)
     assert len(losses) == STEPS - 4
     assert _rel(losses, jax_losses[4:]) <= LOSS_RTOL, (losses, jax_losses)

@@ -309,7 +309,24 @@ Phases (any failure exits non-zero before the result line is printed):
                miss; an emulate step under a cache derived for half the
                card's SM count against the card's own (reported, equal or
                not); each cache's snapshot, reloaded, replays its step
-               bitwise.
+               bitwise; (f) the overlapped reduce
+               (``dist.async_collectives``, ``QuantPolicy.overlap``):
+               eight overlap="on" steps covering int8 and emulate, depths
+               1 and 2, ``dw_transport`` auto, ring, psum and scatter,
+               dense and ``compress_dw``, over the mesh and with no axes
+               (``DIST_OVERLAP_RUNS``), each bitwise the overlap="off"
+               step of its codec and axes (params, momentum, loss;
+               grad_norm within ``DIST_GRAD_NORM_REL``) at exactly
+               train_lm's launches; at a group of one every decision is
+               psum and the transport cache gets no entry; a snapshot
+               with a g=4 decision loads, dumps and reloads bitwise; the
+               device ms (torch.profiler) and peak GiB (above its inputs)
+               of each backend's dense on step over the mesh beside its
+               off step; the phase's part seconds; (g) the driver of (d) runs with
+               --overlap on --overlap-depth 2 --transport auto, and a
+               --reduced driver run (plain PyTorch) with the g=4 decision
+               installed writes a checkpoint that carries it, which a
+               fresh process resumes, printing ``DIST_RESUME_LINE``.
 5d. train_driver -- the port's train driver (``launch.train.main``) on
                the same full-width qwen1.5-0.5b with --quantize,
                --stochastic and --bit-anneal 0:16,3:14,6:12, int8 on the
@@ -5358,7 +5375,34 @@ DIST_DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
                     "--seq-len", str(TRAIN_LM_SEQ),
                     "--global-batch", str(TRAIN_LM_BATCH),
                     "--steps", str(DIST_DRIVER_STEPS), "--log-every", "1",
+                    "--deadline-s", str(600.0), "--overlap", "on",
+                    "--overlap-depth", "2", "--transport", "auto"]
+# the overlapped reduce, overlap="on" against "off" on one card: (backend,
+# overlap_depth, dw_transport, compress_dw, over the one-rank mesh).  Eight
+# steps cover the 2 x 2 x 4 x 2 x 2 product pairwise: every value of each
+# factor meets every value of each other factor at least once (each
+# backend takes each transport once, each depth, codec and mesh twice)
+DIST_OVERLAP_RUNS = (
+    ("int8", 1, "auto", False, True), ("int8", 2, "ring", True, True),
+    ("int8", 1, "psum", True, False), ("int8", 2, "scatter", False, False),
+    ("emulate", 2, "auto", True, False), ("emulate", 1, "ring", False, False),
+    ("emulate", 2, "psum", False, True), ("emulate", 1, "scatter", True, True))
+DIST_GRAD_NORM_REL = 1e-6
+# a decision of a group of four, as a checkpoint of a 4-rank run carries it
+DIST_G4_KEY = "compressed=False,bytes=8192,g=4"
+DIST_G4_SNAPSHOT = {DIST_G4_KEY: {"transport": "ring", "source": "measured",
+                                  "us": {"ring": 11.0, "psum": 17.5,
+                                         "scatter": 13.25}}}
+# the resume drill of the transport decisions: qwen cut to the driver's
+# --reduced twin (plain PyTorch: the drill is about the payload)
+DIST_RESUME_ARGS = ["--arch", LM_ARCH, "--reduced", "--device", "cuda",
+                    "--kernel-backend", "off", "--overlap", "on",
+                    "--overlap-depth", "2", "--transport", "auto",
+                    "--seq-len", "32", "--global-batch", "4",
+                    "--log-every", "1", "--ckpt-every", "100",
                     "--deadline-s", str(600.0)]
+DIST_RESUME_LINE = ("[train] restored 1 transport-cache decision(s) from "
+                    "checkpoint")
 
 
 def _layer_leaves(params) -> dict:
@@ -5380,42 +5424,54 @@ def _dist_step(torch, cfg, backend, dev, **policy_kw):
                            device=dev), ocfg
 
 
-def _codec_device_ms(torch, leaves, mesh, layers):
-    """The device ms of a step's codec: every stack leaf's dW through
-    ``compressed_psum`` over ``mesh`` (compress, the NCCL all-gathers,
-    decompress), ``layers`` times, under torch.profiler; None where the
-    profiler records no device time (then "not measured")."""
+def _device_ms(torch, fn, label):
+    """``fn()`` once under torch.profiler: (its result, the device ms its
+    kernels took), the ms None where the profiler fails to start or
+    records no device time (then "not measured")."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.dist import compressed_psum
-
-    xs = [x.to(torch.float32) for x in leaves.values()]
-    for x in xs:                                  # warm-up
-        compressed_psum(x, ("data",), mesh=mesh)
     torch.cuda.synchronize()
     prof = profile(activities=[ProfilerActivity.CUDA])
     try:
         prof.start()
     except (RuntimeError, AssertionError) as e:
-        say(f"dist codec: torch.profiler failed to start: {e}")
-        return None
-    for _ in range(layers):
-        for x in xs:
-            compressed_psum(x, ("data",), mesh=mesh)
+        say(f"{label}: torch.profiler failed to start: {e}")
+        return fn(), None
+    out = fn()
     torch.cuda.synchronize()
     prof.stop()
     events = prof.profiler.kineto_results.events()
     ms = sum(e.duration_ns() / 1e6 for e in events
              if e.device_type() == torch.autograd.DeviceType.CUDA
              and not e.is_user_annotation())
-    return ms if ms > 0 else None
+    return out, (ms if ms > 0 else None)
+
+
+def _codec_device_ms(torch, leaves, mesh, layers):
+    """The device ms of a step's codec: every stack leaf's dW through
+    ``compressed_psum`` over ``mesh`` (compress, the NCCL all-gathers,
+    decompress), ``layers`` times, under torch.profiler; None where the
+    profiler records no device time (then "not measured")."""
+    from repro_torch.dist import compressed_psum
+
+    xs = [x.to(torch.float32) for x in leaves.values()]
+    for x in xs:                                  # warm-up
+        compressed_psum(x, ("data",), mesh=mesh)
+
+    def codec():
+        for _ in range(layers):
+            for x in xs:
+                compressed_psum(x, ("data",), mesh=mesh)
+    return _device_ms(torch, codec, "dist codec")[1]
 
 
 def dist_phase(torch, dev):
     """The codec on the card, the one-rank NCCL psums, the engine's
-    compressed steps, the --compress-dw driver and the tune cache (module
+    compressed and overlapped steps, the transport decisions and their
+    resume, the --compress-dw --overlap driver and the tune cache (module
     docstring, phase 5j)."""
     import gc
+    import shutil
     import tempfile
 
     import torch.distributed as dist
@@ -5423,6 +5479,8 @@ def dist_phase(torch, dev):
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core import default_bits, init_train_state
+    from repro_torch.ckpt._msgpack import unpackb
+    from repro_torch.dist import async_collectives as TA
     from repro_torch.dist import (compressed_psum, compressed_psum_tree,
                                   dense_psum_tree, mesh_ctx)
     from repro_torch.kernels import ops as kops
@@ -5437,10 +5495,49 @@ def dist_phase(torch, dev):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    rec = dict(run="dist")
+    rec = dict(run="dist", part_seconds={})
+    t_part = [t_phase]
+
+    def part(name):
+        """The seconds since the last part ended, under ``name``."""
+        now = time.perf_counter()
+        rec["part_seconds"][name] = now - t_part[0]
+        t_part[0] = now
     cfg = get_config(LM_ARCH)
     params = lm.init_params(cfg, seed=0, device=dev)
     leaves = _layer_leaves(params)
+
+    # (g) the resume drill: a --reduced driver run with a g=4 decision
+    # installed writes a checkpoint that carries it; a fresh process
+    # resumes it while the rest of the phase runs
+    ck_dir = tempfile.mkdtemp(prefix="chip-smoke-resume-")
+    TA.clear_transport_cache()
+    TA.load_transport_cache(DIST_G4_SNAPSHOT)
+    losses = train.main(DIST_RESUME_ARGS + ["--steps", "2",
+                                            "--ckpt-dir", ck_dir])
+    manifest = unpackb((pathlib.Path(ck_dir) / f"step_{2:08d}"
+                        / "manifest.msgpack").read_bytes())
+    carried = manifest["extra"]["transport_cache"]
+    require(len(losses) == 2 and all(math.isfinite(v) for v in losses)
+            and list(carried) == [DIST_G4_KEY]
+            and carried[DIST_G4_KEY]["transport"] == "ring",
+            f"dist resume: losses {losses}, the checkpoint carries "
+            f"{carried}")
+    TA.clear_transport_cache()
+    kops.clear_tune_cache()
+    t_resume = time.perf_counter()
+    resume = _spawn(
+        [sys.executable, "-c", DRIVER_CMD.format(src=str(SRC)),
+         *DIST_RESUME_ARGS, "--steps", "3", "--ckpt-dir", ck_dir,
+         "--resume"],
+        env=dict({k: v for k, v in os.environ.items()
+                  if k not in ("PYTHONPATH", "REPRO_FAULT_PLAN",
+                               "REPRO_TRANSPORT")},
+                 OMP_NUM_THREADS="1", MKL_NUM_THREADS="1"))
+    say(f"dist resume: the --reduced driver's checkpoint 2 carries "
+        f"{list(carried)} ({carried[DIST_G4_KEY]['transport']}); a fresh "
+        f"process resumes it")
+    part("resume drill")
 
     # (a) the codec on the card is bitwise its CPU run
     gen = torch.Generator(device=dev)
@@ -5488,6 +5585,7 @@ def dist_phase(torch, dev):
             f"mesh, dense bitwise the identity, compressed bitwise the "
             f"round trip (tree and all-gather paths)")
         del tree, dense, comp
+        part("codec and psums")
 
         # (c) + (e): the engine's steps, primed cache
         kops.clear_tune_cache()
@@ -5498,36 +5596,61 @@ def dist_phase(torch, dev):
         batch = _lm_batch(torch, cfg, dev)
         bits = default_bits(cfg)
 
-        def run(backend, **kw):
+        def run(backend, full=False, measure=None, **kw):
+            """One step from ``params``: its new params (with ``full``,
+            (params, state, metrics)) at exactly train_lm's launches.
+            With ``measure`` (a dict), the step runs under torch.profiler
+            and ``measure`` gets its device ms and its peak GiB above
+            what was allocated before it."""
             step, ocfg = _dist_step(torch, cfg, backend, dev, **kw)
             state = init_train_state(params, ocfg)
             torch.cuda.synchronize()
             K.reset_launch_counts()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
             with mesh_ctx(mesh):
-                p, _, m = step(params, state, batch,
-                               Hyper(lr=TRAIN_LM_LR, step=0), bits)
+                (p, s, m), ms = _device_ms(
+                    torch, lambda: step(params, state, batch,
+                                        Hyper(lr=TRAIN_LM_LR, step=0), bits),
+                    f"dist {backend} {kw}") if measure is not None else (
+                    step(params, state, batch,
+                         Hyper(lr=TRAIN_LM_LR, step=0), bits), None)
             torch.cuda.synchronize()
+            if measure is not None:
+                measure.update(device_ms=ms, peak_gib=(
+                    torch.cuda.max_memory_allocated(dev) - base) / 2**30)
             counts = K.launch_counts()
             require(counts == TRAIN_LM_LAUNCHES,
                     f"dist {backend} {kw}: launches {counts}, expected "
                     f"{TRAIN_LM_LAUNCHES}")
             require(math.isfinite(float(m["loss"])),
                     f"dist {backend} {kw}: loss {float(m['loss'])}")
-            return p
+            return (p, s, m) if full else p
 
         def max_diff(a, b):
             return max(float((x - y).abs().max()) for x, y in
                        zip(_leaves(a), _leaves(b)))
 
         def same(a, b):
-            return all(_same_bits(torch, x, y)
-                       for x, y in zip(_leaves(a), _leaves(b)))
+            """Bitwise equal trees, compared on the card (a tree of a step
+            is 3.7 GB: no copy to the host)."""
+            xs, ys = _leaves(a), _leaves(b)
+            return len(xs) == len(ys) and all(
+                x.shape == y.shape and x.dtype == y.dtype
+                and bool(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                         if x.dtype == torch.float32 else torch.equal(x, y))
+                for x, y in zip(xs, ys))
 
-        steps = {}
+        steps, overlap = {}, []
         for backend in TRAIN_LM_RUNS:
-            mesh_p = run(backend, compress_dw=True, dw_psum_axes=("data",))
-            solo = run(backend, compress_dw=True)
-            plain = run(backend)
+            # the off steps by (compress_dw, over the mesh), for (f)
+            off = {(True, True): run(backend, True, compress_dw=True,
+                                     dw_psum_axes=("data",)),
+                   (True, False): run(backend, True, compress_dw=True),
+                   (False, False): run(backend, True)}
+            mesh_p, solo, plain = (off[(True, True)][0],
+                                   off[(True, False)][0],
+                                   off[(False, False)][0])
             require(same(mesh_p, solo),
                     f"dist {backend}: the step over the one-rank mesh is not "
                     f"bitwise the step with the codec and no axes")
@@ -5540,13 +5663,55 @@ def dist_phase(torch, dev):
                 f"{control:.3e}; launches {TRAIN_LM_LAUNCHES} each")
             if backend == "emulate":
                 own, own_snap = plain, kops.tune_cache_snapshot()
-            del mesh_p, solo
+            # (f) overlap="on" against its off step, bitwise; the dense
+            # steps over the mesh, off and on, measured
+            measured = {"off": {}, "on": {}}
+            off[(False, True)] = run(backend, True, measured["off"],
+                                     dw_psum_axes=("data",))
+            for b, depth, transport, compress, on_mesh in DIST_OVERLAP_RUNS:
+                if b != backend:
+                    continue
+                kw = dict(compress_dw=compress, overlap="on",
+                          overlap_depth=depth, dw_transport=transport,
+                          dw_psum_axes=("data",) if on_mesh else ())
+                p, st, m = run(backend, True, measured["on"]
+                               if on_mesh and not compress else None, **kw)
+                rp, rs, rm = off[(compress, on_mesh)]
+                label = (f"dist overlap {backend} depth {depth} {transport} "
+                         f"{'compressed' if compress else 'dense'} "
+                         f"{'over the mesh' if on_mesh else 'no axes'}")
+                require(same((p, st), (rp, rs))
+                        and _same_bits(torch, m["loss"], rm["loss"]),
+                        f"{label}: params, state or loss not bitwise the "
+                        f"overlap=off step's")
+                rel = abs(float(m["grad_norm"]) / float(rm["grad_norm"]) - 1)
+                require(rel <= DIST_GRAD_NORM_REL,
+                        f"{label}: grad_norm {float(m['grad_norm'])} against "
+                        f"{float(rm['grad_norm'])}")
+                overlap.append(dict(backend=backend, depth=depth,
+                                    transport=transport, compress=compress,
+                                    mesh=on_mesh, bitwise=True,
+                                    grad_norm_rel=rel))
+                del p, st, m
+            say(f"dist overlap {backend}: "
+                f"{sum(r['backend'] == backend for r in overlap)} on steps "
+                f"bitwise their off steps, launches {TRAIN_LM_LAUNCHES} each")
+            rec.setdefault("overlap_profile", {})[backend] = measured
+            for label, got in measured.items():
+                ms = got["device_ms"]
+                say(f"dist overlap {backend} {label}, dense over the mesh: "
+                    f"{'not measured' if ms is None else f'{ms:.3f}'} "
+                    f"device ms, peak {got['peak_gib']:.2f} GiB above its "
+                    f"inputs")
+            del off, mesh_p, solo
             if backend != "emulate":
                 del plain
+        rec["overlap_runs"] = overlap
         misses = kops.tune_cache_stats()["misses"] - misses0
         require(misses == 0, f"dist: {misses} tune-cache misses after "
                              f"priming {len(primed)} train shapes")
         rec.update(steps=steps, primed=len(primed), misses=misses)
+        part("steps, overlap on and off")
 
         # (e) a cache derived for half the card's SMs, and the replays
         kops.clear_tune_cache()
@@ -5578,19 +5743,73 @@ def dist_phase(torch, dev):
                    emulate_max_abs_diff_at_half_sm=half_diff)
         del half, own
         kops.clear_tune_cache()
+        part("tune cache at half the SMs")
+
+        # (f) a group of one: every decision psum, no cache entry
+        TA.clear_transport_cache()
+        with mesh_ctx(mesh):
+            decided = {(t, c): TA.resolve_leaf_transports(
+                list(leaves.values()), ("data",), compressed=c, transport=t)
+                for t in ("auto",) + TA.TRANSPORTS for c in (False, True)}
+            x = next(iter(leaves.values())).to(torch.float32)
+            h = TA.all_reduce_start(x, ("data",), transport="ring")
+        require(all(d == ["psum"] * len(leaves) for d in decided.values())
+                and TA.decide_transport(x.numel() * 4, 1) == "psum"
+                and h.kind == "identity" and TA.all_reduce_wait(h) is x
+                and TA.transport_cache_snapshot() == {},
+                f"dist transports at a group of one: {decided}, "
+                f"{TA.transport_cache_snapshot()}")
+        # (f) a g=4 decision's snapshot: load, dump, reload, dump again;
+        # the decisions (transport, us) of the two dumps are the same
+        # bytes, and each load prefixes "restored:" to the source, as the
+        # JAX package's loader does
+        cache_dir = tempfile.mkdtemp(prefix="chip-smoke-transport-")
+        TA.load_transport_cache(DIST_G4_SNAPSHOT)
+        TA.dump_transport_cache(cache_dir + "/a.json")
+        TA.clear_transport_cache()
+        with open(cache_dir + "/a.json") as f:
+            n_loaded = TA.load_transport_cache(json.load(f))
+        TA.dump_transport_cache(cache_dir + "/b.json")
+
+        def decisions(path):
+            with open(path) as f:
+                snap = json.load(f)
+            return json.dumps({k: [v["transport"], v["us"]]
+                               for k, v in snap.items()},
+                              sort_keys=True).encode(), snap
+
+        first, snap_a = decisions(cache_dir + "/a.json")
+        again, snap_b = decisions(cache_dir + "/b.json")
+        want = json.dumps({k: [v["transport"], v["us"]] for k, v in
+                           DIST_G4_SNAPSHOT.items()}, sort_keys=True).encode()
+        require(n_loaded == 1 and first == again == want
+                and snap_a[DIST_G4_KEY]["source"] == "restored:measured"
+                and snap_b[DIST_G4_KEY]["source"]
+                == "restored:restored:measured",
+                f"dist transport cache: {n_loaded} loaded, dumps {snap_a}, "
+                f"{snap_b}")
+        TA.clear_transport_cache()
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        say(f"dist transports: at a group of one all {len(decided)} "
+            f"(transport, codec) resolutions psum over {len(leaves)} leaves, "
+            f"no cache entry; the g=4 snapshot's decisions reload bitwise "
+            f"({len(first)} bytes)")
+        rec.update(group_of_one_psum=True, cache_round_trip_bytes=len(first))
+        part("transport decisions")
 
         # the codec's device ms a step
         rec["codec_device_ms_per_step"] = _codec_device_ms(
             torch, leaves, mesh, cfg.num_layers)
         say(f"dist codec: {rec['codec_device_ms_per_step']} device ms a "
             f"step ({cfg.num_layers} layers x {len(leaves)} leaves)")
+        part("codec device ms")
     finally:
         dist.destroy_process_group()
     del params, leaves
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (d) the driver with --compress-dw
+    # (d) the driver with --compress-dw and --overlap on
     torch.cuda.synchronize()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -5608,10 +5827,27 @@ def dist_phase(torch, dev):
     kops.clear_tune_cache()
     gc.collect()
     torch.cuda.empty_cache()
+    part("driver")
+    # (g) the resume drill's fresh process, started first, ends here
+    resume_out, resume_err = resume.communicate(timeout=DRIVER_TIMEOUT_S)
+    require(resume.returncode == 0 and DIST_RESUME_LINE in resume_out,
+            f"dist resume: exit {resume.returncode}, expected the line "
+            f"{DIST_RESUME_LINE!r}\nstdout: {resume_out[-2000:]}\n"
+            f"stderr: {resume_err[-3000:]}")
+    rec["resume_collected_s"] = time.perf_counter() - t_resume
+    say(f"dist resume: a fresh process resumed the checkpoint and "
+        f"printed {DIST_RESUME_LINE!r} (collected "
+        f"{rec['resume_collected_s']:.1f} s after its start): "
+        + " | ".join(ln for ln in resume_out.splitlines()
+                     if ln.startswith(("step", "[train] resumed"))))
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    part("resume wait")
     rec["seconds"] = time.perf_counter() - t_phase
-    say(f"dist driver --compress-dw: {DIST_DRIVER_STEPS} steps in "
-        f"{rec['driver_seconds']:.1f} s (with its init), losses {losses}, "
-        f"launches {counts}; dist: {rec['seconds']:.1f} s")
+    say(f"dist driver --compress-dw --overlap on: {DIST_DRIVER_STEPS} steps "
+        f"in {rec['driver_seconds']:.1f} s (with its init), losses {losses}, "
+        f"launches {counts}; dist: {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in rec["part_seconds"].items())
+        + ")")
     return rec
 
 
@@ -5649,6 +5885,23 @@ DRIVER_CMD = (
     "bad = [m for m in ('jax', 'repro') if m in sys.modules]; "
     "sys.exit(f'imported {{bad}}' if bad else 0)")
 DRIVER_TIMEOUT_S = 900
+
+
+def _spawn(cmd, env) -> subprocess.Popen:
+    """Start ``cmd`` from the repo root with its output captured, and kill
+    it when this script exits, whatever phase fails first."""
+    import atexit
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=ROOT,
+                            env=env)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    atexit.register(stop)
+    return proc
 STEP_LINE = re.compile(r"step\s+(\d+) loss (\d+\.\d+) gnorm \S+ lr \S+ "
                        r"(\d+\.\d+)s")
 CKPT_LINE = re.compile(r"checkpoint step (\d+): snapshot (\d+\.\d+) s, "

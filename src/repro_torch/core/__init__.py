@@ -20,15 +20,18 @@ from repro_torch.core.steps import (
 )
 from repro_torch.core.taxonn import (
     QuantPolicy,
+    apply_stacked_updates,
     backward_stack,
     default_bits_for,
     forward_stack,
+    overlap_depth_for,
 )
 
 __all__ = [
-    "LeNetBits", "QuantPolicy", "StepOptions", "backward_stack",
-    "default_bits", "default_bits_for", "forward_stack", "init_lenet_params",
+    "LeNetBits", "QuantPolicy", "StepOptions", "apply_stacked_updates",
+    "backward_stack", "default_bits", "default_bits_for", "forward_stack",
+    "init_lenet_params",
     "init_train_state", "lenet_bits", "lenet_bits_off", "lenet_bits_table",
     "make_eval_step", "make_lenet_train_step", "make_train_step",
-    "params_from_numpy",
+    "overlap_depth_for", "params_from_numpy",
 ]

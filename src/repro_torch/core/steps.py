@@ -45,14 +45,16 @@ ramps the F bits with the step (``search.anneal``): the taxonn step
 applies the ramp to ``bits`` at ``hyper.step``, the autodiff step accepts
 it and ignores it, and the returned step exposes it as ``.bit_anneal``.
 ``QuantPolicy.compress_dw``, ``dw_psum_axes`` and ``dw_num_replicas``
-reach the engine's blocking update with the policy (the cross-replica dW
-reduction, ``core.taxonn``).  Pipeline execution (with its
-``grad_tap_stochastic``) and the overlap and transport options wait for
-the rest of multi-GPU (ROADMAP A11).
+reach the engine's dW reduction with the policy (``core.taxonn``);
+``StepOptions.overlap`` and ``transport`` override the policy's
+``overlap`` and ``dw_transport`` (the overlapped reduce and its
+transports, ``dist.async_collectives``).  Pipeline execution (with its
+``grad_tap_stochastic``) waits for the rest of multi-GPU (ROADMAP A11).
 ``capture_resume_extra`` and ``apply_resume_extra`` carry the train
-driver's resume payload; the noise and the anneal depend only on the
-step, so the payload needs no PRNG state, and the anneal spec rides along
-only to guard against resuming under another ramp.
+driver's resume payload, the transport decisions among it; the noise and
+the anneal depend only on the step, so the payload needs no PRNG state,
+and the anneal spec rides along only to guard against resuming under
+another ramp.
 """
 from __future__ import annotations
 
@@ -66,6 +68,8 @@ from repro_torch import resolve_device
 from repro_torch.core.taxonn import (QuantPolicy, _blend_quant,
                                      backward_stack, default_bits_for,
                                      forward_stack, quantize_weight_tree)
+from repro_torch.dist.async_collectives import (load_transport_cache,
+                                                transport_cache_snapshot)
 from repro_torch.kernels.ops import (foreign_tune_entries, kernel_backend_ctx,
                                      load_tune_cache, resolve_backend,
                                      tune_cache_snapshot)
@@ -127,11 +131,13 @@ def capture_resume_extra(cfg: ModelConfig, step: int, *, loader=None,
                          anneal=None) -> dict:
     """The checkpoint ``extra`` payload that makes a restart BITWISE: the
     data-pipeline step, so the step-indexed loader replays the exact batch
-    stream (the lr schedule is a function of the step too), and the kernel
-    tune cache (``kernels.ops.tune_cache_snapshot``), so that the resumed
-    run launches the original run's splits on any card.  The keys are the
-    JAX package's; the transport cache is written empty until the
-    transports come (ROADMAP A11).  ``anneal`` (a
+    stream (the lr schedule is a function of the step too), the transport
+    cache (``dist.async_collectives.transport_cache_snapshot``), so that
+    the resumed backward loop keeps the killed run's collective schedule
+    and so its reduction order, and the kernel tune cache
+    (``kernels.ops.tune_cache_snapshot``), so that the resumed run
+    launches the original run's splits on any card.  The keys are the JAX
+    package's.  ``anneal`` (a
     spec or an ``AnnealSchedule``) is recorded as its canonical spec: the
     annealed bits are a function of the step, so resume is bitwise
     anyway, and the spec only guards against resuming under another ramp.
@@ -142,7 +148,7 @@ def capture_resume_extra(cfg: ModelConfig, step: int, *, loader=None,
         "arch": cfg.name,
         "family": cfg.family,
         "data_step": int(step),
-        "transport_cache": {},
+        "transport_cache": transport_cache_snapshot(),
         "tune_cache": tune_cache_snapshot(),
     }
     if anneal is not None:
@@ -164,9 +170,10 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int, *,
 
     A checkpoint of another arch is refused: restoring qwen state into
     gemma is silent corruption the shape check alone may not catch.  The
-    payload's tune-cache decisions are installed (``load_tune_cache``:
-    existing entries win); a JAX-written payload's kinds and its transport
-    cache are counted and skipped.  A payload annealed under another spec
+    payload's transport decisions (``load_transport_cache``; the keys are
+    both packages') and tune-cache decisions (``load_tune_cache``) are
+    installed, existing entries winning; a JAX-written payload's tune-cache
+    kinds are counted and skipped.  A payload annealed under another spec
     than
     ``anneal`` is refused; a spec on one side only warns, since the
     effective bits change at the restart boundary."""
@@ -190,11 +197,12 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int, *,
             f"bit-anneal mismatch at resume: checkpoint={ckpt_anneal!r} "
             f"current={cur_anneal!r} — the effective bit schedule changes "
             f"at the restart boundary", RuntimeWarning, stacklevel=2)
-    n_transport = len(extra.get("transport_cache") or {})
-    if n_transport:
-        print(f"[train] checkpoint carries {n_transport} transport-cache "
-              f"decision(s); the port has no transports yet and does not "
-              f"install them", flush=True)
+    cache = extra.get("transport_cache")
+    if cache:
+        n = load_transport_cache(cache)
+        if n:
+            print(f"[train] restored {n} transport-cache decision(s) from "
+                  f"checkpoint", flush=True)
     tune = extra.get("tune_cache")
     if tune:
         n = load_tune_cache(tune)
@@ -306,14 +314,17 @@ def _sq_sum(tree, like: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class StepOptions:
     """Everything that selects how a train step executes.  ``None`` for
-    ``kernel_backend`` or ``bit_anneal`` defers to the policy;
-    ``bit_anneal`` takes a spec string (normalised to an
-    ``AnnealSchedule``) or an ``AnnealSchedule``.  (The JAX package's
-    pipeline, overlap and transport fields come with multi-GPU: ROADMAP
-    A11's later items.)"""
+    ``kernel_backend``, ``overlap``, ``transport`` or ``bit_anneal``
+    defers to the policy; ``bit_anneal`` takes a spec string (normalised to
+    an ``AnnealSchedule``) or an ``AnnealSchedule``.  Seed one from a
+    policy's knobs and override with ``StepOptions.from_policy(policy,
+    overlap="on")``.  (The JAX package's pipeline fields come with the
+    pipeline: ROADMAP A11.)"""
 
     engine: str = "taxonn"
     kernel_backend: Optional[str] = None
+    overlap: Optional[str] = None
+    transport: Optional[str] = None
     bit_anneal: Any = None  # spec str | AnnealSchedule | None
 
     def __post_init__(self):
@@ -331,6 +342,26 @@ class StepOptions:
         if self.kernel_backend not in (None, "off", "emulate", "int8", "auto"):
             raise ValueError(f"kernel_backend must be 'off', 'emulate', "
                              f"'int8' or 'auto', got {self.kernel_backend!r}")
+        if self.overlap not in (None, "off", "on"):
+            raise ValueError(f"overlap must be 'off' or 'on', "
+                             f"got {self.overlap!r}")
+        if self.transport not in (None, "auto", "ring", "psum", "scatter"):
+            raise ValueError(f"transport must be 'auto', 'ring', 'psum' or "
+                             f"'scatter', got {self.transport!r}")
+
+    @classmethod
+    def from_policy(cls, policy: QuantPolicy, **overrides) -> "StepOptions":
+        """Seed the execution knobs from the policy's own fields (what
+        ``make_train_step`` would resolve to anyway), then apply
+        ``overrides``."""
+        base = dict(kernel_backend=policy.kernel_backend,
+                    overlap=policy.overlap, transport=policy.dw_transport,
+                    bit_anneal=policy.bit_anneal)
+        base.update(overrides)
+        return cls(**base)
+
+    def replace(self, **kw) -> "StepOptions":
+        return dataclasses.replace(self, **kw)
 
 
 def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
@@ -338,12 +369,22 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
                     options: Optional[StepOptions] = None, *, device=None):
     """Build the train step described by ``options`` (a ``StepOptions``)
     for ``device`` (CUDA unless named).  ``kernel_backend`` "auto" means
-    int8 on CUDA and off on the CPU.  (The JAX package's legacy per-knob
-    keywords are not ported.)"""
+    int8 on CUDA and off on the CPU.  ``overlap`` ("off" | "on") and
+    ``transport`` ("auto" | "ring" | "psum" | "scatter") override the
+    policy's ``overlap`` and ``dw_transport``: the overlapped dW reduce of
+    the engine's backward loop and the wire it rides (``core.taxonn``,
+    ``dist.async_collectives``; prime the autotuner's measured decisions
+    with ``prime_transport_cache`` before the first step, which only reads
+    the cache or the model).  (The JAX package's legacy per-knob keywords
+    are not ported.)"""
     options = options or StepOptions()
     dev = resolve_device(device)
     B.require_ported(cfg)
     policy = policy or QuantPolicy.off()
+    if options.overlap is not None:
+        policy = dataclasses.replace(policy, overlap=options.overlap)
+    if options.transport is not None:
+        policy = dataclasses.replace(policy, dw_transport=options.transport)
     optim_cfg = optim_cfg or OptimizerConfig()
     backend = resolve_backend(
         options.kernel_backend if options.kernel_backend is not None

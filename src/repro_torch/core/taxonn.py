@@ -47,17 +47,38 @@ through the int8 wire format (``dist.collectives.compressed_psum``) with
 ``compress_dw``, else a dense all-reduce.  With ``compress_dw`` and no
 axes it is the codec round trip.  Only the stacks' dW is reduced, as in
 the JAX step: the boundary and shared updates use each replica's own
-gradient.  The overlapped reduce, its transports and the sharded update
-(``overlap``, ``overlap_depth``, ``dw_transport``) and
-``grad_tap_stochastic`` come with the rest of multi-GPU (A11).
+gradient.
+
+The communication-overlapped reduce (``overlap="on"``, over a group of
+more than one rank) follows the static per-leaf transport decisions
+(``dw_transport``, ``dist.async_collectives``): where any leaf rides the
+ring, each layer's whole dW tree starts its all-reduce and its update
+lands ``overlap_depth`` layers later (a queue of pending layers, each
+with its step-start parameter and state views, its bits and its key);
+where every leaf rides a blocking transport the update lands in the same
+layer, the psum leaves in one collective and the scatter leaves, for
+``sgd`` without a clip, with the sharded (ZeRO-style) update.  Those
+paths hold a layer's (or ``overlap_depth`` layers') whole dW in f32.
+With ``overlap="off"``, no axes or a group of one the update stays leaf
+by leaf, and ``overlap="on"`` is then bitwise ``"off"``.  The stacked
+update tail of the pipeline (``apply_stacked_updates``) takes the same
+schedules.  ``grad_tap_stochastic`` comes with the pipeline (A11).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch.dist.async_collectives import (all_gather_chunks,
+                                                group_size,
+                                                reduce_scatter_chunk,
+                                                resolve_leaf_transports,
+                                                shard_chunk,
+                                                tree_all_reduce_start,
+                                                tree_all_reduce_wait)
 from repro_torch.dist.collectives import compressed_psum, dense_psum
 from repro_torch.optim import Hyper, OptimizerConfig, apply_update
 from repro_torch.quant.fixed_point import (BitSchedule, make_bit_schedule,
@@ -98,6 +119,19 @@ class QuantPolicy:
     compress_dw: bool = False
     dw_psum_axes: tuple = ()
     dw_num_replicas: Optional[int] = None
+    # The communication-overlapped backward loop ("off" | "on"): layer i
+    # STARTS its dW all-reduce (dense or compressed, dist.async_collectives)
+    # and its update lands ``overlap_depth`` layers later (clamped to the
+    # layer count), so the collective overlaps those layers' VJP and
+    # G-step.  With no ``dw_psum_axes`` or a group of one it is a pure
+    # schedule change (bitwise "off").
+    overlap: str = "off"
+    overlap_depth: int = 2
+    # Transport of the overlapped dW reduce: "auto" (the per-bucket
+    # decision, dist.async_collectives.decide_transport; REPRO_TRANSPORT
+    # overrides), "ring", "psum" (one blocking collective a layer) or
+    # "scatter" (reduce-scatter, the sharded sgd update, all-gather)
+    dw_transport: str = "auto"
 
     @staticmethod
     def off() -> "QuantPolicy":
@@ -267,6 +301,229 @@ def forward_stack(body_fn: Callable, stacked, x0: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The update schedules of a layer's dW: leaf by leaf; blocking (one
+# collective a layer, the sharded scatter update); the depth pipeline of
+# in-flight ring reduces
+# ---------------------------------------------------------------------------
+
+def overlap_depth_for(policy: QuantPolicy, n_units: int) -> int:
+    """Effective pipeline depth: ``policy.overlap_depth`` clamped to the
+    layer count (a 2-layer stack can keep at most 2 reduces in flight)."""
+    depth = int(policy.overlap_depth)
+    if depth < 1:
+        raise ValueError(
+            f"QuantPolicy.overlap_depth must be >= 1, got {depth}")
+    return min(depth, int(n_units))
+
+
+def _dw_leaf_transports(policy: QuantPolicy, stacked) -> list:
+    """The per-leaf transport decisions for one layer's dW tree (the [1:]
+    slice shapes of ``stacked`` in f32, as the VJP hands dW over; meta
+    tensors, no memory).  ``"ring"`` leaves have in-flight hops worth
+    deferring ``overlap_depth`` layers; the blocking transports
+    (``"psum"``, ``"scatter"``) complete at start and update in the same
+    layer."""
+    slices = [torch.empty(a.shape[1:], dtype=torch.float32, device="meta")
+              for a in tree_leaves(stacked)]
+    return resolve_leaf_transports(
+        slices, policy.dw_psum_axes, compressed=policy.compress_dw,
+        num_replicas=policy.dw_num_replicas, transport=policy.dw_transport)
+
+
+def _make_blocking_layer_update(policy: QuantPolicy, hyper: Hyper,
+                                optim_cfg: OptimizerConfig, enabled,
+                                decisions: list):
+    """A layer's reduce + quantize + update when every dW leaf rides a
+    BLOCKING transport, over named axes and a group of more than one rank
+    (``_updater``): the update lands in the same layer.
+
+      * psum leaves go in ONE collective (``tree_all_reduce_start`` with
+        ``transport="psum"``), one rendezvous a layer, not one a leaf;
+      * scatter leaves get the ZeRO-style SHARDED update where the
+        optimizer and the update quantizer are elementwise (sgd, no clip,
+        no codec, no stochastic strict mode): reduce-scatter the dW leaf,
+        quantize-update and step this rank's 1/g chunk only, all-gather
+        the UPDATED parameters.  Elementwise math on the same chunk values
+        keeps it within reassociation of the psum path.
+
+    The sharded leaves' squared norm is this rank's chunk's only, so the
+    caller closes the step with ``gsq += dense_psum(gsq_sharded, axes)``
+    where ``uses_sharded``.  Returns ``(update_layer, uses_sharded)`` with
+    ``update_layer(p_l, dW, opt_l, b_l, key) -> (new_p, new_opt, gsq,
+    gsq_sharded)``."""
+    axes = tuple(policy.dw_psum_axes)
+    axis = axes if len(axes) > 1 else axes[0]
+    g = group_size(axes, policy.dw_num_replicas)
+    sharded_ok = (optim_cfg.kind == "sgd" and optim_cfg.grad_clip == 0
+                  and not policy.compress_dw
+                  and not (policy.quantize_updates and policy.stochastic))
+    sharded = [d == "scatter" and sharded_ok for d in decisions]
+    uses_sharded = any(sharded)
+
+    def fused_psum(xs: list) -> list:
+        return tree_all_reduce_wait(tree_all_reduce_start(
+            xs, axes, num_replicas=policy.dw_num_replicas, transport="psum"))
+
+    def update_layer(p_l, dW, opt_l, b_l, key):
+        def qu(gg):
+            return quantize_update(gg, b_l, key, enabled, policy, hyper)
+        g_leaves = tree_leaves(dW)
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=g_leaves[0].device)
+        if not uses_sharded:
+            # one blocking reduce of the layer + a whole-tree update: the
+            # off path's numerics, any optimizer
+            if policy.compress_dw:
+                leaves = [compressed_psum(x, axes,
+                                          num_replicas=policy.dw_num_replicas)
+                          for x in g_leaves]
+            else:
+                leaves = fused_psum(g_leaves)
+            leaves = [qu(x) for x in leaves]
+            new_p, new_opt = apply_update(p_l, tree_unflatten(dW, leaves),
+                                          opt_l, hyper, optim_cfg)
+            gsq = sum(torch.sum(torch.square(x)) for x in leaves)
+            return new_p, new_opt, gsq, zero
+        p_leaves = tree_leaves(p_l)
+        fuse = [i for i, s in enumerate(sharded) if not s]
+        red = dict(zip(fuse, fused_psum([g_leaves[i] for i in fuse])))
+        new_leaves: list = [None] * len(p_leaves)
+        gsq, gsq_sh = zero, zero
+        for i, (pw, gw) in enumerate(zip(p_leaves, g_leaves)):
+            if sharded[i]:
+                chunk = qu(reduce_scatter_chunk(gw, axis, g))
+                own = shard_chunk(pw, axis, g)
+                new_chunk, _ = apply_update(own, chunk, {}, hyper, optim_cfg)
+                new_leaves[i] = all_gather_chunks(new_chunk, axis, g,
+                                                  tuple(pw.shape), pw.dtype)
+                gsq_sh = gsq_sh + torch.sum(torch.square(chunk))
+            else:
+                gq = qu(red[i])
+                new_leaves[i], _ = apply_update(pw, gq, {}, hyper, optim_cfg)
+                gsq = gsq + torch.sum(torch.square(gq))
+        # sgd is stateless (sharded_ok implies it): opt_l passes through
+        return tree_unflatten(p_l, new_leaves), opt_l, gsq, gsq_sh
+
+    return update_layer, uses_sharded
+
+
+def _start_layer(dW, policy: QuantPolicy):
+    """Start a layer's dW all-reduce with the policy's transport."""
+    return tree_all_reduce_start(dW, policy.dw_psum_axes,
+                                 compressed=policy.compress_dw,
+                                 num_replicas=policy.dw_num_replicas,
+                                 transport=policy.dw_transport)
+
+
+def _finalize(entry: dict, policy: QuantPolicy, hyper: Hyper,
+              optim_cfg: OptimizerConfig, enabled):
+    """Wait on a pending layer's reduce, quantize the update with the
+    layer's own bits and key and step its step-start parameters and
+    state.  Returns (new_p, new_opt, gsq)."""
+    dW = tree_all_reduce_wait(entry["h"])
+    dW = tree_map(lambda g: quantize_update(g, entry["bits"], entry["key"],
+                                            enabled, policy, hyper), dW)
+    new_p, new_opt = apply_update(entry["p"], dW, entry["opt"], hyper,
+                                  optim_cfg)
+    return new_p, new_opt, sum(torch.sum(torch.square(g))
+                               for g in tree_leaves(dW))
+
+
+def _write(new_stacked, new_opt, i: int, new_p, new_o) -> None:
+    """Land layer i's updated parameters and state in the stacks."""
+    for dst, src in zip(tree_leaves(new_stacked), tree_leaves(new_p)):
+        dst[i].copy_(src)
+    for dst, src in zip(tree_leaves(new_opt), tree_leaves(new_o)):
+        dst[i].copy_(src)
+
+
+class _Pipeline:
+    """The depth-deep pipeline of in-flight layer reduces (the JAX scan's
+    carry of pending entries, as a queue): ``push`` starts a layer's
+    all-reduce and, once more than ``depth`` are in flight, lands the
+    oldest; ``drain`` lands the rest, oldest first.  An entry holds the
+    layer's step-start parameter and state views (the loop writes into new
+    stacks, so they stay the step-start values), its bits and its key."""
+
+    def __init__(self, depth: int, policy, hyper, optim_cfg, enabled,
+                 new_stacked, new_opt, gsq):
+        self.depth, self.queue = depth, collections.deque()
+        self.args = (policy, hyper, optim_cfg, enabled)
+        self.new_stacked, self.new_opt, self.gsq = new_stacked, new_opt, gsq
+
+    def _land(self, entry: dict) -> None:
+        new_p, new_o, ginc = _finalize(entry, *self.args)
+        _write(self.new_stacked, self.new_opt, entry["i"], new_p, new_o)
+        self.gsq = self.gsq + ginc
+
+    def push(self, i: int, dW, p_l, opt_l, b_l, key) -> None:
+        self.queue.append({"i": i, "p": p_l, "opt": opt_l, "bits": b_l,
+                           "key": key, "h": _start_layer(dW, self.args[0])})
+        if len(self.queue) > self.depth:
+            self._land(self.queue.popleft())
+
+    def drain(self):
+        while self.queue:
+            self._land(self.queue.popleft())
+        return self.gsq
+
+
+class _SameLayer:
+    """The blocking schedule: each layer's update lands as it is pushed
+    (``_make_blocking_layer_update``); ``drain`` closes the sharded
+    leaves' squared norm over the group."""
+
+    def __init__(self, decisions: list, policy, hyper, optim_cfg, enabled,
+                 new_stacked, new_opt, gsq):
+        self.update, self.uses_sharded = _make_blocking_layer_update(
+            policy, hyper, optim_cfg, enabled, decisions)
+        self.axes = tuple(policy.dw_psum_axes)
+        self.new_stacked, self.new_opt = new_stacked, new_opt
+        self.gsq = self.gsq_sh = gsq
+
+    def push(self, i: int, dW, p_l, opt_l, b_l, key) -> None:
+        new_p, new_o, ginc, ginc_sh = self.update(p_l, dW, opt_l, b_l, key)
+        _write(self.new_stacked, self.new_opt, i, new_p, new_o)
+        self.gsq, self.gsq_sh = self.gsq + ginc, self.gsq_sh + ginc_sh
+
+    def drain(self):
+        if self.uses_sharded:
+            # the sharded leaves squared only this rank's chunk
+            return self.gsq + dense_psum(self.gsq_sh, self.axes)
+        return self.gsq
+
+
+def _updater(policy: QuantPolicy, stacked, hyper: Hyper,
+             optim_cfg: OptimizerConfig, enabled, new_stacked, new_opt, gsq):
+    """The schedule of the layers' dW updates: None (leaf by leaf) with
+    ``overlap="off"``, no axes or a group of one, where every decision
+    would be psum and nothing moves; else, from the static per-leaf
+    transport decisions, ``_Pipeline`` where a leaf rides the ring and
+    ``_SameLayer`` where none does.  Both land each layer's update in
+    ``new_stacked``/``new_opt`` and return the squared norm from
+    ``drain``."""
+    if policy.overlap not in ("off", "on"):
+        raise ValueError(f"QuantPolicy.overlap must be 'off' or 'on', got "
+                         f"{policy.overlap!r}")
+    axes = tuple(policy.dw_psum_axes)
+    if (policy.overlap == "off" or not axes
+            or group_size(axes, policy.dw_num_replicas) == 1):
+        return None
+    decisions = _dw_leaf_transports(policy, stacked)
+    if "ring" in decisions:
+        return _Pipeline(overlap_depth_for(policy, _num_units(stacked)),
+                         policy, hyper, optim_cfg, enabled, new_stacked,
+                         new_opt, gsq)
+    return _SameLayer(decisions, policy, hyper, optim_cfg, enabled,
+                      new_stacked, new_opt, gsq)
+
+
+def _layer_key(base_key, policy: QuantPolicy, i: int):
+    return (prng.fold_in(base_key, i)
+            if base_key is not None and policy.stochastic else None)
+
+
+# ---------------------------------------------------------------------------
 # Backward: the G-chain, reverse over layers, with the fused update
 # ---------------------------------------------------------------------------
 
@@ -284,6 +541,16 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
       4. W_i <- W_i - lr * dW_i at once, before layer i-1's VJP starts,
          each dW leaf first reduced across replicas where the policy asks
          (``_reduce_dw``).
+
+    With ``policy.overlap == "on"`` over a group of more than one rank,
+    step 4 follows the static per-leaf transport decisions
+    (``_updater``): where a leaf rides the ring, layer i STARTS
+    its whole dW tree's all-reduce and its update lands ``overlap_depth``
+    layers later (``_Pipeline``), with layer i's own bits and key, on its
+    step-start parameters; where every leaf rides a blocking transport the
+    update lands in the same layer (``_make_blocking_layer_update``).
+    Otherwise, and always with no axes or a group of one, the update goes
+    leaf by leaf, and ``overlap="on"`` is bitwise ``"off"``.
 
     Gradient scale: ``G_out`` arrives scaled by ``policy.grad_scale``; dW is
     un-scaled just before the update, G stays scaled.  With
@@ -307,6 +574,8 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
     new_stacked = tree_map(torch.empty_like, stacked)
     new_opt = tree_map(torch.empty_like, opt_stacked)
     gsq = torch.zeros((), dtype=torch.float32, device=G_out.device)
+    updater = _updater(policy, stacked, hyper, optim_cfg, enabled,
+                       new_stacked, new_opt, gsq)
     aux_seed = torch.tensor(aux_coef * policy.grad_scale, dtype=torch.float32,
                             device=G_out.device)
     dS = tuple(tree_map(lambda w: torch.zeros(w.shape, dtype=torch.float32,
@@ -316,8 +585,7 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
     G = G_out
     for i in reversed(range(_num_units(stacked))):
         b_l = _bits_layer(bits, i)
-        key = (prng.fold_in(base_key, i)
-               if base_key is not None and policy.stochastic else None)
+        key = _layer_key(base_key, policy, i)
         p_l = _slice(stacked, i)
         with torch.enable_grad():
             pw = tree_map(lambda w: w.detach().requires_grad_(), p_l)
@@ -346,10 +614,17 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
                 zip(tree_leaves(dS), grads[n_own:n_own + n_shared])])
             G = _quant_grad(grads[-1], b_l["g_i"], b_l["g_f"], enabled,
                             policy, key)
+            opt_l = _slice(opt_stacked, i)
+            if updater is not None:
+                # the layer's whole dW tree (a group of two or more only)
+                updater.push(i, tree_unflatten(
+                    p_l, [g.to(torch.float32) * inv_scale
+                          for g in grads[:n_own]]), p_l, opt_l, b_l, key)
+                del grads
+                continue
             # the update leaf by leaf, in ``tree_leaves`` order: one leaf's
             # dW, update and optimizer temporaries exist at a time (a
             # mixtral-8x7b expert stack is 1.9 GB of f32)
-            opt_l = _slice(opt_stacked, i)
             for j, path in enumerate(_leaf_paths(p_l)):
                 dw = grads[j].to(torch.float32) * inv_scale
                 grads[j] = None
@@ -365,4 +640,56 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
                 gsq = gsq + torch.sum(torch.square(dw))
                 del dw, new_p, new_o
             del grads
+    if updater is not None:
+        # the ring's last depth layers are still in flight
+        gsq = updater.drain()
     return G, new_stacked, new_opt, gsq, dS
+
+
+# ---------------------------------------------------------------------------
+# The stacked-dW update tail (the stage-sharded pipeline path)
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def apply_stacked_updates(stacked, dW, opt_stacked, bits: BitSchedule,
+                          hyper: Hyper, policy: QuantPolicy,
+                          optim_cfg: OptimizerConfig, base_key=None):
+    """Reduce + quantize + apply the per-layer updates of a whole stacked
+    dW tree: the update tail of the stage-sharded pipeline, where the
+    backward through the stages hands back every layer's dW at once.
+
+    Per layer, as ``backward_stack``'s step 4 (the same order and the same
+    per-layer keys): each dW leaf through ``_reduce_dw`` (the codec with
+    ``compress_dw``, a dense all-reduce over ``dw_psum_axes``), then
+    ``quantize_update``, then the optimizer.  ``overlap="off"`` (and any
+    overlap with no axes or a group of one): layer by layer, the JAX
+    package's vmap.  ``overlap="on"``: the schedules of the overlapped
+    backward loop, over the layers in reverse: ring leaves through the
+    depth pipeline, all-blocking layers same-layer with the fused psum and
+    the sharded scatter update.
+
+    Returns ``(new_stacked, new_opt, grad_sq_sum)``.
+    """
+    enabled = bits.enabled
+    new_stacked = tree_map(torch.empty_like, stacked)
+    new_opt = tree_map(torch.empty_like, opt_stacked)
+    updater = _updater(policy, stacked, hyper, optim_cfg, enabled,
+                       new_stacked, new_opt,
+                       torch.zeros((), dtype=torch.float32,
+                                   device=tree_leaves(stacked)[0].device))
+    layers = [(i, _slice(dW, i), _slice(stacked, i), _slice(opt_stacked, i),
+               _bits_layer(bits, i), _layer_key(base_key, policy, i))
+              for i in range(_num_units(stacked))]
+    if updater is not None:
+        for layer in reversed(layers):
+            updater.push(*layer)
+        return new_stacked, new_opt, updater.drain()
+    gsqs = []
+    for i, g_l, p_l, opt_l, b_l, key in layers:
+        g_l = tree_map(lambda g: quantize_update(
+            _reduce_dw(g, policy), b_l, key, enabled, policy, hyper), g_l)
+        new_p, new_o = apply_update(p_l, g_l, opt_l, hyper, optim_cfg)
+        _write(new_stacked, new_opt, i, new_p, new_o)
+        gsqs.append(sum(torch.sum(torch.square(g))
+                        for g in tree_leaves(g_l)))
+    return new_stacked, new_opt, torch.sum(torch.stack(gsqs))

@@ -1,18 +1,34 @@
 """repro_torch.dist — cross-replica reduction (port of ``repro/dist``).
 
-  collectives  dense and int8-compressed all-reduce of dW over the process
-               groups of named mesh dimensions (``launch.mesh``), with the
-               ambient mesh that the engine's dW reduction reads
-               (``mesh_ctx``)
+  collectives        dense and int8-compressed all-reduce of dW over the
+                     process groups of named mesh dimensions
+                     (``launch.mesh``), with the ambient mesh that the
+                     engine's dW reduction reads (``mesh_ctx``)
+  async_collectives  the ring, psum and scatter transports with start/wait
+                     handles, and the transport autotuner and its cache
+                     (the engine's ``overlap``)
 
-The JAX package's ``async_collectives`` (the overlapped transports),
-``pipeline``, ``sharding``, ``api`` and ``hlo_analysis`` come with the rest
-of ROADMAP A11 and A12.
+The JAX package's ``pipeline``, ``sharding``, ``api`` and ``hlo_analysis``
+come with the rest of ROADMAP A11 and A12.
 """
+from repro_torch.dist.async_collectives import (
+    AsyncHandle, TRANSPORTS, all_gather_chunks, all_reduce_start,
+    all_reduce_wait, clear_transport_cache, decide_transport,
+    dump_transport_cache, group_size, load_transport_cache,
+    prime_transport_cache, reduce_scatter_chunk, resolve_leaf_transports,
+    ring_all_reduce, shard_chunk, transport_cache_snapshot,
+    tree_all_reduce_start, tree_all_reduce_wait)
 from repro_torch.dist.collectives import (compressed_psum,
                                           compressed_psum_tree, current_mesh,
                                           dense_psum, dense_psum_tree,
                                           mesh_ctx)
 
-__all__ = ["compressed_psum", "compressed_psum_tree", "current_mesh",
-           "dense_psum", "dense_psum_tree", "mesh_ctx"]
+__all__ = ["AsyncHandle", "TRANSPORTS", "all_gather_chunks",
+           "all_reduce_start", "all_reduce_wait", "clear_transport_cache",
+           "compressed_psum", "compressed_psum_tree", "current_mesh",
+           "decide_transport", "dense_psum", "dense_psum_tree",
+           "dump_transport_cache", "group_size", "load_transport_cache",
+           "mesh_ctx", "prime_transport_cache", "reduce_scatter_chunk",
+           "resolve_leaf_transports", "ring_all_reduce", "shard_chunk",
+           "transport_cache_snapshot", "tree_all_reduce_start",
+           "tree_all_reduce_wait"]

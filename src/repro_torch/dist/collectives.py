@@ -145,6 +145,13 @@ def compressed_psum(x: torch.Tensor, axes: Iterable[str] = (),
         if not axes and num_replicas is not None and num_replicas > 1:
             dec = (dec.to(torch.float32) * num_replicas).to(x.dtype)
         return dec
+    return _gather_sum(x, payload, scales, group)
+
+
+def _gather_sum(x: torch.Tensor, payload: torch.Tensor, scales: torch.Tensor,
+                group) -> torch.Tensor:
+    """Gather every replica's compressed ``x`` over ``group`` and sum the
+    decompressions in replica order."""
     n = dist.get_world_size(group)
     pg = [torch.empty_like(payload) for _ in range(n)]
     sg = [torch.empty_like(scales) for _ in range(n)]

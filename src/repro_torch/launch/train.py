@@ -39,11 +39,16 @@ serving export ``bit_plan_serve.json`` under ``--ckpt-dir`` (or
 ``--compress-dw`` routes each layer's dW through the int8 block-scaled
 wire format (``dist.collectives.compressed_psum``) in the engine's
 backward loop: on one device the codec round trip, as the JAX driver's.
-The kernel tune cache is primed for the run's shapes after any restore,
-so the checkpoint's decisions stay cache hits (``kernels.ops``).  The JAX
-driver's mesh, pipeline, overlap and transport flags wait for the rest of
-multi-GPU (ROADMAP A11: the overlap and transports, the pipeline, the
-sharded driver); the driver refuses them by name.
+``--overlap on`` software-pipelines each layer's dW reduce
+``--overlap-depth`` layers deep over the transport ``--transport`` picks
+(``core.taxonn``, ``dist.async_collectives``); on one device it is a pure
+schedule change.  After any restore (whose transport and tune-cache
+decisions are installed first and stay cache hits) the transport cache is
+primed for the run's dW leaf sizes where the data group has more than one
+member (``prime_transports``), and the kernel tune cache for the run's
+shapes (``kernels.ops``).  The JAX driver's mesh and pipeline flags wait
+for the rest of multi-GPU (ROADMAP A11: the pipeline, the sharded
+driver); the driver refuses them by name, and so has a data group of one.
 """
 from __future__ import annotations
 
@@ -62,12 +67,14 @@ from repro_torch.core import QuantPolicy, StepOptions, make_train_step
 from repro_torch.core.steps import (apply_resume_extra, capture_resume_extra,
                                     default_bits, init_train_state)
 from repro_torch.data import SyntheticLMDataset, StragglerTolerantLoader
+from repro_torch.dist.async_collectives import prime_transport_cache
 from repro_torch.ft import FaultPlan
 from repro_torch.kernels.ops import (prime_tune_cache, train_tune_shapes,
                                      tune_cache_stats)
 from repro_torch.models import lm
 from repro_torch.optim import Hyper, OptimizerConfig, cosine_schedule
 from repro_torch.util import prng
+from repro_torch.util.tree import tree_leaves
 
 
 def _reduce(cfg):
@@ -113,8 +120,27 @@ def modality_inputs(cfg, bsz: int, step: int, device) -> dict:
 
 # the JAX driver's flags of multi-GPU items not ported yet (refused by name)
 LATER_A11_FLAGS = ("--data", "--model", "--pipe", "--pipeline-schedule",
-                   "--virtual-stages", "--microbatches", "--overlap",
-                   "--overlap-depth", "--transport")
+                   "--virtual-stages", "--microbatches")
+
+
+def prime_transports(args, cfg, params, n_data: int):
+    """Measure the transport decisions for this model's per-layer dW leaf
+    sizes before the first step (the step only reads the cache or the
+    model), as the JAX driver gates it: ``--overlap on``, ``--transport
+    auto`` and a data group of more than one member.  Collective over the
+    default process group; decisions a restored checkpoint installed are
+    cache hits and are not measured again.  Returns {bucket bytes:
+    transport}, or None where the gate is shut."""
+    if not (args.overlap == "on" and args.transport == "auto"
+            and n_data > 1):
+        return None
+    leaf_bytes = sorted({x[0].numel() * 4
+                         for x in tree_leaves(params["blocks"])})
+    decided = prime_transport_cache(leaf_bytes, n_data,
+                                    compressed=args.compress_dw)
+    picks = ", ".join(f"{b // 1024}kb->{t}" for b, t in decided.items())
+    print(f"[train] transport autotuner (g={n_data}): {picks}", flush=True)
+    return decided
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -163,6 +189,27 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--compress-dw", action="store_true",
                     help="route per-layer dW through the int8 block-scaled "
                          "wire format inside the backward loop")
+    ap.add_argument("--overlap", default="off", choices=["off", "on"],
+                    help="comm-optimized backward loop: ring-transport dW "
+                         "leaves software-pipeline --overlap-depth layers "
+                         "deep so the in-flight hops overlap the next "
+                         "layers' G-step compute, blocking-transport leaves "
+                         "land same-layer updates (fused psum, or the "
+                         "sharded sgd update on scatter leaves); each "
+                         "bucket's transport comes from the per-size "
+                         "autotuner unless --transport forces one")
+    ap.add_argument("--overlap-depth", type=int, default=2,
+                    help="in-flight dW reduces per layer stream with "
+                         "--overlap on (clamped to the layer count; only "
+                         "ring-transport leaves defer)")
+    ap.add_argument("--transport", default="auto",
+                    choices=["auto", "ring", "psum", "scatter"],
+                    help="dW all-reduce transport: auto consults the "
+                         "measured per-bucket cache (primed at start-up "
+                         "for this model's dW sizes; REPRO_TRANSPORT "
+                         "overrides everything); ring/psum/scatter force "
+                         "one (scatter = native reduce-scatter whose 1/g "
+                         "chunk gets the sharded optimizer update)")
     for flag in LATER_A11_FLAGS:
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--quantize-updates", action="store_true",
@@ -197,11 +244,11 @@ def main(argv=None):
     later = [f for f in LATER_A11_FLAGS
              if getattr(args, f[2:].replace("-", "_")) is not None]
     if later:
-        ap.error(f"{', '.join(later)}: the port has the blocking dW "
-                 f"reduction and --compress-dw only; the mesh, pipeline, "
-                 f"overlap and transport options wait for the rest of "
-                 f"ROADMAP A11 (dist/async_collectives, dist/pipeline, "
-                 f"dist/sharding and dist/api)")
+        ap.error(f"{', '.join(later)}: the port has the dW reduction, "
+                 f"--compress-dw and the overlap and transport options; "
+                 f"the mesh and pipeline options wait for the rest of "
+                 f"ROADMAP A11 (dist/pipeline, dist/sharding and "
+                 f"dist/api)")
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch)
@@ -215,6 +262,9 @@ def main(argv=None):
               else QuantPolicy.off())
     policy = dataclasses.replace(policy, kernel_backend=args.kernel_backend,
                                  compress_dw=args.compress_dw,
+                                 overlap=args.overlap,
+                                 overlap_depth=args.overlap_depth,
+                                 dw_transport=args.transport,
                                  stochastic=args.stochastic,
                                  quantize_updates=args.quantize_updates,
                                  bit_anneal=args.bit_anneal)
@@ -258,6 +308,10 @@ def main(argv=None):
     if plan is not None:
         print(f"[train] fault plan: {plan.describe()}", flush=True)
 
+    # restore BEFORE priming: the checkpoint's resume payload carries the
+    # killed run's transport and tune-cache decisions, and installing them
+    # first keeps the resumed collective schedule and kernel splits (and
+    # so the numerics) the killed run's
     if (args.resume and args.ckpt_dir
             and latest_step(args.ckpt_dir) is not None):
         (params, opt_state), ckpt_step, extra = restore_checkpoint(
@@ -266,6 +320,9 @@ def main(argv=None):
                                         anneal=args.bit_anneal)
         print(f"[train] resumed from step {start_step}", flush=True)
 
+    # the driver has a data group of one until --data comes (A11): the
+    # gate stays shut and nothing is measured
+    prime_transports(args, cfg, params, n_data=1)
     # prime the kernel tune cache for this run's shapes after the restore:
     # the checkpoint's entries are cache hits (kept with their restored:
     # provenance and replayed, never re-derived)

@@ -379,13 +379,15 @@ def test_update_sensitivity_justifies_card_tolerance():
     dict(overlap="on"), dict(dw_transport="ring"),
     dict(bit_anneal="0:16")])
 def test_unported_policy_options_raise(policy_kw):
-    """The JAX policy's overlap and transport options are not fields of
-    the port's policy yet: asking for one fails at once.  The blocking dW
-    reduction's fields are ported (``dist.collectives``): ``compress_dw``
+    """Every option of the JAX policy is a field of the port's now.  The
+    blocking dW reduction's fields (``dist.collectives``): ``compress_dw``
     is accepted, and axes named with no process group to reduce over
-    raise in the step rather than skip the reduction.  Its anneal is
-    ported (``search.anneal``): ``bit_anneal`` is accepted, and the step
-    built from the policy applies the ramp to its bits."""
+    raise in the step rather than skip the reduction.  The overlapped
+    reduce's (``dist.async_collectives``): ``overlap`` and
+    ``dw_transport`` are accepted, and with no axes the step built from
+    them trains to the blocking step's bits.  The anneal
+    (``search.anneal``): ``bit_anneal`` is accepted, and the step built
+    from the policy applies the ramp to its bits."""
     if "compress_dw" in policy_kw or "dw_psum_axes" in policy_kw:
         pol = QuantPolicy(**policy_kw)
         assert (pol.compress_dw, pol.dw_psum_axes) == (
@@ -416,16 +418,49 @@ def test_unported_policy_options_raise(policy_kw):
         assert not all(torch.equal(a, b) for a, b in zip(
             tree_leaves(got), tree_leaves(unannealed)))
         return
-    with pytest.raises(TypeError, match="unexpected keyword"):
-        QuantPolicy(**policy_kw)
+    pol = QuantPolicy(**policy_kw)
+    assert (pol.overlap, pol.dw_transport, pol.overlap_depth) == (
+        policy_kw.get("overlap", "off"), policy_kw.get("dw_transport",
+                                                       "auto"), 2)
+    _, tc, _, _ = _setup("tiny")
+    p0, ocfg = _tparams("tiny"), OptimizerConfig(kind="momentum")
+    got = _run(make_train_step(tc, pol, ocfg, device="cpu"), p0, ocfg,
+               _batch(), default_bits(tc))
+    want = _run(make_train_step(tc, QuantPolicy(), ocfg, device="cpu"), p0,
+                ocfg, _batch(), default_bits(tc))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(got[:2]),
+                                                 tree_leaves(want[:2])))
+    assert float(got[2]["loss"]) == float(want[2]["loss"])
+    assert not all(torch.equal(a, b) for a, b in zip(tree_leaves(got[0]),
+                                                     tree_leaves(p0)))
 
 
 def test_unported_step_options_raise():
     _, tc, _, _ = _setup("tiny")
-    for kw in (dict(pipeline_schedule="gpipe"),
-               dict(overlap="on"), dict(transport="ring")):
-        with pytest.raises(TypeError, match="unexpected keyword"):
-            StepOptions(**kw)
+    # the pipeline's fields wait for dist/pipeline (A11)
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        StepOptions(pipeline_schedule="gpipe")
+    # overlap and transport are ported (dist.async_collectives): accepted,
+    # checked, and folded into the step's policy
+    opts = StepOptions(overlap="on", transport="ring")
+    assert (opts.overlap, opts.transport) == ("on", "ring")
+    assert StepOptions.from_policy(
+        QuantPolicy(overlap="on", dw_transport="psum", kernel_backend="off"),
+        transport="scatter") == StepOptions(kernel_backend="off",
+                                            overlap="on", transport="scatter")
+    p0, ocfg = _tparams("tiny"), OptimizerConfig(kind="sgd")
+    with pytest.raises(ValueError, match="overlap must be"):
+        _run(make_train_step(tc, QuantPolicy(), ocfg,
+                             opts.replace(overlap="sometimes"),
+                             device="cpu"), p0, ocfg, _batch(),
+             default_bits(tc))
+    pol = QuantPolicy(overlap="sometimes", dw_transport="tcp")
+    folded = _run(make_train_step(tc, pol, ocfg, opts, device="cpu"), p0,
+                  ocfg, _batch(), default_bits(tc))
+    plain = _run(make_train_step(tc, QuantPolicy(), ocfg, device="cpu"), p0,
+                 ocfg, _batch(), default_bits(tc))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(folded[0]),
+                                                 tree_leaves(plain[0])))
     # the anneal is ported (search.anneal): accepted, normalised, exposed
     opts = StepOptions(bit_anneal="0:16")
     assert opts.bit_anneal.spec == "0:16"

@@ -19,6 +19,10 @@ from repro_torch.ckpt import restore_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.steps import (RESUME_SCHEMA, apply_resume_extra,
                                     capture_resume_extra)
+from repro_torch.dist.async_collectives import (clear_transport_cache,
+                                                decide_transport,
+                                                load_transport_cache,
+                                                transport_cache_snapshot)
 from repro_torch.data import (DataProducerError, StragglerTolerantLoader,
                               SyntheticLMDataset)
 from repro_torch.ft import (ENV_KNOB, FAULT_EXIT_CODE, FaultEvent, FaultPlan,
@@ -223,7 +227,7 @@ def test_loader_start_step_resumes_stream():
 
 
 # ---------------------------------------------------------------------------
-# The resume payload (without the transport cache)
+# The resume payload
 # ---------------------------------------------------------------------------
 
 def test_capture_and_apply_resume_extra(tmp_path, capsys):
@@ -232,15 +236,24 @@ def test_capture_and_apply_resume_extra(tmp_path, capsys):
                                      deadline_s=2.0)
     loader.get(0)
     clear_tune_cache()
+    clear_transport_cache()
     # a decision with a nested tuple and flags rides the manifest too
     tune_blocks(1024, 896, 4864, 1, kernel="bp_gstep")
+    # and the transport decisions, a model one and a measured one
+    decide_transport(3 << 20, 4)
+    load_transport_cache({"compressed=True,bytes=8192,g=2": {
+        "transport": "ring", "source": "measured",
+        "us": {"ring": 12.5, "psum": 20.25}}})
     extra = capture_resume_extra(cfg, 7, loader=loader,
                                  user_extra={"loss": 1.5})
     loader.close()
     assert extra["resume_schema"] == RESUME_SCHEMA
     assert extra["arch"] == cfg.name and extra["data_step"] == 7
     assert extra["loss"] == 1.5 and extra["loader"]["served"] == 1
-    assert extra["transport_cache"] == {}
+    assert extra["transport_cache"] == transport_cache_snapshot()
+    assert sorted(extra["transport_cache"]) == [
+        "compressed=False,bytes=4194304,g=4",
+        "compressed=True,bytes=8192,g=2"]
     assert extra["tune_cache"] == tune_cache_snapshot()
 
     # it round-trips the checkpoint manifest
@@ -250,13 +263,19 @@ def test_capture_and_apply_resume_extra(tmp_path, capsys):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         assert apply_resume_extra(extra2, cfg, 7) == 7
-    # the cache holds the payload's decisions already: nothing installed
+    # the caches hold the payload's decisions already: nothing installed
     assert capsys.readouterr().out == ""
     clear_tune_cache()
+    clear_transport_cache()
     assert apply_resume_extra(extra2, cfg, 7) == 7
-    assert capsys.readouterr().out == ("[train] restored 1 tune-cache "
-                                       "decision(s) from checkpoint\n")
+    assert capsys.readouterr().out == (
+        "[train] restored 2 transport-cache decision(s) from checkpoint\n"
+        "[train] restored 1 tune-cache decision(s) from checkpoint\n")
+    assert {k: v["transport"] for k, v in
+            transport_cache_snapshot().items()} == {
+        k: v["transport"] for k, v in extra["transport_cache"].items()}
     clear_tune_cache()
+    clear_transport_cache()
 
     with pytest.raises(ValueError, match="refusing to resume"):
         apply_resume_extra({"arch": cfg.name}, get_config("gemma-7b"), 7)
@@ -266,10 +285,10 @@ def test_capture_and_apply_resume_extra(tmp_path, capsys):
 
 
 def test_apply_resume_extra_of_a_jax_payload(capsys):
-    """A JAX-written payload's transport cache is named and not installed,
-    its tune-cache kinds are counted and skipped, the port's own kinds in
-    it are installed; its bit-anneal spec gets the JAX package's
-    warning."""
+    """A JAX-written payload's transport cache is installed with the JAX
+    driver's line (the keys are both packages'), its tune-cache kinds are
+    counted and skipped, the port's own kinds in it are installed; its
+    bit-anneal spec gets the JAX package's warning."""
     cfg = get_config("qwen1.5-0.5b")
     port = "kind=sgd_dw_update,m=8,n=8,k=64,dp=int8"
     extra = {"arch": cfg.name, "data_step": 12,
@@ -282,17 +301,22 @@ def test_apply_resume_extra_of_a_jax_payload(capsys):
                  port: {"decision": ["int8", 1, 1], "source": "computed",
                         "sm": 114}}}
     clear_tune_cache()
+    clear_transport_cache()
     try:
         assert apply_resume_extra(extra, cfg, 12) == 12
         assert tune_cache_snapshot() == {port: {
             "decision": ["int8", 1, 1], "source": "restored:computed",
             "sm": 114}}
+        assert transport_cache_snapshot() == {
+            "compressed=False,bytes=8192,g=4": {
+                "transport": "ring", "source": "restored:?", "us": {}}}
+        assert decide_transport(8000, 4) == "ring"
     finally:
         clear_tune_cache()
+        clear_transport_cache()
     out = capsys.readouterr().out.splitlines()
-    assert out == ["[train] checkpoint carries 1 transport-cache "
-                   "decision(s); the port has no transports yet and does "
-                   "not install them",
+    assert out == ["[train] restored 1 transport-cache decision(s) from "
+                   "checkpoint",
                    "[train] restored 1 tune-cache decision(s) from "
                    "checkpoint; skipped 1 of the JAX package's"]
     with pytest.warns(RuntimeWarning, match="bit-anneal mismatch"):

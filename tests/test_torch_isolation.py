@@ -64,10 +64,11 @@ def test_port_modules_import_without_jax():
     assert int(out.stdout.split()[-1]) >= 17
 
 
-# the cross-replica dW reduction's modules (dist/, launch/mesh,
-# quant/compression), checked like every port module above and run here
-# in a fresh interpreter without JAX
-DW_REDUCTION = ("dist/__init__.py", "dist/collectives.py", "launch/mesh.py",
+# the cross-replica dW reduction's modules (dist/, the overlapped
+# reduce's transports, launch/mesh, quant/compression), checked like every
+# port module above and run here in a fresh interpreter without JAX
+DW_REDUCTION = ("dist/__init__.py", "dist/collectives.py",
+                "dist/async_collectives.py", "launch/mesh.py",
                 "quant/compression.py")
 
 
@@ -84,6 +85,12 @@ def test_the_dw_reduction_modules_stand_alone():
         "assert torch.equal(dense_psum(x), x)\n"
         "y = compressed_psum(x, (), num_replicas=2)\n"
         "assert y.shape == x.shape and compress_int8(x)[1].numel() == 2\n"
+        "from repro_torch.dist import async_collectives as A\n"
+        "assert torch.equal(A.ring_all_reduce(x), x)\n"
+        "assert torch.equal(A.all_reduce_wait(A.all_reduce_start(\n"
+        "    x, (), compressed=True, num_replicas=2)), y)\n"
+        "assert A.decide_transport(1 << 20, 4, allow_measure=False) == "
+        "'scatter'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

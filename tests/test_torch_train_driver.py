@@ -98,7 +98,8 @@ def test_quantized_training_converges():
 @pytest.mark.parametrize("flag", [
     ["--bit-search", "2"], ["--bit-anneal", "0:16"],
     ["--data", "2"], ["--model", "2"], ["--pipe", "2"],
-    ["--pipeline-schedule", "gpipe"], ["--overlap", "on"],
+    ["--pipeline-schedule", "gpipe"], ["--virtual-stages", "2"],
+    ["--microbatches", "4"], ["--overlap", "on", "--overlap-depth", "1"],
     ["--transport", "ring"], ["--compress-dw"]])
 def test_flags_of_later_items_are_refused(flag, capsys, tmp_path,
                                          monkeypatch):
@@ -106,14 +107,21 @@ def test_flags_of_later_items_are_refused(flag, capsys, tmp_path,
     ``--bit-search`` and ``--bit-anneal`` are ported (``search/``) and act:
     the sweep writes its plans under artifacts/, the anneal logs its spec
     into the resume payload; ``--compress-dw`` (A11's first item) trains
-    through the dW codec."""
-    if flag[0] == "--compress-dw":
+    through the dW codec; ``--overlap`` and ``--transport`` (A11.1) train,
+    on one device a pure schedule change, with no transport measured (the
+    driver's data group has one member)."""
+    if flag[0] in ("--compress-dw", "--overlap", "--transport"):
+        from repro_torch.dist.async_collectives import (
+            clear_transport_cache, transport_cache_snapshot)
+        clear_transport_cache()
         losses = train.main(["--device", "cpu", "--reduced", "--seq-len",
                              "16", "--global-batch", "2", "--steps", "1",
                              "--quantize", *flag])
         out = capsys.readouterr().out
         assert len(losses) == 1 and all(map(math.isfinite, losses))
         assert re.search(r"kernel tune cache primed: \d+/\d+ shape", out)
+        assert "transport autotuner" not in out
+        assert transport_cache_snapshot() == {}
         return
     if flag[0] in ("--bit-search", "--bit-anneal"):
         monkeypatch.chdir(tmp_path)
@@ -145,7 +153,7 @@ def test_flags_of_later_items_are_refused(flag, capsys, tmp_path,
         train.main(["--device", "cpu", "--reduced", *flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert f"{flag[0]}: the port has the blocking dW reduction" in err
+    assert f"{flag[0]}: the port has the dW reduction" in err
     assert "wait for the rest of ROADMAP A11" in err
 
 

@@ -327,6 +327,35 @@ Phases (any failure exits non-zero before the result line is printed):
                --reduced driver run (plain PyTorch) with the g=4 decision
                installed writes a checkpoint that carries it, which a
                fresh process resumes, printing ``DIST_RESUME_LINE``.
+6b. pipe   -- stage-sharded pipeline execution (``dist.pipeline``, the
+               engine's pipeline path, ``grad_tap``) on full-width,
+               24-layer qwen1.5-0.5b (train_lm's step: momentum, grad
+               scale 64, default bits, lr 3e-3, one synthetic batch of 8 x
+               128) through 4 stages and 8 microbatches of one row, from
+               seed-0 params, once a backend (int8, emulate): (a) gpipe,
+               1f1b and interleaved (v = 2) steps bitwise each other
+               (params, momentum, loss); (b) each at exactly 2688
+               fxp_matmul, 1344 bp_gstep and 1344 sgd_dw_update launches
+               (``_pipe_launches``); (c) against the engine step from the
+               same params: the update's relative L2, the params' largest
+               |d| and the loss |d|, at 8 microbatches within
+               ``PIPE_UPDATE_TOL`` / ``PIPE_LOSS_TOL`` with stages 1 and
+               2 swapped (a misrouted hop) beyond them, and (int8) at one
+               microbatch with the activations unquantized (the engine's
+               products, no activation STE) within the tight limits with
+               the grad taps left out beyond them; (g) the int8
+               interleaved step and an engine step under torch.profiler:
+               ms/step (host clock), device ms, idle share, peak GiB;
+               (d) one stochastic int8 step, the model cut to 4 layers,
+               twice, bitwise; (e) ``launch.train.main`` with
+               --pipeline-schedule interleaved --virtual-stages 4
+               --microbatches 8, --quantize, int8, 3 steps: JAX's
+               ``[train] pipeline interleaved (stage-sharded execution)``
+               line, every loss finite, exactly 3 x (b)'s launches (the
+               kernels line's ``launches`` for this phase); (f) the driver
+               with --pipeline-schedule 1f1b and no pipe axis prints
+               "cost model only (1 stage)" and its 2 losses and launches
+               equal the run without the flag.  The part seconds printed.
 5d. train_driver -- the port's train driver (``launch.train.main``) on
                the same full-width qwen1.5-0.5b with --quantize,
                --stochastic and --bit-anneal 0:16,3:14,6:12, int8 on the
@@ -349,7 +378,7 @@ Phases (any failure exits non-zero before the result line is printed):
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
 serve_ssm, train, noise, train_lm, train_ssm, moe, mla, whisper, llava,
-search, dist and train_driver
+search, dist, pipe and train_driver
 (for
 example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
@@ -373,7 +402,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "serve_ssm",
           "train", "noise", "train_lm", "train_ssm", "moe", "mla", "whisper",
-          "llava", "search", "dist", "train_driver")
+          "llava", "search", "dist", "pipe", "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -5852,6 +5881,361 @@ def dist_phase(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: stage-sharded pipeline execution (dist/pipeline.py)
+# ---------------------------------------------------------------------------
+
+PIPE_STAGES, PIPE_MICROBATCHES = 4, 8
+PIPE_SCHEDULES = (("gpipe", None), ("1f1b", None), ("interleaved", 2))
+PIPE_DRIVER_STEPS = 3
+PIPE_DRIVER_ARGS = ["--arch", LM_ARCH, "--device", "cuda", "--quantize",
+                    "--kernel-backend", "auto",
+                    "--optimizer", TRAIN_LM_OPTIMIZER,
+                    "--seq-len", str(TRAIN_LM_SEQ),
+                    "--global-batch", str(TRAIN_LM_BATCH),
+                    "--log-every", "1", "--deadline-s", str(600.0)]
+PIPE_DRIVER_LINE = re.compile(
+    r"\[train\] pipeline (\S+) \((stage-sharded execution|cost model only "
+    r"\(1 stage\))\): (\{.*\})")
+# the pipeline step against the engine step from the same params and batch:
+# the relative L2 of the update (|d| / |engine's update|, all leaves
+# together) and the loss |d|, each limit between the sound reading and a
+# fault control beyond it; the params' largest |d| printed.
+# 8 microbatches, each backend: JAX's pipeline passes G through the
+# activation quantizer's STE, which zeroes it where an activation
+# saturates its (4,10) format, and the engine's reverse loop takes its VJP
+# at the quantized input; at 24 layers qwen's residual stream passes 16 in
+# the later layers (the CPU's full-width twin at 20 layers: 6e-5 of the
+# elements, the update 0.065 apart at one microbatch, 0 with the
+# activations unquantized), and the microbatches of one row move the bf16
+# products' rounding and the int8 absmax scales (on an H100 80GB HBM3 at
+# 700 W: 0.522 int8, 0.395 emulate; at one microbatch 0.437 and 0.358,
+# the loss bitwise): the control is stages 1 and 2 run in each other's
+# place (a misrouted hop; 1.121 and 1.105).  One microbatch with the
+# activations unquantized, int8: the engine's products and no STE between
+# them, so the pipeline is the engine step up to the backward's order of
+# operations: the control is that step with its grad taps left out (the
+# G-chain unquantized).
+PIPE_UPDATE_TOL = {8: 0.8, 1: 1e-3}
+PIPE_LOSS_TOL = {8: 5e-3, 1: 1e-6}
+
+
+def _pipe_launches(layers: int, microbatches: int) -> dict:
+    """A pipeline step's launches: each of a layer's 7 dense units once a
+    microbatch in the forward and once more in its recompute under the
+    per-layer checkpoint (fxp_matmul), and once a microbatch in the
+    backward (bp_gstep for dx, sgd_dw_update for dW).  At 24 layers and 8
+    microbatches 2688 / 1344 / 1344; at one microbatch the engine's."""
+    n = 7 * layers * microbatches
+    return dict(TRAIN_LM_LAUNCHES, fxp_matmul=2 * n, bp_gstep=n,
+                sgd_dw_update=n)
+
+
+def _pipe_step(torch, cfg, backend, dev, sched=None,
+               microbatches=PIPE_MICROBATCHES, **policy_kw):
+    from repro_torch.core import QuantPolicy, StepOptions, make_train_step
+    from repro_torch.dist import get_schedule
+    from repro_torch.optim import OptimizerConfig
+
+    ocfg = OptimizerConfig(kind=TRAIN_LM_OPTIMIZER)
+    opts = StepOptions(kernel_backend=backend)
+    if sched is not None:
+        opts = opts.replace(pipeline_schedule=get_schedule(*sched),
+                            pipeline_stages=PIPE_STAGES,
+                            num_microbatches=microbatches)
+    return make_train_step(cfg, QuantPolicy(grad_scale=TRAIN_LM_GRAD_SCALE,
+                                            **policy_kw),
+                           ocfg, opts, device=dev), ocfg
+
+
+def _pipe_driver(torch, argv):
+    """``launch.train.main(argv)`` with its standard output kept: (losses,
+    launches, the output, seconds)."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train
+
+    kops.clear_tune_cache()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = train.main(argv)
+    torch.cuda.synchronize()
+    return losses, K.launch_counts(), buf.getvalue(), time.perf_counter() - t0
+
+
+def pipe_phase(torch, dev):
+    """The stage-sharded pipeline step on full-width qwen1.5-0.5b (module
+    docstring, phase 6b)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+    from repro_torch.util.tree import tree_leaves as _leaves
+    from repro_torch.util.tree import tree_map
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    rec = dict(run="pipe", part_seconds={}, stages=PIPE_STAGES,
+               microbatches=PIPE_MICROBATCHES)
+    t_part = [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        rec["part_seconds"][name] = now - t_part[0]
+        t_part[0] = now
+
+    cfg = get_config(LM_ARCH)
+    ds = SyntheticLMDataset(cfg.vocab_size, TRAIN_LM_SEQ, TRAIN_LM_BATCH,
+                            seed=0)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in ds.batch_at(0).items()}
+    hyper = Hyper(lr=TRAIN_LM_LR, step=0)
+    full = _pipe_launches(cfg.num_layers, PIPE_MICROBATCHES)
+    # the control "stages swapped": stages 1 and 2 change places in the
+    # stack, and back in the result
+    lps = cfg.num_layers // PIPE_STAGES
+    perm = torch.arange(cfg.num_layers, device=dev)
+    perm[lps:2 * lps], perm[2 * lps:3 * lps] = (perm[2 * lps:3 * lps].clone(),
+                                                perm[lps:2 * lps].clone())
+
+    def swapped(tree):
+        return dict(tree, blocks=tree_map(lambda a: a[perm], tree["blocks"]))
+
+    def same(a, b):
+        xs, ys = _leaves(a), _leaves(b)
+        return len(xs) == len(ys) and all(
+            x.shape == y.shape and x.dtype == y.dtype
+            and bool(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                     if x.dtype == torch.float32 else torch.equal(x, y))
+            for x, y in zip(xs, ys))
+
+    def max_diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in
+                   zip(_leaves(a), _leaves(b)))
+
+    def run(backend, sched, launches, *, net=None, rng=None, measure=None,
+            swap=False, **kw):
+        """One step from ``net`` (cfg, params) or the full model's params:
+        (new params, state, metrics, wall ms), at exactly ``launches``;
+        with ``measure`` (a dict) under torch.profiler, its device ms and
+        peak GiB recorded there."""
+        c, p_in = net or (cfg, params)
+        step, ocfg = _pipe_step(torch, c, backend, dev, sched, **kw)
+        p0 = swapped(p_in) if swap else p_in
+        state = init_train_state(p0, ocfg)
+        bits = default_bits(c)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if measure is None:
+            p, s, m = step(p0, state, batch, hyper, bits, rng)
+            ms = None
+        else:
+            (p, s, m), ms = _device_ms(
+                torch, lambda: step(p0, state, batch, hyper, bits, rng),
+                f"pipe {backend} {sched}")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if swap:
+            p, s = swapped(p), swapped(s)
+        counts = K.launch_counts()
+        label = f"pipe {backend} {sched} {kw}"
+        require(counts == launches,
+                f"{label}: launches {counts}, expected {launches}")
+        require(math.isfinite(float(m["loss"])),
+                f"{label}: loss {float(m['loss'])}")
+        if measure is not None:
+            measure.update(device_ms=ms, peak_gib=(
+                torch.cuda.max_memory_allocated(dev) - base) / 2**30,
+                peak_total_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+        return p, s, m, wall
+
+    def against(got, eng):
+        """A step's readings against the engine step's: update rel L2,
+        params max |d|, loss |d|."""
+        (p, _, m, _), (e_p, _, e_m, _) = got, eng
+        return dict(update_rel=_update_rel(e_p, p, params)[0],
+                    param_max_abs_diff=max_diff(p, e_p),
+                    loss_abs_diff=abs(float(m["loss"]) - float(e_m["loss"])))
+
+    def gate(label, m, r, c, control):
+        tol, ltol = PIPE_UPDATE_TOL[m], PIPE_LOSS_TOL[m]
+        say(f"pipe {label} against the engine step: update rel L2 "
+            f"{r['update_rel']:.3e} (limit {tol}), params max |d| "
+            f"{r['param_max_abs_diff']:.3e}, loss |d| "
+            f"{r['loss_abs_diff']:.3e} (limit {ltol}); control ({control}):"
+            f" update rel L2 {c['update_rel']:.3e}, params max |d| "
+            f"{c['param_max_abs_diff']:.3e}, loss |d| "
+            f"{c['loss_abs_diff']:.3e}")
+        return [(r["update_rel"] <= tol, f"pipe {label}: update rel L2 "
+                 f"{r['update_rel']:.3e} > {tol}"),
+                (r["loss_abs_diff"] <= ltol, f"pipe {label}: loss |d| "
+                 f"{r['loss_abs_diff']:.3e} > {ltol}"),
+                (c["update_rel"] > tol, f"pipe {label}: the control "
+                 f"({control}) reads {c['update_rel']:.3e} <= {tol}")]
+
+    params = lm.init_params(cfg, seed=0, device=dev)
+    readings, timing, gates = {}, {}, []
+    for backend in TRAIN_LM_RUNS:
+        # (a) + (b): the three schedules, bitwise, at the derived launches;
+        # (g) the int8 interleaved step runs under torch.profiler
+        got, prof = {}, {}
+        for sched in PIPE_SCHEDULES:
+            got[sched[0]] = run(backend, sched, full, measure=(
+                prof if backend == "int8" and sched[0] == "interleaved"
+                else None))
+        ref = got["gpipe"]
+        for name, (p, s, m, _) in got.items():
+            require(same((p, s), ref[:2])
+                    and _same_bits(torch, m["loss"], ref[2]["loss"]),
+                    f"pipe {backend} {name}: params, momentum or loss not "
+                    f"bitwise gpipe's")
+        walls = [g[3] for g in got.values()]
+        say(f"pipe {backend}: gpipe, 1f1b and interleaved (v=2) bitwise "
+            f"each other (params, momentum, loss {float(ref[2]['loss']):.6f}"
+            f"), launches {full} each; "
+            + ", ".join(f"{w:.1f}" for w in walls) + " ms a step"
+            + (" (the last under torch.profiler)" if prof else ""))
+        del got
+        part(f"{backend} schedules")
+        # (c) against the engine step: 8 microbatches with the
+        # stages-swapped control; int8, one microbatch and the activations
+        # unquantized with the no-taps control
+        eng = run(backend, None, TRAIN_LM_LAUNCHES)
+        r8 = against(ref, eng)
+        c8 = against(run(backend, ("1f1b", None), full, swap=True), eng)
+        gates += gate(f"{backend} M=8", 8, r8, c8, "stages swapped")
+        readings[backend] = {"M=8": r8, "M=8 stages swapped": c8,
+                             "grad_norm": float(ref[2]["grad_norm"]),
+                             "engine_grad_norm": float(eng[2]["grad_norm"])}
+        if backend == "int8":
+            one = _pipe_launches(cfg.num_layers, 1)
+            eng1 = run(backend, None, TRAIN_LM_LAUNCHES, quantize_acts=False)
+            r1 = against(run(backend, ("1f1b", None), one, microbatches=1,
+                             quantize_acts=False), eng1)
+            c1 = against(run(backend, ("1f1b", None), one, microbatches=1,
+                             quantize_acts=False, quantize_grads=False),
+                         eng1)
+            gates += gate(f"{backend} M=1, activations unquantized", 1, r1,
+                          c1, "no grad taps")
+            readings[backend].update({"M=1 acts unquantized": r1,
+                                      "M=1 acts unquantized, no grad taps":
+                                      c1})
+            del eng1
+        timing[backend] = dict(pipeline_ms=statistics.median(
+            walls[:2] if prof else walls), engine_ms=eng[3])
+        if prof:
+            timing["int8_pipeline_profile"] = prof
+        del ref, eng
+        gc.collect()
+        part(f"{backend} engine and controls")
+    rec["readings"] = readings
+    for ok, msg in gates:              # after every reading is printed
+        require(ok, msg)
+
+    # (g) one profiled engine step, int8; the idle shares of both
+    timing["int8_engine_profile"] = meas = {}
+    run("int8", None, TRAIN_LM_LAUNCHES, measure=meas)
+    for label in ("pipeline", "engine"):
+        meas = timing[f"int8_{label}_profile"]
+        wall = meas["wall_ms"] = timing["int8"][f"{label}_ms"]
+        meas["idle_share"] = (None if meas["device_ms"] is None
+                              else max(0.0, 1 - meas["device_ms"] / wall))
+        say(f"pipe int8 {label} step: {wall:.1f} ms/step (host clock), "
+            + ("device not measured" if meas["device_ms"] is None else
+               f"{meas['device_ms']:.2f} device ms "
+               f"({100 * meas['idle_share']:.1f}% idle)")
+            + f", peak {meas['peak_total_gib']:.2f} GiB "
+            f"({meas['peak_gib']:.2f} above its inputs)")
+    rec["timing"] = timing
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("engine profile")
+
+    # (d) one stochastic int8 pipeline step, twice, the model cut to one
+    # layer a stage (reduced: the keys and offsets do not depend on depth)
+    cut = dataclasses.replace(cfg, num_layers=PIPE_STAGES)
+    net = (cut, lm.init_params(cut, seed=0, device=dev))
+    launches = _pipe_launches(PIPE_STAGES, PIPE_MICROBATCHES)
+    a, b = (run("int8", ("interleaved", 2), launches, net=net,
+                rng=_step_key(0), stochastic=True) for _ in range(2))
+    require(same(a[:2], b[:2]) and _same_bits(torch, a[2]["loss"],
+                                              b[2]["loss"]),
+            "pipe stochastic: two runs of one step differ")
+    say(f"pipe stochastic int8 ({PIPE_STAGES} of {cfg.num_layers} layers, "
+        f"reduced): two runs of one step bitwise equal (loss "
+        f"{float(a[2]['loss']):.6f})")
+    rec["stochastic_layers"] = PIPE_STAGES
+    del a, b, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("stochastic pair")
+
+    # (e) the driver, stage-sharded: interleaved, 4 virtual stages
+    argv = PIPE_DRIVER_ARGS + ["--steps", str(PIPE_DRIVER_STEPS),
+                               "--pipeline-schedule", "interleaved",
+                               "--virtual-stages", str(PIPE_STAGES),
+                               "--microbatches", str(PIPE_MICROBATCHES)]
+    losses, counts, out, secs = _pipe_driver(torch, argv)
+    line = PIPE_DRIVER_LINE.search(out)
+    want = {k: v * PIPE_DRIVER_STEPS for k, v in full.items()}
+    require(line is not None and line[1] == "interleaved"
+            and line[2] == "stage-sharded execution",
+            f"pipe driver: no stage-sharded pipeline line in {out[-1500:]}")
+    require(len(losses) == PIPE_DRIVER_STEPS
+            and all(math.isfinite(v) for v in losses),
+            f"pipe driver: losses {losses}")
+    require(counts == want, f"pipe driver: launches {counts}, expected "
+                            f"{want}")
+    rec.update(driver_line=line[0], driver_losses=losses,
+               driver_counts=counts, driver_seconds=secs)
+    say(f"pipe driver: {line[0]}; {PIPE_DRIVER_STEPS} steps in {secs:.1f} s,"
+        f" losses {losses}, launches {counts}")
+    part("driver, stage-sharded")
+
+    # (f) the driver with one stage: the cost model only, bitwise the run
+    # without the flag
+    argv = PIPE_DRIVER_ARGS + ["--steps", "2"]
+    l_cm, c_cm, out, _ = _pipe_driver(torch, argv + [
+        "--pipeline-schedule", "1f1b"])
+    l_plain, c_plain, _, _ = _pipe_driver(torch, argv)
+    line = PIPE_DRIVER_LINE.search(out)
+    require(line is not None and line[2] == "cost model only (1 stage)",
+            f"pipe driver: no cost-model-only line in {out[-1500:]}")
+    require(l_cm == l_plain and c_cm == c_plain == {
+        k: 2 * v for k, v in TRAIN_LM_LAUNCHES.items()},
+        f"pipe driver: the cost-model-only run {l_cm} {c_cm} against the "
+        f"plain run {l_plain} {c_plain}")
+    rec.update(cost_model_line=line[0], cost_model_losses=l_cm)
+    say(f"pipe driver: {line[0]}; losses bitwise the run without the "
+        f"flag: {l_cm}")
+    kops.clear_tune_cache()
+    part("driver, cost model only")
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"pipe: {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in rec["part_seconds"].items())
+        + ")")
+    rec["counts"] = rec["driver_counts"]
+    return rec
+
+# ---------------------------------------------------------------------------
 # phase 7: the train driver, killed and resumed bitwise
 # ---------------------------------------------------------------------------
 
@@ -6564,6 +6948,10 @@ def main(argv=None) -> int:
         dist_rec = timed("dist", lambda: dist_phase(torch, dev))
         runs.append(dist_rec)
         dump(dist=dist_rec)
+    if "pipe" in phases:
+        pipe_rec = timed("pipe", lambda: pipe_phase(torch, dev))
+        runs.append(pipe_rec)
+        dump(pipe=pipe_rec)
     if "train_driver" in phases:
         drv = timed("train_driver", lambda: train_driver(torch, dev))
         runs.append(drv)

@@ -66,19 +66,25 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.taxonn import (QuantPolicy, _blend_quant,
-                                     backward_stack, default_bits_for,
-                                     forward_stack, quantize_weight_tree)
+                                     _num_units, _quantize_shared,
+                                     apply_stacked_updates, backward_stack,
+                                     default_bits_for, forward_stack,
+                                     grad_tap, grad_tap_stochastic,
+                                     quantize_weight_tree)
 from repro_torch.dist.async_collectives import (load_transport_cache,
                                                 transport_cache_snapshot)
-from repro_torch.kernels.ops import (foreign_tune_entries, kernel_backend_ctx,
-                                     load_tune_cache, resolve_backend,
-                                     tune_cache_snapshot)
+from repro_torch.dist.collectives import current_mesh
+from repro_torch.dist.pipeline import get_schedule, pipeline_apply
+from repro_torch.kernels.ops import (current_backend, foreign_tune_entries,
+                                     kernel_backend_ctx, load_tune_cache,
+                                     resolve_backend, tune_cache_snapshot)
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Hyper, OptimizerConfig, apply_update
 from repro_torch.optim import init_opt_state
+from repro_torch.quant.fixed_point import maybe_quantize
 from repro_torch.search.anneal import AnnealSchedule
 from repro_torch.util import prng
 from repro_torch.util.tree import tree_leaves, tree_map, tree_unflatten
@@ -219,20 +225,24 @@ def apply_resume_extra(extra: dict, cfg: ModelConfig, ckpt_step: int, *,
 # The stack body and the boundary (embed / head) functions
 # ---------------------------------------------------------------------------
 
-def _make_body(cfg: ModelConfig, positions):
+def _make_body(cfg: ModelConfig, positions, moe_aux_parts: bool = False):
     """body(params_slice, x, bits_l, *shared) -> (y, aux): the blocks of one
     unit (``lm.unit_blocks``), their aux summed.  The hybrid's unit is a
     group, the shared block then its K Mamba layers; an encdec's is a
-    decoder block, whose shared operand is the encoder's output."""
+    decoder block, whose shared operand is the encoder's output.  With
+    ``moe_aux_parts`` a moe unit's aux is its statistics ``{"frac",
+    "p"}`` (``blocks.transformer_block``)."""
     B.require_ported(cfg)
     hybrid = cfg.family == "hybrid"
+    parts = {"moe_aux_parts": True} if moe_aux_parts else {}
 
     def body(p, x, b_l, *shared):
         aux = None
         for kind, bp, _ in lm.unit_blocks(p, cfg, *(shared if hybrid
                                                      else ())):
             x, a = lm.block_fn(kind)(bp, x, cfg, positions,
-                                     *(() if hybrid else shared))
+                                     *(() if hybrid else shared),
+                                     **(parts if kind == "attn" else {}))
             aux = a if aux is None else aux + a
         return x, aux
     return body
@@ -308,6 +318,222 @@ def _sq_sum(tree, like: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Stage-sharded stack execution through dist.pipeline
+# ---------------------------------------------------------------------------
+
+def pipeline_exec_capabilities(cfg: ModelConfig,
+                               policy: QuantPolicy) -> dict:
+    """What the stage-sharded pipeline path can execute, per feature.
+
+    Every entry maps a requirement of this (cfg, policy) combination to
+    whether the pipeline path supports it: every family of the JAX
+    package's six (their shared operands replicated or sliced per stage,
+    moe's aux statistics recombined after the drain) and every
+    QuantPolicy feature.  The map lets ``_check_pipeline_exec`` detect a
+    missing capability instead of keeping a family allowlist, and lets
+    callers (tests, the train driver) ask instead of parsing error text.
+    """
+    known = cfg.family in lm.SHARED_OPERAND_KIND
+    return {
+        f"family:{cfg.family}": known,
+        "stochastic": True,        # per-(layer, batch-row) noise keys
+        "quantize_updates": True,  # in the stacked update tail
+        "compress_dw": True,       # per-layer codec in the update tail
+        "overlap": True,           # the update tail's overlapped reduce
+    }
+
+
+def _check_pipeline_exec(cfg: ModelConfig, policy: QuantPolicy,
+                         num_stages: int) -> None:
+    """Build-time validation for executing the stack through dist.pipeline."""
+    caps = pipeline_exec_capabilities(cfg, policy)
+    active = [f"family:{cfg.family}"]
+    active += [f for f in ("stochastic", "quantize_updates", "compress_dw")
+               if getattr(policy, f)]
+    if policy.overlap == "on":
+        active.append("overlap")
+    missing = [f for f in active if not caps.get(f, False)]
+    if missing:
+        raise NotImplementedError(
+            f"pipeline execution (pipeline_stages={num_stages} > 1) does "
+            f"not support {missing} for this configuration")
+    n = num_scan_units(cfg)
+    if n % num_stages:
+        raise ValueError(
+            f"num_layers={n} does not divide into pipeline_stages="
+            f"{num_stages} equal stages")
+
+
+def _pipeline_stack_forward(body, stacked, bits, policy: QuantPolicy,
+                            x0: torch.Tensor, sched, num_stages: int,
+                            num_microbatches: int, mesh, shared=(),
+                            shared_kind: str = "none",
+                            moe_experts: Optional[int] = None, rng=None):
+    """Run the blocks stack stage-sharded through ``dist.pipeline``, under
+    autograd.
+
+    The stack's [L, ...] leaves reshape to [S, L/S, ...] stages (so do the
+    bits and the unit index) and the batch splits into M microbatches;
+    ``pipeline_apply`` runs them under ``sched``, with the stages placed on
+    the "pipe" dimension of ``mesh`` where it has one.  Each stage runs its
+    layers in a Python loop with the engine's forward quantization, and a
+    ``grad_tap`` at every layer input quantizes the cotangent, so autograd
+    through this function is the engine's G-chain, up to JAX's activation
+    STE: G passes the activation quantizer's mask, zero where an
+    activation saturates its format, where the engine's reverse loop
+    differentiates at the quantized input.  Each layer runs under
+    ``torch.utils.checkpoint`` (not reentrant): its input is kept and the
+    layer recomputed in the backward, the engine's cached-X_i memory
+    discipline.  The kernel backend of the forward is installed again
+    around the recompute, which on CUDA runs on autograd's own thread.
+    The stack's weights are quantized once a step, each layer in its own
+    weight format (``_quantize_stack``): the JAX package quantizes them in
+    each layer call, once a microbatch, to the same values, and the STE
+    passes the microbatches' summed gradient where it passed each one.
+    Unlike the engine's reverse loop the whole stacked dW exists at once:
+    stage-sharding trades the paper's one-layer gradient residency for the
+    pipe dimension's parallelism.
+
+    Shared operands (``shared_kind``, ``models.lm.SHARED_OPERAND_KIND``):
+
+    * ``"weights"`` (the hybrid's weight-tied block): each layer quantizes
+      ``shared`` with its own (I,F), as the engine does; its gradient is
+      summed over the stages (``pipeline_apply``'s ``shared``).
+    * ``"activation"`` (encdec's encoder output): each stage slices the
+      rows of the microbatch it is processing (the microbatch index rides
+      the value), and the slices' gradients add back into the full batch.
+
+    moe's load-balance aux is bilinear in two batch means, so each unit
+    writes its per-microbatch statistics in its own row of the value
+    (``moe_experts`` set) and they are averaged over the M microbatches
+    after the drain before ``moe_aux_from_stats``: the engine's full-batch
+    aux and gradient.  Other families add their scalar aux and divide by M.
+
+    With ``policy.stochastic`` and an ``rng`` key, the taps round
+    stochastically with layer key ``fold_in(rng, unit)`` and row offset
+    ``m * mb``: the engine's full-batch draws.
+
+    Returns ``(y [B, ...], aux_sum scalar)``.
+    """
+    n_units = _num_units(stacked)
+    bsz = x0.shape[0]
+    S, M = num_stages, num_microbatches
+    # batch % M is checked by the caller (the step's pipeline branch)
+    lps, mbsz = n_units // S, bsz // M
+    enabled = bits.enabled
+    use_stoch = (policy.quantize_grads and policy.stochastic
+                 and rng is not None)
+    keys = ([prng.fold_in(rng, u) for u in range(n_units)] if use_stoch
+            else None)
+    backend = current_backend()
+    if policy.quantize_weights:
+        stacked = _quantize_stack(stacked, bits)
+    stage_p = tree_map(lambda a: a.reshape((S, lps) + a.shape[1:]), stacked)
+    stage_b = {k: getattr(bits, k).reshape(S, lps)
+               for k in ("w_i", "w_f", "a_i", "a_f", "g_i", "g_f")}
+    stage_l = torch.arange(n_units).reshape(S, lps)          # unit index
+
+    def layer(carry, p_l, b_l, u, m, sh):
+        with kernel_backend_ctx(backend):
+            hh = carry["h"]
+            if policy.quantize_grads:
+                hh = (grad_tap_stochastic(hh, b_l["g_i"], b_l["g_f"],
+                                          enabled, keys[u], m * mbsz)
+                      if use_stoch else
+                      grad_tap(hh, b_l["g_i"], b_l["g_f"], enabled))
+            hq = (_blend_quant(hh, b_l["a_i"], b_l["a_f"], enabled)
+                  if policy.quantize_acts else hh)
+            sq = (_quantize_shared(sh, b_l, enabled, policy)
+                  if shared_kind == "weights" else sh)
+            y, aux_l = body(p_l, hq, b_l, *sq)
+        new = dict(carry, h=y)
+        if moe_experts:
+            # this unit's statistics land in its own row; the other units'
+            # rows (written by other stages) pass through
+            for k in ("frac", "p"):
+                new[k] = torch.cat([carry[k][:u], aux_l[k][None],
+                                    carry[k][u + 1:]])
+        else:
+            new["aux"] = carry["aux"] + aux_l
+        return new
+
+    def stage_body(bundle, val, *sh):
+        p_s, b_s, l_s = bundle
+        m = int(val["m"])
+        if shared_kind == "activation":
+            sh = tuple(tree_map(lambda a: a.narrow(0, m * mbsz, mbsz), t)
+                       for t in sh)
+        carry = {k: v for k, v in val.items() if k != "m"}
+        layers = list(zip(*(torch.unbind(a) for a in tree_leaves(p_s))))
+        for j in range(lps):
+            carry = torch.utils.checkpoint.checkpoint(
+                layer, carry, tree_unflatten(p_s, list(layers[j])),
+                {k: v[j] for k, v in b_s.items()}, int(l_s[j]), m, sh,
+                use_reentrant=False, preserve_rng_state=False)
+        return dict(carry, m=val["m"])
+
+    f32 = dict(dtype=torch.float32, device=x0.device)
+    val0 = {"h": x0.reshape((M, mbsz) + x0.shape[1:]),
+            "m": torch.arange(M)}
+    if moe_experts:
+        val0["frac"] = torch.zeros((M, n_units, moe_experts), **f32)
+        val0["p"] = torch.zeros((M, n_units, moe_experts), **f32)
+    else:
+        val0["aux"] = torch.zeros((M,), **f32)
+    out = pipeline_apply((stage_p, stage_b, stage_l), val0, stage_body, mesh,
+                         schedule=sched, shared=shared)
+    y = out["h"].reshape((bsz,) + out["h"].shape[2:])
+    if moe_experts:
+        # the full-batch statistics are the means of the microbatches'; the
+        # bilinear recombination after the mean is the engine's aux
+        frac = torch.mean(out["frac"], dim=0)                  # [L, E]
+        probs_mean = torch.mean(out["p"], dim=0)               # [L, E]
+        aux_sum = torch.sum(torch.stack([
+            L.moe_aux_from_stats(frac[u], probs_mean[u])
+            for u in range(n_units)]))
+    else:
+        aux_sum = torch.sum(out["aux"]) / M
+    return y, aux_sum
+
+
+def _quantize_stack(stacked, bits):
+    """``quantize_weight_tree`` of every unit's slice in that unit's weight
+    format, over the whole [L, ...] stack at once (the bits broadcast
+    over each leaf's unit axis); a leaf whose unit slice is a vector stays
+    as it is, as ``quantize_weight_tree`` keeps it."""
+    def q(a):
+        if a.dim() < 3:
+            return a
+        shape = (-1,) + (1,) * (a.dim() - 1)
+        return maybe_quantize(a, bits.w_i.reshape(shape),
+                              bits.w_f.reshape(shape), bits.enabled)
+    return tree_map(q, stacked)
+
+
+def _pipeline_metrics(pipeline_schedule, pipeline_stages, num_microbatches):
+    """Resolve the pipeline knob into (Schedule | None, metric dict).
+
+    The schedule is validated when the step is built (unknown names and
+    uneven virtual-stage counts fail then, not mid-training), and its
+    tick-table estimates go into every step's metrics, so that the
+    bubble/memory tradeoff shows in the training logs.
+    """
+    if pipeline_schedule is None:
+        return None, {}
+    sched = get_schedule(pipeline_schedule)
+    S = int(pipeline_stages) if pipeline_stages else 1
+    M = int(num_microbatches) if num_microbatches else 1
+    sched.validate(S, M)
+    plan = sched.plan(S, M)
+    return sched, {
+        "pipe_bubble": torch.tensor(plan.bubble, dtype=torch.float32),
+        "pipe_ticks": torch.tensor(plan.num_ticks, dtype=torch.int32),
+        "pipe_peak_mb": torch.tensor(plan.peak_activation_microbatches,
+                                     dtype=torch.int32),
+    }
+
+
+# ---------------------------------------------------------------------------
 # The train step
 # ---------------------------------------------------------------------------
 
@@ -315,14 +541,17 @@ def _sq_sum(tree, like: torch.Tensor) -> torch.Tensor:
 class StepOptions:
     """Everything that selects how a train step executes.  ``None`` for
     ``kernel_backend``, ``overlap``, ``transport`` or ``bit_anneal``
-    defers to the policy; ``bit_anneal`` takes a spec string (normalised to
-    an ``AnnealSchedule``) or an ``AnnealSchedule``.  Seed one from a
+    defers to the policy, and for the ``pipeline_*`` fields means the
+    feature is off; ``bit_anneal`` takes a spec string (normalised to an
+    ``AnnealSchedule``) or an ``AnnealSchedule``.  Seed one from a
     policy's knobs and override with ``StepOptions.from_policy(policy,
-    overlap="on")``.  (The JAX package's pipeline fields come with the
-    pipeline: ROADMAP A11.)"""
+    overlap="on")``."""
 
     engine: str = "taxonn"
     kernel_backend: Optional[str] = None
+    pipeline_schedule: Any = None
+    pipeline_stages: Optional[int] = None
+    num_microbatches: Optional[int] = None
     overlap: Optional[str] = None
     transport: Optional[str] = None
     bit_anneal: Any = None  # spec str | AnnealSchedule | None
@@ -375,8 +604,21 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
     the engine's backward loop and the wire it rides (``core.taxonn``,
     ``dist.async_collectives``; prime the autotuner's measured decisions
     with ``prime_transport_cache`` before the first step, which only reads
-    the cache or the model).  (The JAX package's legacy per-knob keywords
-    are not ported.)"""
+    the cache or the model).
+
+    ``pipeline_schedule`` ("gpipe" | "1f1b" | "interleaved" or a
+    ``dist.pipeline.Schedule``) declares the schedule the step runs under
+    with ``pipeline_stages`` stages and the batch split into
+    ``num_microbatches`` microbatches.  It is validated here and its
+    tick-table estimates (``pipe_bubble``, ``pipe_ticks``,
+    ``pipe_peak_mb``) go into every step's metrics, on both engines.  With
+    ``pipeline_stages > 1`` the TaxoNN engine's blocks stack executes
+    stage-sharded through ``dist.pipeline.pipeline_apply``
+    (``_pipeline_stack_forward``; the stages on the "pipe" dimension of
+    the ambient mesh, ``dist.mesh_ctx``, where it has one); with one stage
+    the schedule is a cost model only and the step is the engine's.  The
+    returned step exposes the schedule as ``.pipeline_schedule``.  (The
+    JAX package's legacy per-knob keywords are not ported.)"""
     options = options or StepOptions()
     dev = resolve_device(device)
     B.require_ported(cfg)
@@ -392,20 +634,34 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
     anneal = options.bit_anneal
     if anneal is None and policy.bit_anneal:
         anneal = AnnealSchedule.parse(policy.bit_anneal)
+    sched, pipe_metrics = _pipeline_metrics(options.pipeline_schedule,
+                                            options.pipeline_stages,
+                                            options.num_microbatches)
+    pipe_metrics = {k: v.to(dev) for k, v in pipe_metrics.items()}
     if options.engine == "autodiff":
         # the anneal is accepted for parity with the engine; bits unused
         step = _autodiff_step(cfg, optim_cfg, dev)
     else:
-        step = _taxonn_step(cfg, policy, optim_cfg, dev, anneal)
+        pipe = None
+        if sched is not None and options.pipeline_stages \
+                and int(options.pipeline_stages) > 1:
+            _check_pipeline_exec(cfg, policy, int(options.pipeline_stages))
+            pipe = (sched, int(options.pipeline_stages),
+                    int(options.num_microbatches or 1))
+        step = _taxonn_step(cfg, policy, optim_cfg, dev, anneal, pipe)
 
     def run(params, opt_state, batch, hyper: Hyper, bits=None, rng=None):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if rng is not None:
             rng = prng.as_key(rng)
         with kernel_backend_ctx(backend, dev):
-            return step(params, opt_state, batch, hyper, bits, rng)
+            new_params, new_opt, metrics = step(params, opt_state, batch,
+                                                hyper, bits, rng)
+        metrics.update(pipe_metrics)
+        return new_params, new_opt, metrics
 
     run.backend, run.device, run.bit_anneal = backend, dev, anneal
+    run.pipeline_schedule = sched
     return run
 
 
@@ -426,7 +682,12 @@ def _autodiff_step(cfg, optim_cfg, dev):
     return step
 
 
-def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
+def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None, pipe=None):
+    """The engine's step; with ``pipe`` = (schedule, stages,
+    microbatches) the blocks stack runs stage-sharded
+    (``_pipeline_stack_forward``) under one autograd pass and its stacked
+    dW goes through ``apply_stacked_updates``; the rest of the step is the
+    engine's."""
     scale = policy.grad_scale
 
     def step(params, opt_state, batch, hyper, bits, rng=None):
@@ -481,9 +742,33 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
                 enc_q = _blend_quant(enc_q, eb["a_i"], eb["a_f"],
                                      eb["enabled"])
             shared = (enc_q,)
-        x_final, caches, aux_sum = forward_stack(
-            body, params["blocks"], x0.detach(), main_bits, policy,
-            shared=shared, quantize_shared=quantize_shared)
+        if pipe is not None:
+            # the bodies run a microbatch at a time: microbatch-shaped
+            # positions, and the shared operand, the stack and x0 as
+            # autograd inputs of the one backward below
+            sched, n_stages, n_mb = pipe
+            if bsz % n_mb:
+                raise ValueError(f"global batch {bsz} does not divide into "
+                                 f"num_microbatches={n_mb}")
+            pos_mb = torch.arange(total_t, device=dev).expand(bsz // n_mb,
+                                                              total_t)
+            with torch.enable_grad():
+                blocks_g = _requires_grad(params["blocks"])
+                shared_g = tuple(_requires_grad(t) for t in shared)
+                x0_g = x0.detach().requires_grad_()
+                y_pipe, aux_pipe = _pipeline_stack_forward(
+                    _make_body(cfg, pos_mb,
+                               moe_aux_parts=cfg.family == "moe"),
+                    blocks_g, main_bits, policy, x0_g, sched, n_stages,
+                    n_mb, current_mesh(), shared=shared_g,
+                    shared_kind=lm.SHARED_OPERAND_KIND[cfg.family],
+                    moe_experts=(cfg.num_experts if cfg.family == "moe"
+                                 else None), rng=rng)
+            x_final, aux_sum = y_pipe.detach(), aux_pipe.detach()
+        else:
+            x_final, caches, aux_sum = forward_stack(
+                body, params["blocks"], x0.detach(), main_bits, policy,
+                shared=shared, quantize_shared=quantize_shared)
 
         # ---- head (loss), seeded with grad_scale --------------------------
         head_f = _head_fn(cfg, batch, policy, _bits_edge(main_bits, -1))
@@ -498,12 +783,41 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None):
         metrics["aux"] = aux_sum
         metrics["loss_total"] = metrics["loss"] + AUX_COEF * aux_sum
 
-        # ---- the G-chain: reverse loop with fused per-layer updates ------
-        G_in, new_blocks, new_blocks_opt, gsq, dshared = backward_stack(
-            body, params["blocks"], opt_state["blocks"], caches, main_bits,
-            G_final, hyper, policy, optim_cfg, AUX_COEF, base_key=rng,
-            shared=shared, quantize_shared=quantize_shared)
-        del caches
+        if pipe is not None:
+            # ---- the G-chain through the stages: autograd, the grad taps
+            # quantizing G; the aux seeded with its coefficient (the
+            # recombination after the drain spreads it over the layers and
+            # microbatches); then the stacked dW's update tail with the
+            # engine's per-layer keys -------------------------------------
+            outs, seeds = [y_pipe], [G_final.to(y_pipe.dtype)]
+            if aux_pipe.requires_grad:
+                outs.append(aux_pipe)
+                seeds.append(torch.tensor(AUX_COEF * scale,
+                                          dtype=torch.float32, device=dev))
+            wrt = tree_leaves(blocks_g) + tree_leaves(shared_g) + [x0_g]
+            with torch.enable_grad():
+                grads = torch.autograd.grad(outs, wrt, seeds,
+                                            allow_unused=True)
+            del outs, y_pipe, aux_pipe
+            grads = [torch.zeros_like(w) if g is None else g
+                     for g, w in zip(grads, wrt)]
+            n_b, n_s = len(tree_leaves(blocks_g)), len(tree_leaves(shared_g))
+            d_blocks = tree_unflatten(params["blocks"], [
+                g.to(torch.float32) / scale for g in grads[:n_b]])
+            dshared = tree_unflatten(shared, grads[n_b:n_b + n_s])
+            G_in = grads[-1]
+            del grads, wrt, blocks_g, shared_g
+            new_blocks, new_blocks_opt, gsq = apply_stacked_updates(
+                params["blocks"], d_blocks, opt_state["blocks"], main_bits,
+                hyper, policy, optim_cfg, base_key=rng)
+            del d_blocks
+        else:
+            # ---- the G-chain: reverse loop with fused per-layer updates --
+            G_in, new_blocks, new_blocks_opt, gsq, dshared = backward_stack(
+                body, params["blocks"], opt_state["blocks"], caches,
+                main_bits, G_final, hyper, policy, optim_cfg, AUX_COEF,
+                base_key=rng, shared=shared, quantize_shared=quantize_shared)
+            del caches
         new_params, new_opt = dict(params), dict(opt_state)
         new_params["blocks"], new_opt["blocks"] = new_blocks, new_blocks_opt
 

@@ -62,7 +62,13 @@ paths hold a layer's (or ``overlap_depth`` layers') whole dW in f32.
 With ``overlap="off"``, no axes or a group of one the update stays leaf
 by leaf, and ``overlap="on"`` is then bitwise ``"off"``.  The stacked
 update tail of the pipeline (``apply_stacked_updates``) takes the same
-schedules.  ``grad_tap_stochastic`` comes with the pipeline (A11).
+schedules.
+
+The stage-sharded pipeline (``core.steps``, ``dist.pipeline``) runs the
+stack under plain autograd instead of the reverse loop: ``grad_tap`` and
+``grad_tap_stochastic`` at each layer input quantize the cotangent as the
+loop quantizes G, and ``apply_stacked_updates`` applies the whole stacked
+dW it hands back.
 """
 from __future__ import annotations
 
@@ -185,6 +191,44 @@ def _quant_grad(g: torch.Tensor, g_i, g_f, enabled, policy: QuantPolicy,
     else:
         q = quantize_ste(gf, g_i, g_f)
     return (enabled * q + (1.0 - enabled) * gf).to(g.dtype)
+
+
+class _GradTap(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g_i, g_f, enabled, key, offset):
+        ctx.bits, ctx.key, ctx.offset = (g_i, g_f, enabled), key, offset
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g_i, g_f, enabled = ctx.bits
+        ctf = ct.to(torch.float32)
+        q = (quantize_ste(ctf, g_i, g_f) if ctx.key is None else
+             stochastic_round_batched(ctf, g_i, g_f, ctx.key, ctx.offset))
+        return ((enabled * q + (1.0 - enabled) * ctf).to(ct.dtype), None,
+                None, None, None, None)
+
+
+def grad_tap(x: torch.Tensor, g_i, g_f, enabled) -> torch.Tensor:
+    """Identity forward whose COTANGENT is quantized to the (g_i, g_f)
+    grid in f32 with the ``enabled`` blend and cast back: the G-chain's
+    per-layer ``G <- q(G)`` (Eq. 8's low-bit signal) as a forward-graph
+    annotation.  At each layer input it makes plain autograd through the
+    stack compute the quantized G-chain of the engine's reverse loop,
+    which is how the stage-sharded pipeline (``dist.pipeline``) keeps the
+    engine's numerics without a hand-written backward."""
+    return _GradTap.apply(x, g_i, g_f, enabled, None, 0)
+
+
+def grad_tap_stochastic(x: torch.Tensor, g_i, g_f, enabled, key,
+                        offset: int) -> torch.Tensor:
+    """``grad_tap`` with stochastic rounding: the cotangent's row ``b``
+    draws from ``fold_in(key, offset + b)`` (``stochastic_round_batched``).
+    ``key`` is the layer key (``fold_in(rng, layer)``, a port key) and
+    ``offset`` the microbatch's first global batch row, so the pipeline's
+    per-microbatch draws are the engine's full-batch ones."""
+    return _GradTap.apply(x, g_i, g_f, enabled, prng.as_key(key),
+                          int(offset))
 
 
 def quantize_update(g: torch.Tensor, b_l: dict, key, enabled,

@@ -46,9 +46,18 @@ schedule change.  After any restore (whose transport and tune-cache
 decisions are installed first and stay cache hits) the transport cache is
 primed for the run's dW leaf sizes where the data group has more than one
 member (``prime_transports``), and the kernel tune cache for the run's
-shapes (``kernels.ops``).  The JAX driver's mesh and pipeline flags wait
-for the rest of multi-GPU (ROADMAP A11: the pipeline, the sharded
-driver); the driver refuses them by name, and so has a data group of one.
+shapes (``kernels.ops``).
+
+``--pipeline-schedule gpipe|1f1b|interleaved`` (with ``--virtual-stages``
+for interleaved and ``--microbatches``) runs the blocks stack through
+``dist.pipeline`` in ``num_virtual`` x the pipe axis's stages (the JAX
+driver's ``n_stages``): with more than one stage it executes
+stage-sharded (``core.steps._pipeline_stack_forward``), with one it is a
+cost model only and the step is the engine's; the driver prints the JAX
+driver's ``[train] pipeline ...`` line.  The driver is one process, so its
+pipe axis has one rank: ``--pipe`` > 1, ``--data`` and ``--model`` wait
+for the sharded driver and its multi-rank launch (ROADMAP A11.3) and are
+refused by name, and the data group has one member.
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ from repro_torch.core.steps import (apply_resume_extra, capture_resume_extra,
                                     default_bits, init_train_state)
 from repro_torch.data import SyntheticLMDataset, StragglerTolerantLoader
 from repro_torch.dist.async_collectives import prime_transport_cache
+from repro_torch.dist.pipeline import get_schedule
 from repro_torch.ft import FaultPlan
 from repro_torch.kernels.ops import (prime_tune_cache, train_tune_shapes,
                                      tune_cache_stats)
@@ -119,8 +129,7 @@ def modality_inputs(cfg, bsz: int, step: int, device) -> dict:
 
 
 # the JAX driver's flags of multi-GPU items not ported yet (refused by name)
-LATER_A11_FLAGS = ("--data", "--model", "--pipe", "--pipeline-schedule",
-                   "--virtual-stages", "--microbatches")
+LATER_A11_FLAGS = ("--data", "--model")
 
 
 def prime_transports(args, cfg, params, n_data: int):
@@ -212,6 +221,24 @@ def _parser() -> argparse.ArgumentParser:
                          "chunk gets the sharded optimizer update)")
     for flag in LATER_A11_FLAGS:
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pipe", type=int, default=0,
+                    help="pipe-axis size (0 = no pipe axis; the driver is "
+                         "one process, so more than 1 is refused until "
+                         "ROADMAP A11.3)")
+    ap.add_argument("--pipeline-schedule", default="none",
+                    choices=["none", "gpipe", "1f1b", "interleaved"],
+                    help="pipe-axis pipeline schedule; with stages > 1 the "
+                         "engine's blocks stack EXECUTES stage-sharded "
+                         "through repro_torch.dist.pipeline for EVERY model "
+                         "family (hybrid/encdec shared operands replicate "
+                         "or slice per stage, moe aux statistics reduce "
+                         "post-drain; layers and batch must divide into "
+                         "stages and microbatches)")
+    ap.add_argument("--virtual-stages", type=int, default=2,
+                    help="virtual stages per pipe device (interleaved "
+                         "schedule only)")
+    ap.add_argument("--microbatches", type=int, default=8,
+                    help="microbatches per step for the pipeline schedule")
     ap.add_argument("--quantize-updates", action="store_true",
                     help="strict paper mode: quantize q(alpha*dW) in the "
                          "layer's gradient (I,F) format before the update")
@@ -243,12 +270,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
     later = [f for f in LATER_A11_FLAGS
              if getattr(args, f[2:].replace("-", "_")) is not None]
+    if args.pipe > 1:
+        later.append("--pipe")
     if later:
         ap.error(f"{', '.join(later)}: the port has the dW reduction, "
-                 f"--compress-dw and the overlap and transport options; "
-                 f"the mesh and pipeline options wait for the rest of "
-                 f"ROADMAP A11 (dist/pipeline, dist/sharding and "
-                 f"dist/api)")
+                 f"--compress-dw, the overlap and transport options and "
+                 f"the stage-sharded pipeline on one process; the mesh "
+                 f"options wait for the rest of ROADMAP A11 (A11.3: "
+                 f"dist/sharding, dist/api and the driver's multi-rank "
+                 f"launch)")
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch)
@@ -256,6 +286,20 @@ def main(argv=None):
         cfg = _reduce(cfg)
     print(f"[train] {cfg.name} ({cfg.family}) on {dev} "
           f"params~{cfg.param_count()/1e6:.1f}M", flush=True)
+
+    pipe_sched, n_stages = None, None
+    if args.pipeline_schedule != "none":
+        pipe_sched = get_schedule(
+            args.pipeline_schedule,
+            num_virtual=(args.virtual_stages
+                         if args.pipeline_schedule == "interleaved" else None))
+        # the JAX driver's pipe_axis_size x num_virtual, with a pipe axis
+        # of one rank (one process)
+        n_stages = pipe_sched.num_virtual
+        mode = ("stage-sharded execution" if n_stages > 1
+                else "cost model only (1 stage)")
+        print(f"[train] pipeline {pipe_sched.name} ({mode}): "
+              f"{pipe_sched.summary(n_stages, args.microbatches)}", flush=True)
 
     ocfg = OptimizerConfig(kind=args.optimizer, grad_clip=1.0)
     policy = (QuantPolicy(grad_scale=64.0) if args.quantize
@@ -343,10 +387,14 @@ def main(argv=None):
     loader = StragglerTolerantLoader(fetch, deadline_s=args.deadline_s,
                                      start_step=start_step)
 
-    step_fn = make_train_step(cfg, policy, ocfg,
-                              StepOptions(engine=args.engine,
-                                          bit_anneal=args.bit_anneal),
-                              device=dev)
+    step_fn = make_train_step(
+        cfg, policy, ocfg,
+        StepOptions(engine=args.engine, pipeline_schedule=pipe_sched,
+                    pipeline_stages=n_stages,
+                    num_microbatches=(args.microbatches if pipe_sched
+                                      else None),
+                    bit_anneal=args.bit_anneal),
+        device=dev)
     print(f"[train] engine {args.engine}, kernel backend {step_fn.backend}",
           flush=True)
 

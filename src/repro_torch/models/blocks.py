@@ -42,19 +42,29 @@ def init_transformer_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def ffn(params, h: torch.Tensor, cfg: ModelConfig):
+def ffn(params, h: torch.Tensor, cfg: ModelConfig,
+        moe_aux_parts: bool = False):
     """The block's feed-forward half: (out, aux), the routed experts and
-    their load-balance aux in the moe family, else the MLP and None."""
+    their load-balance aux in the moe family (with ``moe_aux_parts`` its
+    two batch-mean statistics ``{"frac", "p"}``), else the MLP and None."""
     if cfg.family == "moe":
+        if moe_aux_parts:
+            out, frac, probs_mean = L.moe_verbose(params["moe"], h, cfg)
+            return out, {"frac": frac, "p": probs_mean}
         return L.moe(params["moe"], h, cfg)
     return L.mlp(params["mlp"], h, cfg), None
 
 
 def transformer_block(params, x: torch.Tensor, cfg: ModelConfig,
-                      positions: torch.Tensor, causal: bool = True):
+                      positions: torch.Tensor, causal: bool = True,
+                      moe_aux_parts: bool = False):
     """Pre-norm attention and MLP (or routed experts) with residuals.
     Returns (new_x, aux): the moe block's load-balance aux, an f32 zero in
-    the dense block."""
+    the dense block.  ``moe_aux_parts=True`` returns the moe aux as its two
+    batch-mean statistics ``{"frac", "p"}``: the aux is bilinear in those
+    means, so a caller that splits the batch (the stage-sharded pipeline)
+    accumulates the parts and recombines them with
+    ``layers.moe_aux_from_stats``."""
     require_ported(cfg)
     h = L.apply_norm(params["attn_norm"], x, cfg)
     if cfg.use_mla:
@@ -63,7 +73,7 @@ def transformer_block(params, x: torch.Tensor, cfg: ModelConfig,
         x = x + L.attention(params["attn"], h, cfg, positions,
                             causal=causal)
     h = L.apply_norm(params["mlp_norm"], x, cfg)
-    out, aux = ffn(params, h, cfg)
+    out, aux = ffn(params, h, cfg, moe_aux_parts)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + out, aux

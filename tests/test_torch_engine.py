@@ -437,9 +437,19 @@ def test_unported_policy_options_raise(policy_kw):
 
 def test_unported_step_options_raise():
     _, tc, _, _ = _setup("tiny")
-    # the pipeline's fields wait for dist/pipeline (A11)
-    with pytest.raises(TypeError, match="unexpected keyword"):
-        StepOptions(pipeline_schedule="gpipe")
+    # the pipeline's fields are ported (dist/pipeline, A11.2): accepted,
+    # and a 2-stage step builds and trains
+    opts = StepOptions(pipeline_schedule="gpipe", pipeline_stages=2,
+                       num_microbatches=2)
+    assert (opts.pipeline_schedule, opts.pipeline_stages,
+            opts.num_microbatches) == ("gpipe", 2, 2)
+    p0, ocfg = _tparams("tiny"), OptimizerConfig(kind="sgd")
+    step = make_train_step(tc, QuantPolicy(), ocfg, opts, device="cpu")
+    assert step.pipeline_schedule.name == "gpipe"
+    new_p, _, m = _run(step, p0, ocfg, _batch(), default_bits(tc))
+    assert np.isfinite(float(m["loss"])) and int(m["pipe_ticks"]) == 6
+    assert not all(torch.equal(a, b) for a, b in zip(tree_leaves(new_p),
+                                                     tree_leaves(p0)))
     # overlap and transport are ported (dist.async_collectives): accepted,
     # checked, and folded into the step's policy
     opts = StepOptions(overlap="on", transport="ring")

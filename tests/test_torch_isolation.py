@@ -65,11 +65,12 @@ def test_port_modules_import_without_jax():
 
 
 # the cross-replica dW reduction's modules (dist/, the overlapped
-# reduce's transports, launch/mesh, quant/compression), checked like every
-# port module above and run here in a fresh interpreter without JAX
+# reduce's transports, the pipeline, launch/mesh, quant/compression),
+# checked like every port module above and run here in a fresh interpreter
+# without JAX
 DW_REDUCTION = ("dist/__init__.py", "dist/collectives.py",
-                "dist/async_collectives.py", "launch/mesh.py",
-                "quant/compression.py")
+                "dist/async_collectives.py", "dist/pipeline.py",
+                "launch/mesh.py", "quant/compression.py")
 
 
 def test_the_dw_reduction_modules_stand_alone():
@@ -91,6 +92,12 @@ def test_the_dw_reduction_modules_stand_alone():
         "    x, (), compressed=True, num_replicas=2)), y)\n"
         "assert A.decide_transport(1 << 20, 4, allow_measure=False) == "
         "'scatter'\n"
+        "from repro_torch.dist import pipeline as P\n"
+        "w = torch.ones(2, 3)\n"
+        "y = P.pipeline_apply(w, torch.ones(4, 3), lambda s, h: h * s,\n"
+        "                     schedule='interleaved')\n"
+        "assert torch.equal(y, torch.ones(4, 3))\n"
+        "assert P.get_schedule('1f1b').plan(4, 8).num_ticks == 15\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

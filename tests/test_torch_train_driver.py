@@ -103,7 +103,11 @@ def test_quantized_training_converges():
     ["--transport", "ring"], ["--compress-dw"]])
 def test_flags_of_later_items_are_refused(flag, capsys, tmp_path,
                                          monkeypatch):
-    """The multi-GPU flags of A11's later items are refused by name;
+    """The multi-GPU flags of A11's later items (``--data``, ``--model``,
+    and ``--pipe`` above one rank, A11.3) are refused by name;
+    ``--pipeline-schedule``, ``--virtual-stages`` and ``--microbatches``
+    (A11.2) train a step, stage-sharded or as the cost model only, and
+    print the JAX driver's pipeline line;
     ``--bit-search`` and ``--bit-anneal`` are ported (``search/``) and act:
     the sweep writes its plans under artifacts/, the anneal logs its spec
     into the resume payload; ``--compress-dw`` (A11's first item) trains
@@ -122,6 +126,25 @@ def test_flags_of_later_items_are_refused(flag, capsys, tmp_path,
         assert re.search(r"kernel tune cache primed: \d+/\d+ shape", out)
         assert "transport autotuner" not in out
         assert transport_cache_snapshot() == {}
+        return
+    if flag[0] in ("--pipeline-schedule", "--virtual-stages",
+                   "--microbatches"):
+        # each with the flags that make it act: 2 stages of the reduced
+        # twin's 4 layers, or gpipe's one stage (the cost model only)
+        extra = {"--pipeline-schedule": [],
+                 "--virtual-stages": ["--pipeline-schedule", "interleaved",
+                                      "--microbatches", "2"],
+                 "--microbatches": ["--pipeline-schedule", "interleaved",
+                                    "--virtual-stages", "2"]}[flag[0]]
+        losses = train.main(["--device", "cpu", "--reduced", "--seq-len",
+                             "16", "--global-batch", "4", "--steps", "1",
+                             "--quantize", *flag, *extra])
+        out = capsys.readouterr().out
+        assert len(losses) == 1 and all(map(math.isfinite, losses))
+        mode = ("cost model only (1 stage)" if not extra
+                else "stage-sharded execution")
+        assert re.search(r"\[train\] pipeline \S+ \(" + re.escape(mode)
+                         + r"\): \{'schedule'", out), out[-2000:]
         return
     if flag[0] in ("--bit-search", "--bit-anneal"):
         monkeypatch.chdir(tmp_path)
@@ -154,7 +177,7 @@ def test_flags_of_later_items_are_refused(flag, capsys, tmp_path,
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"{flag[0]}: the port has the dW reduction" in err
-    assert "wait for the rest of ROADMAP A11" in err
+    assert "wait for the rest of ROADMAP A11 (A11.3" in err
 
 
 def test_main_returns_the_losses(tmp_path, capsys, monkeypatch):

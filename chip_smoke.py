@@ -356,6 +356,44 @@ Phases (any failure exits non-zero before the result line is printed):
                with --pipeline-schedule 1f1b and no pipe axis prints
                "cost model only (1 stage)" and its 2 losses and launches
                equal the run without the flag.  The part seconds printed.
+6c. tp     -- tensor parallelism over the mesh's "model" axis
+               (``dist.sharding``, ``dist.api``, the column-, row- and
+               vocab-parallel units of ``models.layers``/``models.lm``)
+               on qwen1.5-0.5b at full width, T = 8 x 128: (a)
+               fxp_matmul's and bp_gstep's int32 modes (the raw int32
+               sums a rank's contraction-sharded product hands the group)
+               at the row-parallel forwards of wo and w_down (K = 1024/m,
+               2816/m) and the column-parallel dx of q/k/v and gate/up
+               (Dout = 1024/m, 2816/m), m = 2 and 4, bitwise their plain
+               versions at every split count; (b) one full-width layer
+               forward and backward (int8, emulate), each dense unit's
+               operands recorded, then each of m = 2, 4 ranks' shares run
+               in turn through the functions the parallel units call and
+               combined as the model group combines them (the absmax a
+               MAX over the shares, the int32 partials summed in rank
+               order, one rescale): int8 z, dx and dW bitwise the
+               unsharded unit's, and with each share's own scales (no
+               MAX) they differ; emulate within ``TP_EMULATE_REL``; (c)
+               the 24-layer int8 engine step under a one-rank NCCL mesh
+               data=1 x model=1 with the default rules, bitwise the step
+               without a mesh (params, momentum, loss), at exactly
+               train_lm's launches (the kernels line's ``launches`` for
+               this phase), then under the same mesh the units' own code
+               on the card: ``parallel_unit``'s column and row units
+               (int8, emulate; the absmax MAX and the int32 SUM over
+               NCCL) forward and backward at qwen's widths bitwise
+               ``dense_unit``, ``_SelectHeads`` bitwise ``_expand_kv``,
+               and the vocab-parallel head chunk ``_ce_chunk_tp``'s loss
+               bitwise ``_ce_chunk``'s, its gradients within
+               ``TP_EMULATE_REL``; (d) ``ce_bf16``'s loss within 3% of the f32
+               head (JAX's limit) and ``flash_attn``'s chunked attention
+               at T = 2048 within ``TP_FLASH_REL`` of the full softmax;
+               (e) the device ms of (a)'s int32 launches beside the
+               rescaling launches of the same operands, with the card's
+               name and power limit.  The model-axis collectives are
+               measured on gloo ranks on the CPU only (one card cannot
+               hold two NCCL ranks of one group).  The part seconds
+               printed.
 5d. train_driver -- the port's train driver (``launch.train.main``) on
                the same full-width qwen1.5-0.5b with --quantize,
                --stochastic and --bit-anneal 0:16,3:14,6:12, int8 on the
@@ -378,7 +416,7 @@ Phases (any failure exits non-zero before the result line is printed):
 
 ``--phases`` picks a subset of device, build, kernels, edges, serve,
 serve_ssm, train, noise, train_lm, train_ssm, moe, mla, whisper, llava,
-search, dist, pipe and train_driver
+search, dist, pipe, tp and train_driver
 (for
 example ``--phases
 device,build,kernels,edges`` or ``--phases device,train``);
@@ -402,7 +440,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "edges", "serve", "serve_ssm",
           "train", "noise", "train_lm", "train_ssm", "moe", "mla", "whisper",
-          "llava", "search", "dist", "pipe", "train_driver")
+          "llava", "search", "dist", "pipe", "tp", "train_driver")
 
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM HBM3
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "int8": 1979e12}
@@ -6236,6 +6274,504 @@ def pipe_phase(torch, dev):
     return rec
 
 # ---------------------------------------------------------------------------
+# phase 6c: tensor parallelism over the mesh's "model" axis (dist/sharding,
+# dist/api, models/layers.py's parallel dense units)
+# ---------------------------------------------------------------------------
+
+TP_SIZES = (2, 4)
+TP_T = TRAIN_LM_BATCH * TRAIN_LM_SEQ           # 1024 tokens, train_lm's
+# the contraction-sharded products of a qwen1.5-0.5b layer at model size m,
+# M = 1024 tokens: the row-parallel forwards (wo: K = 1024/m, w_down: K =
+# 2816/m; N = 1024) and the column-parallel dx (q/k/v: Dout = 1024/m,
+# gate/up: Dout = 2816/m; Din = 1024)
+TP_ROW = (("wo", D, D), ("w_down", FF, D))
+TP_COL = (("wq", D, D), ("w_up", D, FF))
+TP_UNITS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# emulate's shares summed in f32 against the unsharded unit: phase 3's f32
+# limit (the one-rank product's own K splits reassociate as much)
+TP_EMULATE_REL = 1e-4
+# the legs: JAX's ce_bf16 limit (tests/test_perf_options.py), and the
+# flash_attn chunked attention against the full one, both in f32
+TP_CE_BF16_REL, TP_FLASH_T, TP_FLASH_REL = 0.03, 2048, 1e-4
+
+
+def _tp_epilogues(torch, dev, gen, flush, smi):
+    """(a) fxp_matmul's and bp_gstep's int32 modes bitwise their plain
+    versions at every split count; (e) their device ms beside the
+    rescaling launches of the same operands."""
+    from repro_torch.kernels import bp_gstep as GS
+    from repro_torch.kernels import fxp_matmul as FM
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.quant.int8 import quantize_int8_absmax
+
+    n_sm, checked, figures = sm_count(dev), 0, []
+    for m in TP_SIZES:
+        for name, k, n in TP_ROW:
+            x = torch.randn((TP_T, k // m), generator=gen, device=dev)
+            w = torch.randn((k // m, n), generator=gen,
+                            device=dev) * k ** -0.5
+            (qx, sx), (qw, sw) = (quantize_int8_absmax(x),
+                                  quantize_int8_absmax(w))
+            scale = sx * sw                 # not a launch of the timed call
+            want = ref.int8_payload_ref(qx, qw, None)
+            plan = FM._plan(TP_T, k // m, n, n_sm, "int8", 1, 1)
+            for s in (1, 2, 4, 8, 16):
+                if s > -(-(k // m) // plan.bk):
+                    continue
+                got = FM._launch(qx, qw, None, None, None, "identity",
+                                 "int8", scale, plan._replace(splits=s),
+                                 int32_out=True)
+                require(got.dtype == torch.int32 and torch.equal(got, want),
+                        f"tp fxp_matmul int32 {name} m={m} S={s}: not "
+                        f"bitwise its plain version")
+                checked += 1
+            figures.append(dict(
+                kernel="fxp_matmul", unit=name, m=m,
+                shape=f"{TP_T}x{k // m}x{n}",
+                int32_ms=time_ms(lambda: FM.fxp_matmul(
+                    qx, qw, out_bits=None, datapath="int8",
+                    int32_out=True), torch, flush),
+                rescale_ms=time_ms(lambda: FM.fxp_matmul(
+                    qx, qw, out_bits=None, datapath="int8", scale=scale),
+                    torch, flush)))
+        for name, din, dout in TP_COL:
+            g = 1e-3 * torch.randn((TP_T, dout // m), generator=gen,
+                                   device=dev)
+            w = torch.randn((din, dout // m), generator=gen,
+                            device=dev) * dout ** -0.5
+            (qg, sg), (qw, sw) = (quantize_int8_absmax(g),
+                                  quantize_int8_absmax(w))
+            scale = sg * sw
+            want = ref.bp_gstep_payload_ref(qg, qw, None, None, g_bits=None,
+                                            act="identity")
+            for s in (1, 2, 4, 8):
+                if s > -(-(dout // m) // GS.TILE_K["int8"]):
+                    continue
+                plan = GS._plan(TP_T, din, dout // m, n_sm, "int8", splits=s)
+                got = GS._launch(qg, qw, None, None, "identity", "int8",
+                                 scale, (qg, qw), plan, int32_out=True)
+                require(got.dtype == torch.int32 and torch.equal(got, want),
+                        f"tp bp_gstep int32 {name} m={m} S={s}: not "
+                        f"bitwise its plain version")
+                checked += 1
+            figures.append(dict(
+                kernel="bp_gstep", unit=name, m=m,
+                shape=f"T{TP_T} Dout{dout // m} Din{din}",
+                int32_ms=time_ms(lambda: GS.bp_gstep(
+                    qg, qw, None, g_bits=None, act="identity",
+                    datapath="int8", int32_out=True), torch, flush),
+                rescale_ms=time_ms(lambda: GS.bp_gstep(
+                    qg, qw, None, g_bits=None, act="identity",
+                    datapath="int8", scale=scale), torch, flush)))
+    say(f"tp int32 epilogues: {checked} launches (every split count) "
+        f"bitwise their plain versions")
+    for f in figures:
+        say(f"tp figure {f['kernel']} {f['unit']} m={f['m']} {f['shape']}: "
+            f"int32 {f['int32_ms']:.4f} ms, rescaling {f['rescale_ms']:.4f} "
+            f"ms (device, CUDA events; {smi})")
+    return checked, figures
+
+
+def _tp_unit_operands(torch, cfg, params, x, dy, pos, backend):
+    """One full-width layer forward and backward on ``backend``, each dense
+    unit's operands recorded as the unit's kernels received them:
+    {leaf: (x2, w, dz)}."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import blocks as Bk
+    from repro_torch.util.tree import tree_map
+
+    fwd, dzs = [], {}
+    real_fwd, real_dx = kops.dense_fwd, kops.dense_bwd_dx
+
+    def rec_fwd(x2, w, b, **kw):
+        fwd.append((x2.detach(), w.detach()))
+        return real_fwd(x2, w, b, **kw)
+
+    def rec_dx(dz, w, b, **kw):
+        dzs[w.data_ptr()] = dz.detach()
+        return real_dx(dz, w, b, **kw)
+    kops.dense_fwd, kops.dense_bwd_dx = rec_fwd, rec_dx
+    try:
+        p = tree_map(lambda w: w.detach().requires_grad_(), params)
+        with kops.kernel_backend_ctx(backend):
+            y, _ = Bk.transformer_block(p, x, cfg, pos)
+            y.backward(dy)
+    finally:
+        kops.dense_fwd, kops.dense_bwd_dx = real_fwd, real_dx
+    require(len(fwd) == len(TP_UNITS), f"tp: {len(fwd)} dense units a layer")
+    return {n: (x2, w, dzs[w.data_ptr()])
+            for n, (x2, w) in zip(TP_UNITS, fwd)}
+
+
+def _tp_shares(torch, role, x2, w, dz, m, backend, logical=True):
+    """The unit's z, dx and dW from its ``m`` ranks' shares, each share
+    run in turn through the functions the parallel units call, combined as
+    the model group combines them: the scales' absmax the MAX over the
+    shares (``logical``; else each share's own), the contraction-sharded
+    product's int32 (emulate: f32) partials summed in rank order and
+    rescaled once (``kernels.ops.rescale_int32``), the rest concatenated."""
+    from repro_torch.kernels import ops as kops
+
+    def over(shares):
+        if not logical:
+            return None
+        top = torch.stack([torch.amax(torch.abs(s.to(torch.float32)))
+                           for s in shares]).amax()
+        return lambda _local: top
+
+    def summed(parts):
+        acc, scale = None, None
+        for a, scale in parts:
+            acc = a if acc is None else acc + a
+        return kops.rescale_int32(acc, scale)
+
+    if role == "column":
+        ws = [c.contiguous() for c in w.chunk(m, dim=1)]
+        ds = [c.contiguous() for c in dz.chunk(m, dim=1)]
+        rw, rd = over(ws), over(ds)
+        z = torch.cat([kops.dense_fwd(x2, wr, backend, rw=rw) for wr in ws],
+                      dim=1)
+        dx = summed([kops.dense_bwd_dx_partial(dr, wr, backend, rdz=rd,
+                                               rw=rw)
+                     for dr, wr in zip(ds, ws)])
+        dw = torch.cat([kops.dense_bwd_dw(x2, dr, backend, rdz=rd)
+                        for dr in ds], dim=1)
+        return z, dx, dw
+    xs = [c.contiguous() for c in x2.chunk(m, dim=1)]
+    ws = [c.contiguous() for c in w.chunk(m, dim=0)]
+    rx, rw = over(xs), over(ws)
+    z = summed([kops.dense_fwd_partial(xr, wr, backend, rx=rx, rw=rw)
+                for xr, wr in zip(xs, ws)])
+    dx = torch.cat([kops.dense_bwd_dx(dz, wr, backend, rw=rw) for wr in ws],
+                   dim=1)
+    dw = torch.cat([kops.dense_bwd_dw(xr, dz, backend, rx=rx) for xr in xs],
+                   dim=0)
+    return z, dx, dw
+
+
+def _tp_check_units(torch, ops, shapes, backend):
+    """Each recorded unit's shares at every model size against the
+    unsharded unit's z, dx and dW: (cases, emulate's largest
+    |d|/max|ref|)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import layers as L
+
+    worst, checked = 0.0, 0
+    for name, (x2, w, dz) in ops.items():
+        ref = (kops.dense_fwd(x2, w, backend),
+               kops.dense_bwd_dx(dz, w, backend),
+               kops.dense_bwd_dw(x2, dz, backend))
+        k_dims, *shape = shapes[name]
+        for m in TP_SIZES:
+            role = L._unit_role(name, shape, k_dims, m)
+            require(role is not None, f"tp {name}: replicated at m={m}")
+            got = _tp_shares(torch, role, x2, w, dz, m, backend)
+            label = f"tp {backend} {name} ({role}) m={m}"
+            if backend == "int8":
+                for what, a, b in zip(("z", "dx", "dW"), got, ref):
+                    require(torch.equal(a, b), f"{label}: {what} not "
+                            f"bitwise the unsharded unit's")
+                ctrl = _tp_shares(torch, role, x2, w, dz, m, backend,
+                                  logical=False)
+                require(not (torch.equal(ctrl[0], ref[0])
+                             and torch.equal(ctrl[1], ref[1])),
+                        f"{label}: the control with each share's own "
+                        f"scales equals the unsharded unit")
+            else:
+                for what, a, b in zip(("z", "dx", "dW"), got, ref):
+                    rel = float((a - b).abs().max()) / max(
+                        float(b.abs().max()), 1e-30)
+                    worst = max(worst, rel)
+                    require(rel <= TP_EMULATE_REL,
+                            f"{label}: {what} |d|/max|ref| {rel:.3g} "
+                            f"beyond {TP_EMULATE_REL}")
+            checked += 1
+    return checked, worst
+
+
+def _tp_recombined(torch, dev, cfg1, params1):
+    """(b) one full-width layer's units, each rank's share in turn at m = 2
+    and 4, recombined: int8 bitwise the unsharded layer's products (and
+    the scales left local differ), emulate within TP_EMULATE_REL."""
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    layer = lm.layer_params(params1["blocks"], 0)
+    dt = lm.compute_dtype(cfg1)
+    x = torch.randn((TRAIN_LM_BATCH, TRAIN_LM_SEQ, cfg1.d_model),
+                    generator=gen, device=dev).to(dt)
+    dy = 1e-2 * torch.randn(x.shape, generator=gen, device=dev).to(dt)
+    pos = torch.arange(TRAIN_LM_SEQ, device=dev).expand(TRAIN_LM_BATCH,
+                                                       TRAIN_LM_SEQ)
+    shapes = {"wq": (1, cfg1.d_model, cfg1.num_heads, cfg1.head_dim),
+              "wk": (1, cfg1.d_model, cfg1.num_kv_heads, cfg1.head_dim),
+              "wv": (1, cfg1.d_model, cfg1.num_kv_heads, cfg1.head_dim),
+              "wo": (2, cfg1.num_heads, cfg1.head_dim, cfg1.d_model),
+              "w_gate": (1, cfg1.d_model, cfg1.d_ff),
+              "w_up": (1, cfg1.d_model, cfg1.d_ff),
+              "w_down": (1, cfg1.d_ff, cfg1.d_model)}
+    readings, checked = {}, 0
+    for backend in ("int8", "emulate"):
+        ops = _tp_unit_operands(torch, cfg1, layer, x, dy, pos, backend)
+        with torch.no_grad():
+            n, readings[backend] = _tp_check_units(torch, ops, shapes,
+                                                   backend)
+        checked += n
+        del ops
+    say(f"tp shares: {checked} unit x model-size cases of a full-width "
+        f"{cfg1.name} layer (T {x.shape[0] * x.shape[1]}); int8 z, dx and "
+        f"every dW bitwise the "
+        f"unsharded layer's, the local-scale controls differ; emulate's "
+        f"largest |d|/max|ref| {readings['emulate']:.3g}")
+    return checked, readings
+
+
+def _tp_legs(torch, dev, cfg1, params1):
+    """(d) ce_bf16 within JAX's 3% of the f32 head on the cut model, and
+    flash_attn's chunked attention at T = 2048 against the full one."""
+    import dataclasses
+
+    from repro_torch.dist import perf_options_ctx
+    from repro_torch.kernels.ops import kernel_backend_ctx
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    batch = _lm_batch(torch, cfg1, dev)
+    with kernel_backend_ctx("int8"), torch.no_grad():
+        f32 = float(lm.loss_fn(params1, cfg1, batch)[0])
+        with perf_options_ctx({"ce_bf16"}):
+            bf16 = float(lm.loss_fn(params1, cfg1, batch)[0])
+    ce_rel = abs(bf16 - f32) / abs(f32)
+    require(math.isfinite(bf16) and bf16 != f32 and ce_rel < TP_CE_BF16_REL,
+            f"tp ce_bf16: loss {bf16} against f32 {f32}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(37)
+    cfg32 = dataclasses.replace(cfg1, compute_dtype="float32")
+    attn = lm.layer_params(params1["blocks"], 0)["attn"]
+    x = torch.randn((1, TP_FLASH_T, cfg1.d_model), generator=gen, device=dev)
+    pos = torch.arange(TP_FLASH_T, device=dev)[None]
+    with kernel_backend_ctx("off"), torch.no_grad():
+        full = L.attention(attn, x, cfg32, pos)
+        with perf_options_ctx({"flash_attn"}):
+            chunked = L.attention(attn, x, cfg32, pos)
+    fl_rel = float((chunked - full).abs().max()) / float(full.abs().max())
+    require(not torch.equal(chunked, full) and fl_rel <= TP_FLASH_REL,
+            f"tp flash_attn: |d|/max|ref| {fl_rel}")
+    say(f"tp legs: ce_bf16 loss {bf16:.6f} against f32 {f32:.6f} "
+        f"(rel {ce_rel:.3g} < {TP_CE_BF16_REL}); flash_attn at T "
+        f"{TP_FLASH_T} (chunks of {L.ATTN_KV_BLOCK}) |d|/max|ref| "
+        f"{fl_rel:.3g} <= {TP_FLASH_REL} against the full softmax")
+    return dict(ce_bf16_rel=ce_rel, flash_rel=fl_rel)
+
+
+# the parallel units under the one-rank mesh: (leaf, K, N, role, act) at
+# qwen1.5-0.5b's widths, the model size 1 (each unit's whole weight)
+TP_MESH_UNITS = (("wq", D, D, "column", "identity"),
+                 ("w_gate", D, FF, "column", "silu"),
+                 ("wo", D, D, "row", "identity"),
+                 ("w_down", FF, D, "row", "identity"))
+
+
+def _tp_units_on_mesh(torch, dev, cfg, mesh):
+    """(c2) under the one-rank NCCL mesh ``data=1 x model=1`` that the
+    caller installed: the model group's own code on the card.  Each
+    column- and row-parallel unit (``models.layers.parallel_unit``:
+    ``_ColumnUnit``/``_RowUnit``, the absmax MAX and the int32 SUM over
+    NCCL, one rescale) forward and backward, int8 and emulate, bitwise
+    ``dense_unit`` on the same x, W and dy (a group of one sums nothing);
+    ``_SelectHeads`` (qwen's KV heads taken two query heads each, GQA's
+    pattern) bitwise ``_expand_kv`` forward and backward; and the
+    vocab-parallel head chunk ``_ce_chunk_tp`` (shard 0 of 1: the MAX and
+    the two SUMs over NCCL) against ``_ce_chunk``, in f32: the loss
+    bitwise, the gradients of x and W within TP_EMULATE_REL
+    (``_ce_chunk_tp`` holds the max constant, ``_ce_chunk`` differentiates
+    through it: dlogits differ by the rounding of 1 - sum(softmax) at each
+    row's argmax; in bf16 that f32 ulp flips the rounding of some bf16
+    dlogits, 1.67e-3 of max|ref| on qwen's head on an H100, which says
+    nothing of the group's collectives).  Every
+    backward here runs on autograd's own thread, where the ambient mesh
+    is not set: the units keep the mesh of their forward, and the head
+    chunk takes ``mesh`` as ``ce_from_weight`` passes it."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    dt = lm.compute_dtype(cfg)
+
+    def grads(fn, *leaves):
+        ins = [t.detach().clone().requires_grad_() for t in leaves]
+        out = fn(*ins)
+        return out, ins
+
+    checked = 0
+    for backend in ("int8", "emulate"):
+        for name, k, n, role, act in TP_MESH_UNITS:
+            x = torch.randn((TP_T, k), generator=gen, device=dev).to(dt)
+            w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+            dy = 1e-2 * torch.randn((TP_T, n), generator=gen,
+                                    device=dev).to(dt)
+            res = []
+            for f in (lambda a, b: L.dense_unit(a, b, act, backend),
+                      lambda a, b: L.parallel_unit(a, b, act, role,
+                                                   backend)):
+                y, (xi, wi) = grads(f, x, w)
+                y.backward(dy)
+                res.append((y.detach(), xi.grad, wi.grad))
+            for what, a, b in zip(("y", "dx", "dW"), res[1], res[0]):
+                require(torch.equal(a, b),
+                        f"tp mesh unit {backend} {name} ({role}): {what} "
+                        f"not bitwise dense_unit's")
+            checked += 1
+    hd, hkv = cfg.head_dim, cfg.num_kv_heads // 2
+    k = torch.randn((TRAIN_LM_BATCH, TRAIN_LM_SEQ, hkv, hd), generator=gen,
+                    device=dev).to(dt)
+    g = torch.randn((TRAIN_LM_BATCH, TRAIN_LM_SEQ, 2 * hkv, hd),
+                    generator=gen, device=dev).to(dt)
+    idx = torch.arange(2 * hkv, device=dev) // 2
+    sel, (ks,) = grads(lambda a: L._SelectHeads.apply(a, idx), k)
+    sel.backward(g)
+    exp, (ke,) = grads(lambda a: L._expand_kv(a, 2), k)
+    exp.backward(g)
+    require(torch.equal(sel, exp) and torch.equal(ks.grad, ke.grad),
+            "tp mesh _SelectHeads: not bitwise _expand_kv")
+    c = min(cfg.logit_chunk, TRAIN_LM_SEQ)
+    xch = torch.randn((TRAIN_LM_BATCH, c, cfg.d_model), generator=gen,
+                      device=dev)
+    wv = torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
+                     device=dev) * cfg.d_model ** -0.5
+    lch = torch.randint(-1, cfg.vocab_size, (TRAIN_LM_BATCH, c),
+                        generator=gen, device=dev)
+    head = []
+    for f in (lambda a, b: lm._ce_chunk(a, lch, b),
+              lambda a, b: lm._ce_chunk_tp(a, lch, b, 0, mesh=mesh)):
+        (tot, cnt), (xi, wi) = grads(f, xch, wv)
+        tot.backward()
+        head.append((tot.detach(), cnt, xi.grad, wi.grad))
+    (t0, c0, dx0, dw0), (t1, c1, dx1, dw1) = head
+    rel = max(float((a.float() - b.float()).abs().max())
+              / max(float(b.float().abs().max()), 1e-30)
+              for a, b in ((dx1, dx0), (dw1, dw0)))
+    require(_same_bits(torch, t1, t0) and torch.equal(c1, c0)
+            and rel <= TP_EMULATE_REL,
+            f"tp mesh _ce_chunk_tp: loss {float(t1)} against {float(t0)}, "
+            f"gradients |d|/max|ref| {rel:.3g} (limit {TP_EMULATE_REL})")
+    say(f"tp mesh units: {checked} parallel units (column and row, int8 and "
+        f"emulate, T {TP_T}) forward and backward under the one-rank NCCL "
+        f"mesh bitwise dense_unit; _SelectHeads bitwise _expand_kv; "
+        f"_ce_chunk_tp's loss bitwise _ce_chunk's (f32, V "
+        f"{cfg.vocab_size}), "
+        f"its gradients |d|/max|ref| {rel:.3g}")
+    return dict(units=checked, head_grad_rel=rel)
+
+
+def tp_phase(torch, dev, smi):
+    """Tensor parallelism over the mesh's "model" axis (module docstring,
+    phase 6c): (a) + (e) the int32 epilogues, (b) a full-width layer's
+    shares recombined, (c) the one-rank mesh step and the parallel units
+    under that mesh, (d) the legs."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import default_bits, init_train_state
+    from repro_torch.dist import (activation_sharding_ctx,
+                                  make_default_rules, mesh_ctx,
+                                  param_pspecs, shard_tree)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.optim import Hyper
+    from repro_torch.util.tree import tree_leaves as _leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    rec = dict(run="tp", part_seconds={}, sizes=TP_SIZES)
+    t_part = [t_phase]
+
+    def part(name):
+        now = time.perf_counter()
+        rec["part_seconds"][name] = now - t_part[0]
+        t_part[0] = now
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(29)
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    rec["int32_checked"], rec["figures"] = _tp_epilogues(torch, dev, gen,
+                                                         flush, smi)
+    del flush
+    part("int32 epilogues")
+
+    cfg = get_config(LM_ARCH)
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    params1 = lm.init_params(cfg1, seed=0, device=dev)
+    rec["shares_checked"], rec["emulate_rel"] = _tp_recombined(
+        torch, dev, cfg1, params1)
+    part("shares")
+    rec["legs"] = _tp_legs(torch, dev, cfg1, params1)
+    del params1
+    part("legs")
+
+    # (c) the full-width, full-depth int8 engine step under a one-rank
+    # NCCL mesh data=1 x model=1 with the default rules: bitwise the step
+    # without a mesh, at exactly train_lm's launches
+    params = lm.init_params(cfg, seed=0, device=dev)
+    step, ocfg = _lm_step(torch, cfg, "int8", dev)
+    batch = _lm_batch(torch, cfg, dev)
+    bits, hyper = default_bits(cfg), Hyper(lr=TRAIN_LM_LR, step=0)
+    p_ref, s_ref, m_ref = step(params, init_train_state(params, ocfg), batch,
+                               hyper, bits)
+    store = tempfile.mkdtemp(prefix="chip-smoke-tp-") + "/store"
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            world_size=1, rank=0, device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        specs = param_pspecs(cfg, params, mesh)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        with mesh_ctx(mesh), activation_sharding_ctx(
+                make_default_rules(("data",))):
+            local = shard_tree(params, specs, mesh)
+            p, s, m = step(local, init_train_state(local, ocfg), batch,
+                           hyper, bits)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        with mesh_ctx(mesh):
+            rec["mesh_units"] = _tp_units_on_mesh(torch, dev, cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    require(counts == TRAIN_LM_LAUNCHES,
+            f"tp one-rank mesh step: launches {counts}, expected "
+            f"{TRAIN_LM_LAUNCHES}")
+
+    def bits_of(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    same = all(a.shape == b.shape and torch.equal(bits_of(a), bits_of(b))
+               for a, b in zip(_leaves(p) + _leaves(s),
+                               _leaves(p_ref) + _leaves(s_ref)))
+    require(same and _same_bits(torch, m["loss"], m_ref["loss"]),
+            "tp one-rank mesh step: not bitwise the step without a mesh")
+    rec["counts"] = counts
+    rec["loss"] = float(m["loss"])
+    say(f"tp one-rank mesh: the {cfg.num_layers}-layer int8 step under a "
+        f"data=1 x model=1 NCCL mesh with the default rules is bitwise the "
+        f"step without one (loss {rec['loss']:.6f}), launches {counts}")
+    del params, p_ref, s_ref, p, s, local
+    part("one-rank mesh")
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"tp: {rec['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in rec["part_seconds"].items())
+        + ")")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the train driver, killed and resumed bitwise
 # ---------------------------------------------------------------------------
 
@@ -6952,6 +7488,10 @@ def main(argv=None) -> int:
         pipe_rec = timed("pipe", lambda: pipe_phase(torch, dev))
         runs.append(pipe_rec)
         dump(pipe=pipe_rec)
+    if "tp" in phases:
+        tp_rec = timed("tp", lambda: tp_phase(torch, dev, smi))
+        runs.append(tp_rec)
+        dump(tp=tp_rec)
     if "train_driver" in phases:
         drv = timed("train_driver", lambda: train_driver(torch, dev))
         runs.append(drv)

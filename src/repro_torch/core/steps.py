@@ -48,8 +48,18 @@ it and ignores it, and the returned step exposes it as ``.bit_anneal``.
 reach the engine's dW reduction with the policy (``core.taxonn``);
 ``StepOptions.overlap`` and ``transport`` override the policy's
 ``overlap`` and ``dw_transport`` (the overlapped reduce and its
-transports, ``dist.async_collectives``).  Pipeline execution (with its
-``grad_tap_stochastic``) waits for the rest of multi-GPU (ROADMAP A11).
+transports, ``dist.async_collectives``); ``pipeline_stages > 1`` runs the
+stack stage-sharded over the mesh's "pipe" ranks (``dist.pipeline``).
+Under an ambient mesh whose "model" axis has more than one rank
+(``dist.mesh_ctx``) the step is tensor-parallel: ``params`` and
+``opt_state`` are this rank's shards (``dist.sharding.shard_tree`` of
+``param_pspecs`` and ``opt_pspecs``), the layers run on them with the
+model group's collectives (``models.layers``, ``models.lm``), the updates
+are each shard's slice of the logical update, and ``grad_norm`` counts
+each shard once over the group.  It takes the dense family; the others,
+``compress_dw``, ``overlap="on"`` and the pipeline raise under a model
+axis (ROADMAP A11.3c), and the multi-rank train driver is ROADMAP
+A11.3b.
 ``capture_resume_extra`` and ``apply_resume_extra`` carry the train
 driver's resume payload, the transport decisions among it; the noise and
 the anneal depend only on the step, so the payload needs no PRNG state,
@@ -73,7 +83,9 @@ from repro_torch.core.taxonn import (QuantPolicy, _blend_quant,
                                      quantize_weight_tree)
 from repro_torch.dist.async_collectives import (load_transport_cache,
                                                 transport_cache_snapshot)
-from repro_torch.dist.collectives import current_mesh
+from repro_torch.dist.api import model_axis_size_ctx
+from repro_torch.dist.collectives import current_mesh, dense_psum
+from repro_torch.dist.sharding import MODEL, model_dim, param_pspecs
 from repro_torch.dist.pipeline import get_schedule, pipeline_apply
 from repro_torch.kernels.ops import (current_backend, foreign_tune_entries,
                                      kernel_backend_ctx, load_tune_cache,
@@ -304,6 +316,65 @@ def _grad_leaves(outputs, tree, seeds):
     grads = torch.autograd.grad(outputs, leaves, seeds, allow_unused=True)
     return tree_unflatten(tree, [torch.zeros_like(w) if g is None else g
                                  for g, w in zip(grads, leaves)])
+
+
+# (cfg, model size) -> the parameters' specs
+_SPECS: dict = {}
+
+
+def _step_specs(cfg: ModelConfig):
+    """The parameters' specs under a model axis of more than one rank (the
+    step's leaves are then shards), else None: ``param_pspecs`` of the
+    logical shapes, from an initialization on the meta device."""
+    m = model_axis_size_ctx()
+    if m <= 1:
+        return None
+    if (cfg, m) not in _SPECS:
+        _SPECS[(cfg, m)] = param_pspecs(
+            cfg, lm.init_params(cfg, device="meta"), current_mesh())
+    return _SPECS[(cfg, m)]
+
+
+def check_model_axis(cfg: ModelConfig, policy: QuantPolicy,
+                     pipeline_stages: Optional[int] = None) -> None:
+    """Raise, by name, for what the step cannot yet run under a model axis
+    of more than one rank (ROADMAP A11.3c), rather than run it replicated
+    in silence."""
+    m = model_axis_size_ctx()
+    if m <= 1:
+        return
+    refused = []
+    if cfg.family != "dense":
+        refused.append(f"the {cfg.family} family")
+    if policy.compress_dw:
+        refused.append("compress_dw (the codec's absmax blocks of a shard "
+                       "are not the logical leaf's)")
+    if policy.overlap == "on":
+        refused.append("overlap='on'")
+    if pipeline_stages and int(pipeline_stages) > 1:
+        refused.append("pipeline_stages > 1")
+    if refused:
+        raise NotImplementedError(
+            f"under a model axis of {m} ranks the step runs the dense "
+            f"family only; {', '.join(refused)}: ROADMAP A11.3c")
+
+
+def _sq_sums(tree, specs, like: torch.Tensor) -> torch.Tensor:
+    """The squared sum of a gradient tree, each shard's squares (``specs``
+    naming shards) summed over the model group."""
+    if specs is None:
+        return _sq_sum(tree, like)
+    sqs = tree_map(lambda g: torch.sum(torch.square(g.to(torch.float32))),
+                   tree)
+    shards = tree_map(lambda sp: model_dim(sp) is not None, specs)
+    rep = torch.zeros((), dtype=torch.float32, device=like.device)
+    sh = torch.zeros((), dtype=torch.float32, device=like.device)
+    for sq, sharded in zip(tree_leaves(sqs), tree_leaves(shards)):
+        if sharded:
+            sh = sh + sq
+        else:
+            rep = rep + sq
+    return rep + dense_psum(sh, MODEL)
 
 
 def _requires_grad(tree):
@@ -651,6 +722,7 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
         step = _taxonn_step(cfg, policy, optim_cfg, dev, anneal, pipe)
 
     def run(params, opt_state, batch, hyper: Hyper, bits=None, rng=None):
+        check_model_axis(cfg, policy, options.pipeline_stages)
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         if rng is not None:
             rng = prng.as_key(rng)
@@ -667,15 +739,17 @@ def make_train_step(cfg: ModelConfig, policy: Optional[QuantPolicy] = None,
 
 def _autodiff_step(cfg, optim_cfg, dev):
     def step(params, opt_state, batch, hyper, bits=None, rng=None):
+        specs = _step_specs(cfg)
         pg = _requires_grad(params)
         with torch.enable_grad():
             loss, metrics = lm.loss_fn(pg, cfg, batch)
             grads = _grad_leaves([loss], pg, None)
-        gsq = _sq_sum(grads, loss)
+        gsq = _sq_sums(grads, specs, loss)
         new_params, new_opt = {}, {}
         for k in params:  # grouped like the engine's state layout
             new_params[k], new_opt[k] = apply_update(
-                params[k], grads[k], opt_state[k], hyper, optim_cfg)
+                params[k], grads[k], opt_state[k], hyper, optim_cfg,
+                specs=None if specs is None else specs[k])
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = torch.sqrt(gsq)
         return new_params, new_opt, metrics
@@ -697,6 +771,7 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None, pipe=None):
             bits = anneal.apply_tree({k: v.to(dev) for k, v in bits.items()},
                                      hyper.step)
         main_bits = bits["blocks"].to(dev)
+        specs = _step_specs(cfg)
         bnd = {k: params[k] for k in boundary_keys(params)}
         bnd_g = _requires_grad(bnd)
         tokens = batch["tokens"]
@@ -816,7 +891,8 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None, pipe=None):
             G_in, new_blocks, new_blocks_opt, gsq, dshared = backward_stack(
                 body, params["blocks"], opt_state["blocks"], caches,
                 main_bits, G_final, hyper, policy, optim_cfg, AUX_COEF,
-                base_key=rng, shared=shared, quantize_shared=quantize_shared)
+                base_key=rng, shared=shared, quantize_shared=quantize_shared,
+                specs=None if specs is None else specs["blocks"])
             del caches
         new_params, new_opt = dict(params), dict(opt_state)
         new_params["blocks"], new_opt["blocks"] = new_blocks, new_blocks_opt
@@ -858,9 +934,10 @@ def _taxonn_step(cfg, policy, optim_cfg, dev, anneal=None, pipe=None):
                 lambda a, g: a + g.to(torch.float32) / scale,
                 d_bnd["enc_norm"], d_enc_norm)
         for k in bnd:
+            sk = None if specs is None else specs[k]
             new_params[k], new_opt[k] = apply_update(
-                bnd[k], d_bnd[k], opt_state[k], hyper, optim_cfg)
-            gsq = gsq + _sq_sum(d_bnd[k], gsq)
+                bnd[k], d_bnd[k], opt_state[k], hyper, optim_cfg, specs=sk)
+            gsq = gsq + _sq_sums(d_bnd[k], sk, gsq)
         metrics["grad_norm"] = torch.sqrt(gsq)
         return new_params, new_opt, metrics
     return step

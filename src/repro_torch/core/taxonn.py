@@ -64,6 +64,16 @@ by leaf, and ``overlap="on"`` is then bitwise ``"off"``.  The stacked
 update tail of the pipeline (``apply_stacked_updates``) takes the same
 schedules.
 
+Under a model axis (``dist.mesh_ctx`` with "model" of m > 1 ranks) the
+stack's leaves are this rank's shards (``dist.sharding``) and the layers
+run tensor-parallel (``models.layers``); ``backward_stack``'s ``specs``
+name each stacked leaf's spec, so that the update of a shard is the
+logical leaf's slice: the optimizer's reductions span the model group
+(``optim.apply_update``), the strict mode's stochastic rounding draws
+each element's noise from its index in the logical leaf
+(``quantize_update``'s ``block``), and the returned squared norm counts
+each shard's squares once over the group.
+
 The stage-sharded pipeline (``core.steps``, ``dist.pipeline``) runs the
 stack under plain autograd instead of the reverse loop: ``grad_tap`` and
 ``grad_tap_stochastic`` at each layer input quantize the cotangent as the
@@ -85,7 +95,9 @@ from repro_torch.dist.async_collectives import (all_gather_chunks,
                                                 shard_chunk,
                                                 tree_all_reduce_start,
                                                 tree_all_reduce_wait)
+from repro_torch.dist.api import model_axis_index_ctx, model_axis_size_ctx
 from repro_torch.dist.collectives import compressed_psum, dense_psum
+from repro_torch.dist.sharding import MODEL, P, model_dim
 from repro_torch.optim import Hyper, OptimizerConfig, apply_update
 from repro_torch.quant.fixed_point import (BitSchedule, make_bit_schedule,
                                            maybe_quantize, quantize_ste,
@@ -231,18 +243,37 @@ def grad_tap_stochastic(x: torch.Tensor, g_i, g_f, enabled, key,
                           int(offset))
 
 
+def shard_block(spec, shape) -> Optional[tuple]:
+    """(logical shape, start) of a leaf of local ``shape`` that ``spec``
+    shards over the ambient mesh's "model" axis, else None."""
+    d = model_dim(spec)
+    if d is None:
+        return None
+    logical, start = list(shape), [0] * len(shape)
+    logical[d] = shape[d] * model_axis_size_ctx()
+    start[d] = shape[d] * model_axis_index_ctx()
+    return tuple(logical), tuple(start)
+
+
 def quantize_update(g: torch.Tensor, b_l: dict, key, enabled,
-                    policy: QuantPolicy, hyper: Hyper) -> torch.Tensor:
+                    policy: QuantPolicy, hyper: Hyper,
+                    block: Optional[tuple] = None) -> torch.Tensor:
     """Strict-paper mode: ``q(alpha * dW)`` in the layer's gradient (I,F)
     format, returned in the dW domain (divided back by lr) so the
     optimizer applies it unchanged.  With ``policy.stochastic`` and the
     layer ``key``, the rounding is stochastic with noise drawn from that
-    key (every leaf of a layer draws from the same key)."""
+    key (every leaf of a layer draws from the same key); where ``g`` is a
+    shard, ``block`` (``shard_block``) places it in the logical leaf, whose
+    draws it takes its slice of."""
     if not policy.quantize_updates:
         return g
     upd = hyper.lr * g
     if policy.stochastic and key is not None:
-        updq = quantize_stochastic(upd, b_l["g_i"], b_l["g_f"], key)
+        noise = key
+        if block is not None:
+            noise = prng.uniform_block(key, block[0], block[1], g.shape,
+                                       device=g.device)
+        updq = quantize_stochastic(upd, b_l["g_i"], b_l["g_f"], noise)
     else:
         updq = quantize_ste(upd, b_l["g_i"], b_l["g_f"])
     upd = enabled * updq + (1.0 - enabled) * upd
@@ -575,7 +606,7 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
                    bits: BitSchedule, G_out: torch.Tensor, hyper: Hyper,
                    policy: QuantPolicy, optim_cfg: OptimizerConfig,
                    aux_coef: float, base_key=None, shared: tuple = (),
-                   quantize_shared: bool = True):
+                   quantize_shared: bool = True, specs=None):
     """The reverse loop over layers.  Per layer (the paper's steps 1-4 in
     one TDM frame):
 
@@ -610,6 +641,10 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
     (the caller un-scales it: the hybrid applies it as the shared block's
     update, the encoder-decoder sends it back through the encoder).
 
+    ``specs`` (a tree like ``stacked`` of its leaves' specs, under a model
+    axis): the leaves are shards, updated as the module docstring says,
+    and ``grad_sq_sum`` sums each shard's squares over the model group.
+
     Returns (G_in, new_stacked, new_opt, grad_sq_sum, dS), dS a tuple like
     ``shared``.
     """
@@ -618,6 +653,10 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
     new_stacked = tree_map(torch.empty_like, stacked)
     new_opt = tree_map(torch.empty_like, opt_stacked)
     gsq = torch.zeros((), dtype=torch.float32, device=G_out.device)
+    gsq_sh = torch.zeros((), dtype=torch.float32, device=G_out.device)
+    # each leaf's spec as one layer's slice sees it
+    slice_specs = (None if specs is None
+                   else tree_map(lambda sp: P(*tuple(sp)[1:]), specs))
     updater = _updater(policy, stacked, hyper, optim_cfg, enabled,
                        new_stacked, new_opt, gsq)
     aux_seed = torch.tensor(aux_coef * policy.grad_scale, dtype=torch.float32,
@@ -673,20 +712,30 @@ def backward_stack(body_fn: Callable, stacked, opt_stacked, caches,
                 dw = grads[j].to(torch.float32) * inv_scale
                 grads[j] = None
                 dw = _reduce_dw(dw, policy)
-                dw = quantize_update(dw, b_l, key, enabled, policy, hyper)
+                spec = None if specs is None else _at(slice_specs, path)
+                dw = quantize_update(dw, b_l, key, enabled, policy, hyper,
+                                     shard_block(spec, dw.shape))
+                shard_kw = ({} if specs is None
+                            else {"specs": _only(slice_specs, path)})
                 new_p, new_o = apply_update(
                     _only(p_l, path), _only(dw, path, leaf=True),
                     {k: _only(t, path) for k, t in opt_l.items()}, hyper,
-                    optim_cfg)
+                    optim_cfg, **shard_kw)
                 _at(new_stacked, path)[i].copy_(_at(new_p, path))
                 for k, t in new_o.items():
                     _at(new_opt[k], path)[i].copy_(_at(t, path))
-                gsq = gsq + torch.sum(torch.square(dw))
+                if model_dim(spec) is None:
+                    gsq = gsq + torch.sum(torch.square(dw))
+                else:
+                    gsq_sh = gsq_sh + torch.sum(torch.square(dw))
                 del dw, new_p, new_o
             del grads
     if updater is not None:
         # the ring's last depth layers are still in flight
         gsq = updater.drain()
+    if specs is not None:
+        # each shard's squares once over the model group
+        gsq = gsq + dense_psum(gsq_sh, MODEL)
     return G, new_stacked, new_opt, gsq, dS
 
 

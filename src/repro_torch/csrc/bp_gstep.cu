@@ -179,6 +179,7 @@ struct Args {
   int vz, vo;           // Z / out rows are float4 rows from aligned bases
   Bits bg;
   int act;
+  int raw;              // int8: store the int32 sums (out is int32)
 };
 
 // Four consecutive Z values of row gm from column gn (zero where masked).
@@ -218,6 +219,22 @@ __device__ __forceinline__ void finish4(const Args& a, int gm, int gn,
   if (gn + 1 < a.Din) p[1] = y.y;
   if (gn + 2 < a.Din) p[2] = y.z;
   if (gn + 3 < a.Din) p[3] = y.w;
+}
+
+// The int32 mode's epilogue: four consecutive exact int32 sums stored as
+// they are (no rescale, no f'(Z), no rounding), masked past T and Din.
+__device__ __forceinline__ void store_raw4(const Args& a, int gm, int gn,
+                                           int4 t) {
+  if (gm >= a.T || gn >= a.Din) return;
+  int* p = reinterpret_cast<int*>(a.out) + (size_t)gm * a.Din + gn;
+  if (a.vo) {
+    *reinterpret_cast<int4*>(p) = t;
+    return;
+  }
+  p[0] = t.x;
+  if (gn + 1 < a.Din) p[1] = t.y;
+  if (gn + 2 < a.Din) p[2] = t.z;
+  if (gn + 3 < a.Din) p[3] = t.w;
 }
 
 // The activation code that the epilogue applies: 0 without Z.
@@ -454,7 +471,7 @@ __device__ __forceinline__ void finish_tile(const Args& a, float* ot,
     if constexpr (SPLIT) return cg::this_cluster().map_shared_rank(ot, s);
     return ot;
   };
-  const float scale = I8 ? a.scale[0] : 1.0f;
+  const float scale = I8 && !a.raw ? a.scale[0] : 1.0f;
   constexpr int BATCH = 8;
   const int tid = threadIdx.x;
   for (int b = 0; b < pieces; b += BATCH * THREADS_T) {
@@ -477,6 +494,10 @@ __device__ __forceinline__ void finish_tile(const Args& a, float* ot,
         for (int s = 1; s < S; ++s) {
           const int4 p = *reinterpret_cast<const int4*>(part(s) + off);
           t.x += p.x; t.y += p.y; t.z += p.z; t.w += p.w;
+        }
+        if (a.raw) {
+          store_raw4(a, m0 + r0 + (c >> 5), n0 + 4 * (c & 31), t);
+          continue;
         }
         y = make_float4(__fmul_rn((float)t.x, scale),
                         __fmul_rn((float)t.y, scale),
@@ -610,6 +631,10 @@ __global__ void __launch_bounds__(SQ * SROWS_MAX) gstep_short_kernel(Args a) {
       acc[2] = __dp4a(gw, (int)__byte_perm(u2, u3, 0x5410), acc[2]);
       acc[3] = __dp4a(gw, (int)__byte_perm(u2, u3, 0x7632), acc[3]);
     }
+    if (a.raw) {
+      store_raw4(a, gm, gn, make_int4(acc[0], acc[1], acc[2], acc[3]));
+      return;
+    }
     const float s = a.scale[0];
     y = make_float4(__fmul_rn((float)acc[0], s), __fmul_rn((float)acc[1], s),
                     __fmul_rn((float)acc[2], s), __fmul_rn((float)acc[3], s));
@@ -701,13 +726,18 @@ extern "C" int bp_gstep_emulate(const float* g, const float* w,
                        path, rows, S, stream);
 }
 
+// raw: 1 stores the int32 sums into out (int32 [T, Din]; then z must be
+// null and g_on 0, and scale is not read: it may be null).
 extern "C" int bp_gstep_int8(const void* g, const void* w, const float* scale,
                              const float* z, float* out, int T, int Din,
                              int Dout, int g_on, int g_i, int g_f, int act,
-                             int path, int rows, int S, int vec,
+                             int path, int rows, int S, int vec, int raw,
                              cudaStream_t stream) {
   if (T <= 0 || Din <= 0) return 0;
-  return launch<true>(make_args(g, w, scale, z, out, T, Din, Dout, vec, g_on,
-                                g_i, g_f, act),
-                      path, rows, S, stream);
+  if (raw && (z != nullptr || g_on)) return (int)cudaErrorInvalidValue;
+  if (!raw && scale == nullptr) return (int)cudaErrorInvalidValue;
+  Args a = make_args(g, w, scale, z, out, T, Din, Dout, vec, g_on, g_i, g_f,
+                     act);
+  a.raw = raw;
+  return launch<true>(a, path, rows, S, stream);
 }

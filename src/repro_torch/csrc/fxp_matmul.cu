@@ -151,13 +151,22 @@ struct Args {
   int x_bf16;           // emulate: X is bf16 (else f32)
   Bits bx, bw, bo;
   int act;
+  int raw;              // int8: store the int32 sum (y is int32 [M, N])
 };
 
-// The epilogue of one output: rescale (int8), act, kq_out, store.
+// The epilogue of one output: rescale (int8), act, kq_out, store.  The
+// int32 mode stores the exact int32 sum as it is (no rescale, no act, no
+// rounding), for a caller that adds partial sums over ranks first.
 template <typename Acc>
 __device__ __forceinline__ void store_out(const Args& a, float scale, int gm,
                                           int gn, Acc v) {
   if (gm >= a.M || gn >= a.N) return;
+  if constexpr (std::is_same<Acc, int>::value) {
+    if (a.raw) {
+      reinterpret_cast<int*>(a.y)[(size_t)gm * a.N + gn] = v;
+      return;
+    }
+  }
   const float z = std::is_same<Acc, int>::value ? (float)v * scale : (float)v;
   a.y[(size_t)gm * a.N + gn] = kq(act_fn(z, a.act), a.bo);
 }
@@ -402,7 +411,7 @@ fxp_decode_kernel(Args a) {
   const int xe = I8 ? 1 : a.x_bf16 ? 2 : 4;              // bytes of an x
   unsigned char* xr = smem + D::RING + L::PART;           // X as it is
   void* xs = xr + L::raw_bytes(xrows, xe);                // X k-major
-  const float scale = I8 ? a.scale[0] : 1.0f;
+  const float scale = I8 && !a.raw ? a.scale[0] : 1.0f;
   const bool split = gridDim.z > 1;
   if (split) cluster_start();
 
@@ -811,7 +820,7 @@ __global__ void __launch_bounds__(THREADS_I) fxp_int8_tiled_kernel(Args a) {
   // the next is staged from registers and the one after is loaded
   fetch(ra, 0);
   fetch(rb, 1);
-  const float scale = a.scale[0];
+  const float scale = a.raw ? 1.0f : a.scale[0];   // int32: no scale
   if (nk > 0) put(ra, 0);
   __syncthreads();
   for (int kt = 0; kt < nk; kt += 2) {
@@ -949,16 +958,21 @@ extern "C" int fxp_matmul_emulate(const void* x, const void* w, float* y,
                 : launch_emulate<float>(a, path, stream);
 }
 
+// raw: 1 stores the int32 sums into y (int32 [M, N]; then o_on and act
+// must be 0, and scale is not read: it may be null).
 extern "C" int fxp_matmul_int8(const void* x, const void* w,
                                const float* scale, float* y, int M, int N,
                                int K, int o_on, int o_i, int o_f, int act,
-                               int path, int S, int vx, int vw,
+                               int path, int S, int vx, int vw, int raw,
                                cudaStream_t stream) {
   if (M <= 0 || N <= 0) return 0;
   if (path == 0 ? M > 16 : path != 1) return (int)cudaErrorInvalidValue;
+  if (raw && (o_on || act != 0)) return (int)cudaErrorInvalidValue;
+  if (!raw && scale == nullptr) return (int)cudaErrorInvalidValue;
   Args a = make_args(x, w, scale, y, M, N, K, S, vx, vw);
   a.bo = make_bits(o_on, o_i, o_f);
   a.act = act;
+  a.raw = raw;
   if (path == 0)
     return M <= 8 ? launch_decode<int8_t, 8>(a, stream)
                   : launch_decode<int8_t, 16>(a, stream);

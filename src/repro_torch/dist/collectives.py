@@ -118,6 +118,19 @@ def dense_psum(x: torch.Tensor, axes: Iterable[str] = (), *,
     return y
 
 
+def dense_pmax(x: torch.Tensor, axes: Iterable[str] = (), *,
+               mesh=None) -> torch.Tensor:
+    """One tensor's elementwise max over the mesh axes ``axes`` (the JAX
+    package's ``lax.pmax``); with no axes, ``x`` itself."""
+    axes = tuple(axes)
+    if not axes:
+        return x
+    group = _group(axes, mesh, x)
+    y = x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
 def dense_psum_tree(grads, mesh, axes: Iterable[str]):
     """Elementwise sum of ``grads`` across the mesh axes ``axes``."""
     axes = tuple(axes)

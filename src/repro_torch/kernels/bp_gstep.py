@@ -8,7 +8,10 @@ result is G_i [T, Din] f32.  Two datapaths:
   * ``datapath="emulate"`` -- G, W, Z f32; f32 multiply-adds.
   * ``datapath="int8"`` -- G, W int8 payloads, exact int32 accumulation, one
     rescale by the combined scale ``s_g * s_w`` (a device scalar, so no host
-    sync), then the derivation unit and the (I,F) rounding.
+    sync), then the derivation unit and the (I,F) rounding.  With
+    ``int32_out`` (``z=None``, no ``g_bits``) it stores the int32 sums
+    themselves: the partial dx of a rank whose Dout is a shard, which the
+    caller sums over ranks in int32 and rescales once.
 
 The CUDA kernel is ``csrc/bp_gstep.cu``; ``bp_gstep_plain`` is its plain
 PyTorch version.  ``bp_gstep`` runs the plain version only for CPU tensors;
@@ -111,9 +114,12 @@ def _plan(t: int, din: int, dout: int, n_sm: int, datapath: str = "emulate",
 def tuned_plan(t: int, din: int, dout: int, n_sm: int,
                datapath: str) -> Plan:
     """``_plan``'s launch through the tune cache (``common.tuned``), keyed
-    as the product G @ Wᵀ: m = t, n = din, k = dout."""
+    as the product G @ Wᵀ: m = t, n = din, k = dout.  The datapath "int32"
+    (the int8 product's int32 mode) has entries of its own and the int8
+    datapath's plan."""
+    dp = "int8" if datapath == "int32" else datapath
     plan = tuned("bp_gstep", (t, din, dout, datapath), n_sm,
-                 lambda: _plan(t, din, dout, n_sm, datapath))
+                 lambda: _plan(t, din, dout, n_sm, dp))
     path, rows, cols, grid, splits, vec = plan
     return Plan(path, rows, cols, tuple(grid), splits, vec)
 
@@ -134,8 +140,8 @@ def _lib():
                 # rows, splits, vec; stream
                 ("bp_gstep_emulate", [_VP] * 4 + [_I] * 11 + [_VP]),
                 # g, w, scale, z, out; T, Din, Dout, (on, I, F), act, path,
-                # rows, splits, vec; stream
-                ("bp_gstep_int8", [_VP] * 5 + [_I] * 11 + [_VP])):
+                # rows, splits, vec, raw; stream
+                ("bp_gstep_int8", [_VP] * 5 + [_I] * 12 + [_VP])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, ctypes.c_int
             _FN[name] = fn
@@ -143,24 +149,32 @@ def _lib():
 
 
 def bp_gstep_plain(g, w, z, *, g_bits=(2, 12), act="relu",
-                   datapath="emulate", scale=None):
-    """The kernel's function in plain PyTorch, f32 [T, Din]."""
+                   datapath="emulate", scale=None, int32_out=False):
+    """The kernel's function in plain PyTorch, f32 [T, Din] (int32 with
+    ``int32_out``)."""
     if datapath == "int8":
-        return ref.bp_gstep_payload_ref(g, w, z, scale, g_bits=g_bits,
-                                        act=act)
+        return ref.bp_gstep_payload_ref(g, w, z, None if int32_out else scale,
+                                        g_bits=g_bits, act=act)
     return ref.bp_gstep_ref(g, w, z, g_bits=g_bits, act=act)
 
 
 def bp_gstep(g: torch.Tensor, w: torch.Tensor, z: Optional[torch.Tensor], *,
              g_bits=(2, 12), act: str = "relu", datapath: str = "emulate",
-             scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+             scale: Optional[torch.Tensor] = None,
+             int32_out: bool = False) -> torch.Tensor:
     """g: [T, Dout]; w: [Din, Dout]; z: [T, Din] or None. Returns f32
     [T, Din].
 
     emulate: g/w/z f32.
     int8:    g/w int8 payloads; ``scale`` is the combined dequant scale
-             s_g * s_w (an f32 scalar tensor or a Python float).
+             s_g * s_w (an f32 scalar tensor or a Python float).  With
+             ``int32_out`` (int8, ``z=None``, no ``g_bits``) the result is
+             the int32 sums [T, Din], and ``scale`` is not read.
     """
+    if int32_out and (datapath != "int8" or z is not None
+                      or g_bits is not None):
+        raise ValueError("bp_gstep: int32_out takes the int8 datapath, "
+                         "z=None and no g_bits")
     if g.dim() != 2 or w.dim() != 2 or g.shape[1] != w.shape[1]:
         raise ValueError(f"bp_gstep: bad shapes G {tuple(g.shape)}, "
                          f"W {tuple(w.shape)}")
@@ -173,40 +187,48 @@ def bp_gstep(g: torch.Tensor, w: torch.Tensor, z: Optional[torch.Tensor], *,
                          f"{z.dtype} {tuple(z.shape)}")
     if act not in ACT_CODES:
         raise ValueError(f"bp_gstep: unknown activation {act!r}")
-    scale = check_operands("bp_gstep", datapath, (g, w), scale)
+    scale = check_operands("bp_gstep", datapath, (g, w), scale,
+                           need_scale=not int32_out)
     tensors = (g, w) if z is None else (g, w, z)
     if all(x.device.type == "cpu" for x in tensors):
         return bp_gstep_plain(g, w, z, g_bits=g_bits, act=act,
-                              datapath=datapath, scale=scale)
-    return _launch(g, w, z, g_bits, act, datapath, scale, tensors)
+                              datapath=datapath, scale=scale,
+                              int32_out=int32_out)
+    return _launch(g, w, z, g_bits, act, datapath, scale, tensors,
+                   int32_out=int32_out)
 
 
 bp_gstep.launches = 0
 
 
 def _launch(g, w, z, g_bits, act, datapath, scale, tensors,
-            plan: Optional[Plan] = None):
-    """One launch; ``plan`` defaults to the tune cache's (``tuned_plan``; a
-    check may force another row count of the short path or split count of
-    the tiled, which bypasses the cache)."""
+            plan: Optional[Plan] = None, int32_out: bool = False):
+    """One launch; ``plan`` defaults to the tune cache's (``tuned_plan``,
+    under the datapath "int32" in the int32 mode; a check may force
+    another row count of the short path or split count of the tiled, which
+    bypasses the cache)."""
     dev = cuda_device("bp_gstep", tensors)
     fns = _lib()
     t, dout = g.shape
     din = w.shape[0]
     if plan is None:
-        plan = tuned_plan(t, din, dout, sm_count(dev), datapath)
-    out = torch.empty((t, din), dtype=torch.float32, device=dev)
+        plan = tuned_plan(t, din, dout, sm_count(dev),
+                          "int32" if int32_out else datapath)
+    out = torch.empty((t, din), dtype=torch.int32 if int32_out
+                      else torch.float32, device=dev)
     zp = None if z is None else z.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     launch = (int(plan.path == "tiled"), plan.rows, plan.splits,
               int(plan.vec and g.data_ptr() % 16 == 0
                   and w.data_ptr() % 16 == 0))
     if datapath == "int8":
-        scale = scale.reshape(1).contiguous()
+        # the int32 mode reads no scale: a null pointer
+        sp = (0 if int32_out
+              else scale.reshape(1).contiguous().data_ptr())
         err = fns["bp_gstep_int8"](
-            g.data_ptr(), w.data_ptr(), scale.data_ptr(), zp, out.data_ptr(),
+            g.data_ptr(), w.data_ptr(), sp, zp, out.data_ptr(),
             t, din, dout, *bits_args(g_bits), ACT_CODES[act], *launch,
-            stream)
+            int(int32_out), stream)
     else:
         err = fns["bp_gstep_emulate"](
             g.data_ptr(), w.data_ptr(), zp, out.data_ptr(), t, din, dout,

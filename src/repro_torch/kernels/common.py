@@ -100,10 +100,12 @@ def bits_args(bits) -> tuple:
     return (0, 0, 0) if bits is None else (1, int(bits[0]), int(bits[1]))
 
 
-def check_operands(name: str, datapath: str, tensors, scale):
+def check_operands(name: str, datapath: str, tensors, scale,
+                   need_scale: bool = True):
     """Check the operand dtypes of ``datapath`` (int8 payloads, or f32 for
     emulate).  Returns the int8 datapath's scale as an f32 tensor on the
-    operands' device (a Python float becomes one), None for emulate."""
+    operands' device (a Python float becomes one), None for emulate and
+    where no scale is needed (an int32 mode)."""
     want = {"int8": torch.int8, "emulate": torch.float32}.get(datapath)
     if want is None:
         raise ValueError(f"{name}: unknown datapath {datapath!r}")
@@ -111,7 +113,7 @@ def check_operands(name: str, datapath: str, tensors, scale):
     if bad:
         raise TypeError(f"{name}: the {datapath} datapath takes {want} "
                         f"operands, got {bad}")
-    if datapath == "emulate":
+    if datapath == "emulate" or not need_scale:
         return None
     if scale is None:
         raise ValueError(f"{name}: the int8 datapath needs its scale")
@@ -181,7 +183,9 @@ TUNE_KINDS = {
     "paged_attention": (("n", "bs", "m", "hkv", "hd", "g", "item"), 0),
 }
 JAX_TUNE_KINDS = ("blocks", "fused", "paged", "prologue")
-DATAPATHS = ("emulate", "int8")
+# "int32": the int8 product's int32 mode (fxp_matmul, bp_gstep), whose
+# decisions are the int8 datapath's, under keys of their own
+DATAPATHS = ("emulate", "int8", "int32")
 # the SM count decisions are derived for where no card is present: an H100
 # SXM's (the CPU tests and a CPU run's priming)
 DEFAULT_SM_COUNT = 132

@@ -9,6 +9,9 @@ op ``Y = kq_out(act(kq_a(X) @ kq_w(W)))``).  Two datapaths:
   * ``datapath="int8"`` -- X, W as int8 payloads, exact int32 accumulation,
     one rescale by the combined scale ``s_x * s_w`` (a device scalar, so no
     host sync), then the activation and the optional output rounding.
+    With ``int32_out`` it stores the int32 sums themselves (no rescale, no
+    activation, no rounding): the partial product of a rank whose K is a
+    shard, which the caller sums over ranks in int32 and rescales once.
 
 The CUDA kernel is ``csrc/fxp_matmul.cu``; ``fxp_matmul_plain`` is its plain
 PyTorch version.  ``fxp_matmul`` runs the plain version only for CPU tensors;
@@ -122,10 +125,13 @@ def tuned_plan(m: int, k: int, n: int, n_sm: int, datapath: str,
                x_bytes: int, w_bytes: int) -> Plan:
     """``_plan``'s launch through the tune cache (``common.tuned``): the
     cached decision for this product, datapath and element sizes, else
-    ``_plan``'s for ``n_sm`` SMs, recorded."""
+    ``_plan``'s for ``n_sm`` SMs, recorded.  The datapath "int32" (the
+    int8 product's int32 mode) has entries of its own and the int8
+    datapath's plan."""
+    dp = "int8" if datapath == "int32" else datapath
     return Plan(*tuned(
         "fxp_matmul", (m, n, k, datapath, x_bytes, w_bytes), n_sm,
-        lambda: _plan(m, k, n, n_sm, datapath, x_bytes, w_bytes)))
+        lambda: _plan(m, k, n, n_sm, dp, x_bytes, w_bytes)))
 
 
 def _k_ranges(plan: Plan, k: int) -> list:
@@ -144,8 +150,8 @@ def _lib():
                 # path, S, vx, vw; stream
                 ("fxp_matmul_emulate", [_VP] * 3 + [_I] * 19 + [_VP]),
                 # x, w, scale, y; m, n, k, (on, I, F) of out, act, path, S,
-                # vx, vw; stream
-                ("fxp_matmul_int8", [_VP] * 4 + [_I] * 11 + [_VP])):
+                # vx, vw, raw; stream
+                ("fxp_matmul_int8", [_VP] * 4 + [_I] * 12 + [_VP])):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, ctypes.c_int
             _FN[name] = fn
@@ -154,10 +160,12 @@ def _lib():
 
 def fxp_matmul_plain(x, w, *, xa_bits=(4, 10), w_bits=(2, 12),
                      out_bits=(4, 10), act="identity", datapath="emulate",
-                     scale=None):
-    """The kernel's function in plain PyTorch, f32 [M, N]."""
+                     scale=None, int32_out=False):
+    """The kernel's function in plain PyTorch, f32 [M, N] (int32 with
+    ``int32_out``)."""
     if datapath == "int8":
-        return ref.int8_payload_ref(x, w, scale, out_bits=out_bits, act=act)
+        return ref.int8_payload_ref(x, w, None if int32_out else scale,
+                                    out_bits=out_bits, act=act)
     return ref.fxp_matmul_ref(x, w, xa_bits=xa_bits, w_bits=w_bits,
                               out_bits=out_bits, act=act)
 
@@ -165,25 +173,34 @@ def fxp_matmul_plain(x, w, *, xa_bits=(4, 10), w_bits=(2, 12),
 def fxp_matmul(x: torch.Tensor, w: torch.Tensor, *,
                xa_bits=(4, 10), w_bits=(2, 12), out_bits=(4, 10),
                act: str = "identity", datapath: str = "emulate",
-               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+               scale: Optional[torch.Tensor] = None,
+               int32_out: bool = False) -> torch.Tensor:
     """x: [M, K]; w: [K, N]. Returns f32 [M, N].
 
     emulate: x/w f32 or bf16, rounded in-kernel by (xa_bits, w_bits).
     int8:    x/w int8 payloads; ``scale`` is the combined dequant scale
-             s_x * s_w (an f32 scalar tensor or a Python float).
+             s_x * s_w (an f32 scalar tensor or a Python float).  With
+             ``int32_out`` (int8 only; no ``out_bits``, act identity) the
+             result is the int32 sums [M, N], and ``scale`` is not read.
     """
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"fxp_matmul: bad shapes {tuple(x.shape)} @ "
                          f"{tuple(w.shape)}")
     if act not in ACT_CODES:
         raise ValueError(f"fxp_matmul: unknown activation {act!r}")
+    if int32_out and (datapath != "int8" or out_bits is not None
+                      or act != "identity"):
+        raise ValueError("fxp_matmul: int32_out takes the int8 datapath, "
+                         "no out_bits and the identity activation")
     if datapath == "int8":
         if x.dtype != torch.int8 or w.dtype != torch.int8:
             raise TypeError(f"int8 datapath needs int8 payloads, got "
                             f"{x.dtype}, {w.dtype}")
-        if scale is None:
-            raise ValueError("int8 datapath needs the combined scale")
-        scale = torch.as_tensor(scale, dtype=torch.float32, device=x.device)
+        if not int32_out:
+            if scale is None:
+                raise ValueError("int8 datapath needs the combined scale")
+            scale = torch.as_tensor(scale, dtype=torch.float32,
+                                    device=x.device)
     elif datapath == "emulate":
         for t in (x, w):
             if t.dtype not in (torch.float32, torch.bfloat16):
@@ -193,34 +210,42 @@ def fxp_matmul(x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type == "cpu" and w.device.type == "cpu":
         return fxp_matmul_plain(x, w, xa_bits=xa_bits, w_bits=w_bits,
                                 out_bits=out_bits, act=act,
-                                datapath=datapath, scale=scale)
-    return _launch(x, w, xa_bits, w_bits, out_bits, act, datapath, scale)
+                                datapath=datapath, scale=scale,
+                                int32_out=int32_out)
+    return _launch(x, w, xa_bits, w_bits, out_bits, act, datapath, scale,
+                   int32_out=int32_out)
 
 
 fxp_matmul.launches = 0
 
 
 def _launch(x, w, xa_bits, w_bits, out_bits, act, datapath, scale,
-            plan: Optional[Plan] = None):
-    """One launch; ``plan`` defaults to the tune cache's (``tuned_plan``; a
-    check may pass another split count, which bypasses the cache)."""
+            plan: Optional[Plan] = None, int32_out: bool = False):
+    """One launch; ``plan`` defaults to the tune cache's (``tuned_plan``,
+    under the datapath "int32" in the int32 mode; a check may pass another
+    split count, which bypasses the cache)."""
     dev = cuda_device("fxp_matmul", (x, w))
     fns = _lib()
     m, k = x.shape
     n = w.shape[1]
     if plan is None:
-        plan = tuned_plan(m, k, n, sm_count(dev), datapath,
+        plan = tuned_plan(m, k, n, sm_count(dev),
+                          "int32" if int32_out else datapath,
                           x.element_size(), w.element_size())
-    y = torch.empty((m, n), dtype=torch.float32, device=dev)
+    y = torch.empty((m, n), dtype=torch.int32 if int32_out
+                    else torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     launch = (int(plan.path == "tiled"), plan.splits,
               int(plan.vx and x.data_ptr() % 16 == 0),
               int(plan.vw and w.data_ptr() % 16 == 0))
     if datapath == "int8":
-        scale = scale.reshape(1).contiguous()
+        # the int32 mode reads no scale: a null pointer
+        sp = (0 if int32_out
+              else scale.reshape(1).contiguous().data_ptr())
         err = fns["fxp_matmul_int8"](
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            m, n, k, *bits_args(out_bits), ACT_CODES[act], *launch, stream)
+            x.data_ptr(), w.data_ptr(), sp, y.data_ptr(),
+            m, n, k, *bits_args(out_bits), ACT_CODES[act], *launch,
+            int(int32_out), stream)
     else:
         err = fns["fxp_matmul_emulate"](
             x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k,

@@ -279,20 +279,45 @@ def fxp_matmul_op(x, w, *, xa_bits=(4, 10), w_bits=(2, 12), out_bits=(4, 10),
                       out_bits=out_bits, act=act)
 
 
-def dense_fwd(x2, w, backend: str):
+def dense_fwd(x2, w, backend: str, *, rx=None, rw=None):
     """z = x2 @ w at f32 through the selected datapath. x2: [M,K], w: [K,N].
 
     Returns the raw pre-activation z; the caller applies the activation.
     The emulate path hands bf16 activations to the kernel as they are: it
-    widens them to f32 as it loads them, which is exact.
+    widens them to f32 as it loads them, which is exact.  ``rx``/``rw``
+    (int8 only): the absmax reductions of an operand that is one rank's
+    shard (``quant.int8.absmax_scale``'s ``reduce``).
     """
     if backend == "int8":
-        qx, sx = quantize_int8_absmax(x2)
-        qw, sw = quantize_int8_absmax(w)
+        qx, sx = quantize_int8_absmax(x2, rx)
+        qw, sw = quantize_int8_absmax(w, rw)
         return fxp_matmul(qx, qw, out_bits=None, act="identity",
                           datapath="int8", scale=sx * sw)
     return fxp_matmul(x2, w, xa_bits=None, w_bits=None, out_bits=None,
                       act="identity")
+
+
+def dense_fwd_partial(x2, w, backend: str, *, rx=None, rw=None):
+    """A rank's share of z = x2 @ w where K is sharded over ranks:
+    (int32 sums, the combined scale) on the int8 datapath (fxp_matmul's
+    int32 mode; sum them over the ranks in int32, then ``rescale_int32``),
+    (f32 partial z, None) on emulate.  The absmax reductions as in
+    ``dense_fwd``."""
+    if backend == "int8":
+        qx, sx = quantize_int8_absmax(x2, rx)
+        qw, sw = quantize_int8_absmax(w, rw)
+        return fxp_matmul(qx, qw, out_bits=None, act="identity",
+                          datapath="int8", int32_out=True), sx * sw
+    return dense_fwd(x2, w, backend), None
+
+
+def rescale_int32(acc, scale):
+    """An int32 sum through the int8 epilogue's one f32 multiply (the
+    kernels' ``(float)v * scale``): bitwise what a kernel that summed all
+    of K itself stores; with ``scale`` None, ``acc`` itself (emulate)."""
+    if scale is None:
+        return acc
+    return acc.to(torch.float32) * scale
 
 
 def bp_gstep_op(g, w, z, *, g_bits=(2, 12), act="relu", datapath="emulate",
@@ -334,24 +359,38 @@ def bp_fused_unit_op(g, w, x, z, lr, *, g_bits=(2, 12), w_bits=(2, 12),
                          w_out_bits=w_out_bits, act=act)
 
 
-def dense_bwd_dx(dz, w, backend: str):
+def dense_bwd_dx(dz, w, backend: str, *, rdz=None, rw=None):
     """dx = dz @ wᵀ through bp_gstep's ``z=None`` form.  dz: [M, N];
-    w: [K, N] (bp_gstep's G [T, Dout] and W [Din, Dout]) -> [M, K]."""
+    w: [K, N] (bp_gstep's G [T, Dout] and W [Din, Dout]) -> [M, K].
+    ``rdz``/``rw``: absmax reductions as in ``dense_fwd``."""
     if backend == "int8":
-        qg, sg = quantize_int8_absmax(dz)
-        qw, sw = quantize_int8_absmax(w)
+        qg, sg = quantize_int8_absmax(dz, rdz)
+        qw, sw = quantize_int8_absmax(w, rw)
         return bp_gstep(qg, qw, None, g_bits=None, act="identity",
                         datapath="int8", scale=sg * sw)
     return bp_gstep(dz.to(torch.float32), w.to(torch.float32), None,
                     g_bits=None, act="identity")
 
 
-def dense_bwd_dw(x2, dz, backend: str):
-    """dw = x2ᵀ @ dz through sgd_dw_update's dW-only (``w=None``) form.
-    x2: [M, K]; dz: [M, N] -> [K, N]."""
+def dense_bwd_dx_partial(dz, w, backend: str, *, rdz=None, rw=None):
+    """A rank's share of dx = dz @ wᵀ where N is sharded over ranks:
+    (int32 sums, the combined scale) on int8 (bp_gstep's int32 mode),
+    (f32 partial dx, None) on emulate; as ``dense_fwd_partial``."""
     if backend == "int8":
-        qx, sx = quantize_int8_absmax(x2)
-        qg, sg = quantize_int8_absmax(dz)
+        qg, sg = quantize_int8_absmax(dz, rdz)
+        qw, sw = quantize_int8_absmax(w, rw)
+        return bp_gstep(qg, qw, None, g_bits=None, act="identity",
+                        datapath="int8", int32_out=True), sg * sw
+    return dense_bwd_dx(dz, w, backend), None
+
+
+def dense_bwd_dw(x2, dz, backend: str, *, rx=None, rdz=None):
+    """dw = x2ᵀ @ dz through sgd_dw_update's dW-only (``w=None``) form.
+    x2: [M, K]; dz: [M, N] -> [K, N].  ``rx``/``rdz``: absmax reductions
+    as in ``dense_fwd``."""
+    if backend == "int8":
+        qx, sx = quantize_int8_absmax(x2, rx)
+        qg, sg = quantize_int8_absmax(dz, rdz)
         return sgd_dw_update(qx, qg, None, 0.0, datapath="int8",
                              scale=sx * sg)
     return sgd_dw_update(x2.to(torch.float32), dz.to(torch.float32), None,

@@ -60,14 +60,22 @@ def bp_fused_unit_ref(g, w, x, z, lr, *, g_bits=(2, 12), w_bits=(2, 12),
 
 def int8_payload_ref(qx, qw, scale, *, out_bits=(4, 10), act="identity"):
     """fxp_matmul on payloads already quantized: exact int32 sums, one
-    rescale by the combined scale, the activation, then ``kq_out``."""
-    y = int8_dot(qx, qw).to(torch.float32) * scale
+    rescale by the combined scale, the activation, then ``kq_out``.  With
+    ``scale`` None, the int32 sums themselves (the int32 mode)."""
+    acc = int8_dot(qx, qw)
+    if scale is None:
+        return acc
+    y = acc.to(torch.float32) * scale
     return maybe_kq(act_fn(y, act), out_bits)
 
 
 def bp_gstep_payload_ref(qg, qw, z, scale, *, g_bits=(2, 12), act="relu"):
-    """bp_gstep on payloads: int32 (qG @ qWᵀ), rescale by s_g·s_w, f'(Z)."""
-    gi = int8_dot(qg, qw.T).to(torch.float32) * scale
+    """bp_gstep on payloads: int32 (qG @ qWᵀ), rescale by s_g·s_w, f'(Z).
+    With ``scale`` None, the int32 sums themselves (the int32 mode)."""
+    acc = int8_dot(qg, qw.T)
+    if scale is None:
+        return acc
+    gi = acc.to(torch.float32) * scale
     if z is not None:
         gi = gi * act_deriv(_f32(z), act)
     return maybe_kq(gi, g_bits)

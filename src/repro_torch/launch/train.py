@@ -56,8 +56,9 @@ stage-sharded (``core.steps._pipeline_stack_forward``), with one it is a
 cost model only and the step is the engine's; the driver prints the JAX
 driver's ``[train] pipeline ...`` line.  The driver is one process, so its
 pipe axis has one rank: ``--pipe`` > 1, ``--data`` and ``--model`` wait
-for the sharded driver and its multi-rank launch (ROADMAP A11.3) and are
-refused by name, and the data group has one member.
+for the driver's multi-rank launch (ROADMAP A11.3b; the tensor-parallel
+step itself runs under ``dist.mesh_ctx``) and are refused by name, and
+the data group has one member.
 """
 from __future__ import annotations
 
@@ -224,7 +225,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--pipe", type=int, default=0,
                     help="pipe-axis size (0 = no pipe axis; the driver is "
                          "one process, so more than 1 is refused until "
-                         "ROADMAP A11.3)")
+                         "ROADMAP A11.3b)")
     ap.add_argument("--pipeline-schedule", default="none",
                     choices=["none", "gpipe", "1f1b", "interleaved"],
                     help="pipe-axis pipeline schedule; with stages > 1 the "
@@ -275,10 +276,10 @@ def main(argv=None):
     if later:
         ap.error(f"{', '.join(later)}: the port has the dW reduction, "
                  f"--compress-dw, the overlap and transport options and "
-                 f"the stage-sharded pipeline on one process; the mesh "
-                 f"options wait for the rest of ROADMAP A11 (A11.3: "
-                 f"dist/sharding, dist/api and the driver's multi-rank "
-                 f"launch)")
+                 f"the stage-sharded pipeline on one process, and the "
+                 f"tensor-parallel step under a mesh (dist.sharding, "
+                 f"dist.api); the mesh options wait for the rest of "
+                 f"ROADMAP A11 (A11.3b: the driver's multi-rank launch)")
     dev = resolve_device(args.device)
 
     cfg = get_config(args.arch)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.api import constrain
 from repro_torch.kernels import decode_prologue as DP
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -66,6 +67,7 @@ def transformer_block(params, x: torch.Tensor, cfg: ModelConfig,
     accumulates the parts and recombines them with
     ``layers.moe_aux_from_stats``."""
     require_ported(cfg)
+    x = constrain(x, "btd")
     h = L.apply_norm(params["attn_norm"], x, cfg)
     if cfg.use_mla:
         x = x + L.mla_attention(params["attn"], h, cfg, positions)
@@ -76,7 +78,7 @@ def transformer_block(params, x: torch.Tensor, cfg: ModelConfig,
     out, aux = ffn(params, h, cfg, moe_aux_parts)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + out, aux
+    return constrain(x + out, "btd"), aux
 
 
 def init_block_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -123,6 +125,7 @@ def transformer_block_prefill(params, x: torch.Tensor, cfg: ModelConfig,
     with MLA from its latents and rope keys (padded to ``cache_len``, no
     ring, cast to ``cache_dtype``)."""
     require_ported(cfg)
+    x = constrain(x, "btd")
     h = L.apply_norm(params["attn_norm"], x, cfg)
     if cfg.use_mla:
         attn_out, (ckv, kpe) = L.mla_attention(params["attn"], h, cfg,
@@ -139,7 +142,7 @@ def transformer_block_prefill(params, x: torch.Tensor, cfg: ModelConfig,
                  "v": L.fill_ring(v, length).to(cache_dtype)}
     x = x + attn_out
     h = L.apply_norm(params["mlp_norm"], x, cfg)
-    return x + ffn(params, h, cfg)[0], cache
+    return constrain(x + ffn(params, h, cfg)[0], "btd"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -153,9 +156,10 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
 
 def mamba_block(params, x: torch.Tensor, cfg: ModelConfig, positions=None):
     """Pre-norm Mamba2 with a residual.  Returns (new_x, f32 zero aux)."""
+    x = constrain(x, "btd")
     h = L.apply_norm(params["norm"], x, cfg)
     out, _ = S.mamba_forward(params["mamba"], h, cfg)
-    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return constrain(x + out, "btd"), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def mamba_block_decode(params, x: torch.Tensor, cfg: ModelConfig,
@@ -171,9 +175,10 @@ def mamba_block_prefill(params, x: torch.Tensor, cfg: ModelConfig,
                         positions=None, cache_dtype=torch.bfloat16):
     """The full-sequence block that also returns the layer's decode state:
     the final SSD state (f32) and the conv tail cast to ``cache_dtype``."""
+    x = constrain(x, "btd")
     h = L.apply_norm(params["norm"], x, cfg)
     out, (hT, conv_tail) = S.mamba_forward(params["mamba"], h, cfg)
-    return x + out, {"h": hT, "conv": conv_tail.to(cache_dtype)}
+    return constrain(x + out, "btd"), {"h": hT, "conv": conv_tail.to(cache_dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -224,12 +229,13 @@ def decoder_block(params, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, enc_out: torch.Tensor):
     """Pre-norm causal self-attention, cross-attention over ``enc_out``
     and the MLP, with residuals.  Returns (new_x, f32 zero aux)."""
+    x = constrain(x, "btd")
     h = L.apply_norm(params["self_norm"], x, cfg)
     x = x + L.attention(params["self_attn"], h, cfg, positions, causal=True)
     h = L.apply_norm(params["cross_norm"], x, cfg)
     x = x + _cross_attention(params["cross_attn"], h, enc_out, cfg)
     h = L.apply_norm(params["mlp_norm"], x, cfg)
-    x = x + L.mlp(params["mlp"], h, cfg)
+    x = constrain(x + L.mlp(params["mlp"], h, cfg), "btd")
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

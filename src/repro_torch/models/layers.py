@@ -17,6 +17,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.dist.api import (model_axis_index_ctx, model_axis_size_ctx,
+                                  perf_opt)
+from repro_torch.dist.collectives import (current_mesh, dense_pmax,
+                                          dense_psum)
+from repro_torch.dist.sharding import MODEL, _param_spec, model_dim
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.common import act_deriv, act_fn
 from repro_torch.models.config import ModelConfig
@@ -133,10 +138,212 @@ def dense_unit(x: torch.Tensor, w: torch.Tensor, act: str = "identity",
     return _DenseUnit.apply(x, w.contiguous(), act, backend)
 
 
-def _proj3(x: torch.Tensor, w3: torch.Tensor, backend: str) -> torch.Tensor:
-    """Projection einsum "btd,dhk->bthk" through the dense unit."""
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the mesh's "model" axis
+# ---------------------------------------------------------------------------
+#
+# Under an ambient mesh (``dist.mesh_ctx``) whose "model" axis has m > 1
+# ranks, each rank holds its shards of the parameters
+# (``dist.sharding.shard_tree``) and the layers run on them, calling the
+# model group's collectives themselves: the residual stream stays
+# replicated.  Each unit's role comes from ``dist.sharding._param_spec``
+# of its leaf at the logical shape (``_unit_role``):
+#
+#   column-parallel (wq/wk/wv, w_gate/w_up): x replicated times W's local
+#     columns gives local columns; the backward's dx is summed over the
+#     group (N is sharded), dW is local;
+#   row-parallel (wo, w_down): the local x times W's local rows gives a
+#     partial z, summed over the group (K is sharded); the backward's dx
+#     and dW are local.
+#
+# On the int8 datapath each operand's absmax is the logical tensor's (a
+# MAX over the group where the operand is a shard), so every payload is
+# the one-rank payload's slice, and the contraction-sharded products
+# (the row-parallel forward, the column-parallel dx) sum int32 partials
+# (the kernels' int32 mode) and rescale once: bitwise the one-rank value.
+# On emulate the f32 partials are summed (f32 reassociation); with the
+# backend "off" the plain products run under autograd between
+# ``_CopyToModel`` (identity, gradient summed) and ``_ReduceFromModel``
+# (sum, gradient passed through).
+#
+# Each Function keeps the mesh of its forward for its backward: on CUDA
+# autograd runs the backward on a thread of its own, where the ambient
+# mesh (a context variable of the caller's thread) is not set.
+
+
+def _psum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum over the model group of ``mesh``; a 16-bit float is summed in
+    f32 and rounded once."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return dense_psum(x.to(torch.float32), MODEL,
+                          mesh=mesh).to(x.dtype)
+    return dense_psum(x, MODEL, mesh=mesh)
+
+
+def _pmax_on(mesh):
+    """The max over the model group of ``mesh`` (a scale's absmax over
+    the shards), as the ``reduce`` of ``quant.int8.absmax_scale``."""
+    return lambda x: dense_pmax(x, MODEL, mesh=mesh)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient is summed over the model group (the
+    input of a column- or vocab-parallel region, whose ranks each see one
+    share of its gradient)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh = current_mesh()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.mesh)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Sum over the model group forward; the gradient of the (replicated)
+    sum passes to each rank's share as it is."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _psum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    return _CopyToModel.apply(x)
+
+
+def reduce_from_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum over the model group of ``mesh`` (the ambient mesh where
+    None: a caller whose forward autograd may recompute on its own thread
+    passes the mesh it captured)."""
+    return _ReduceFromModel.apply(x, mesh if mesh is not None
+                                  else current_mesh())
+
+
+def _unit_role(leaf: str, logical_shape, k_dims: int, m: int):
+    """"column", "row" or None (replicated) for the dense unit of leaf
+    ``leaf`` at its logical (one layer's) shape, whose first ``k_dims``
+    dimensions are the product's K: from ``dist.sharding._param_spec``."""
+    d = model_dim(_param_spec([], leaf, tuple(logical_shape), m))
+    if d is None:
+        return None
+    return "row" if d < k_dims else "column"
+
+
+class _ColumnUnit(torch.autograd.Function):
+    """The column-parallel dense unit: act(x @ W_local) for a replicated x;
+    W's scale is the logical W's.  Backward: dz's and W's scales are the
+    logical tensors'; dx is the int32 (emulate: f32) sum over the group of
+    each rank's share, rescaled once; dW is local."""
+
+    @staticmethod
+    def forward(ctx, x, w, act, backend):
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1]).contiguous()
+        ctx.mesh = current_mesh()
+        z = kops.dense_fwd(x2, w, backend, rw=_pmax_on(ctx.mesh))
+        y = act_fn(z, act).to(x.dtype).reshape(shape[:-1] + (w.shape[1],))
+        ctx.save_for_backward(x2, w, z if act != "identity" else None)
+        ctx.act, ctx.backend, ctx.shape = act, backend, shape
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w, z = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1]).to(torch.float32).contiguous()
+        dz = dy2 if z is None else dy2 * act_deriv(z, ctx.act)
+        pmax = _pmax_on(ctx.mesh)
+        acc, scale = kops.dense_bwd_dx_partial(dz, w, ctx.backend,
+                                               rdz=pmax, rw=pmax)
+        dx = kops.rescale_int32(dense_psum(acc, MODEL, mesh=ctx.mesh),
+                                scale)
+        dw = kops.dense_bwd_dw(x2, dz, ctx.backend, rdz=pmax)
+        return dx.reshape(ctx.shape).to(x2.dtype), dw.to(w.dtype), None, None
+
+
+class _RowUnit(torch.autograd.Function):
+    """The row-parallel dense unit (identity activation): x_local @
+    W_local is a partial z, the int32 (emulate: f32) sum over the group
+    rescaled once; x's and W's scales are the logical tensors'.  Backward:
+    dy is replicated; dx and dW are local, W's and x's scales logical."""
+
+    @staticmethod
+    def forward(ctx, x, w, backend):
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1]).contiguous()
+        ctx.mesh = current_mesh()
+        pmax = _pmax_on(ctx.mesh)
+        acc, scale = kops.dense_fwd_partial(x2, w, backend, rx=pmax,
+                                            rw=pmax)
+        z = kops.rescale_int32(dense_psum(acc, MODEL, mesh=ctx.mesh), scale)
+        ctx.save_for_backward(x2, w)
+        ctx.backend, ctx.shape = backend, shape
+        return z.to(x.dtype).reshape(shape[:-1] + (w.shape[1],))
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        dz = dy.reshape(-1, dy.shape[-1]).to(torch.float32).contiguous()
+        pmax = _pmax_on(ctx.mesh)
+        dx = kops.dense_bwd_dx(dz, w, ctx.backend, rw=pmax)
+        dw = kops.dense_bwd_dw(x2, dz, ctx.backend, rx=pmax)
+        return dx.reshape(ctx.shape).to(x2.dtype), dw.to(w.dtype), None
+
+
+def parallel_unit(x: torch.Tensor, w: torch.Tensor, act: str, role,
+                  backend: str) -> torch.Tensor:
+    """act(x @ w) as a ``role`` unit ("column", "row" or None, the plain
+    ``dense_unit``) on the kernel datapath ``backend`` (int8 or emulate;
+    the layers write the "off" backend's products inline); x: [..., K];
+    w: [K, N], this rank's shard.  A row unit takes the identity
+    activation."""
+    if role is None:
+        return dense_unit(x, w, act, backend)
+    if role == "row" and act != "identity":
+        raise ValueError(f"a row-parallel unit takes the identity "
+                         f"activation, not {act!r}")
+    w = w.contiguous()
+    if role == "column":
+        return _ColumnUnit.apply(x, w, act, backend)
+    return _RowUnit.apply(x, w, backend)
+
+
+class _SelectHeads(torch.autograd.Function):
+    """The KV heads of this rank's query heads, where the KV projections
+    stay replicated (``num_kv_heads`` not divisible by the model size):
+    forward, [B, T, Hkv, hd] -> [B, T, Hl, hd], one KV head a local query
+    head; backward, each local head's gradient added into its KV head,
+    then summed over the model group, so that every rank holds the whole
+    dK (dV), as one rank's GQA expansion sums it."""
+
+    @staticmethod
+    def forward(ctx, k, idx):
+        ctx.save_for_backward(idx)
+        ctx.hkv, ctx.mesh = k.shape[2], current_mesh()
+        return k.index_select(2, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        b, t, _, hd = g.shape
+        dk = torch.zeros((b, t, ctx.hkv, hd), dtype=torch.float32,
+                         device=g.device)
+        dk.index_add_(2, idx, g.to(torch.float32))
+        return dense_psum(dk, MODEL, mesh=ctx.mesh).to(g.dtype), None
+
+
+def _proj3(x: torch.Tensor, w3: torch.Tensor, backend: str,
+           role=None) -> torch.Tensor:
+    """Projection einsum "btd,dhk->bthk" through the dense unit (a
+    ``role`` unit of ``parallel_unit``)."""
     d, h, hd = w3.shape
-    y = dense_unit(x, w3.reshape(d, h * hd), "identity", backend)
+    y = parallel_unit(x, w3.reshape(d, h * hd), "identity", role, backend)
     return y.reshape(x.shape[:-1] + (h, hd))
 
 
@@ -158,9 +365,26 @@ def _live_head_mask(cfg: ModelConfig, dtype, device=None):
     return mask.expand(hkv, gp).reshape(hp)
 
 
+class MetaDraws:
+    """Stands in for the ``torch.Generator`` of an initializer on the meta
+    device: the draws are shapes only (``lm.init_params(cfg,
+    device="meta")``, the logical shapes that ``dist.sharding`` places)."""
+
+    device = torch.device("meta")
+
+
 def _randn(gen: torch.Generator, shape, std: float) -> torch.Tensor:
+    if isinstance(gen, MetaDraws):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device) * std
+
+
+def _rand(gen: torch.Generator, shape) -> torch.Tensor:
+    if isinstance(gen, MetaDraws):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.rand(shape, generator=gen, dtype=torch.float32,
+                      device=gen.device)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -181,17 +405,50 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, positions):
+def _head_split(cfg: ModelConfig):
+    """(m, this rank's model coordinate, whether the KV heads are sharded
+    too) where the ambient mesh's "model" axis (m > 1) shards attention's
+    heads; None where it does not (no model axis, or heads the model size
+    does not divide: every rank then computes the whole attention)."""
+    m = model_axis_size_ctx()
+    if m <= 1 or _unit_role("wq", (cfg.d_model, alloc_heads(cfg),
+                                   cfg.head_dim), 1, m) is None:
+        return None
+    kv = _unit_role("wk", (cfg.d_model, cfg.num_kv_heads, cfg.head_dim), 1,
+                    m) is not None
+    return m, model_axis_index_ctx(), kv
+
+
+def _local_kv_index(cfg: ModelConfig, split, hl: int, device):
+    """The KV head of each of this rank's ``hl`` query heads (query head h
+    reads KV head h // (H_alloc / Hkv))."""
+    group = alloc_heads(cfg) // cfg.num_kv_heads
+    first = split[1] * hl
+    return (torch.arange(hl, device=device) + first) // group
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, positions,
+                 split=None):
+    """q, k, v: rotated, with their biases.  With a head ``split``
+    (``_head_split``): q on this rank's heads (column-parallel); k, v on
+    its KV heads (column-parallel) or, where they stay replicated,
+    projected whole and cut to the KV head of each local query head
+    (``_SelectHeads``)."""
     dt = x.dtype
     backend = kops.current_backend()
+    q_role = kv_role = None
+    if split is not None:
+        q_role, kv_role = "column", ("column" if split[2] else None)
     if backend != "off":
-        q = _proj3(x, params["wq"], backend)
-        k = _proj3(x, params["wk"], backend)
-        v = _proj3(x, params["wv"], backend)
+        q = _proj3(x, params["wq"], backend, q_role)
+        k = _proj3(x, params["wk"], backend, kv_role)
+        v = _proj3(x, params["wv"], backend, kv_role)
     else:
-        q = torch.einsum("btd,dhk->bthk", x, params["wq"].to(dt))
-        k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(dt))
-        v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(dt))
+        xq = x if q_role is None else copy_to_model(x)
+        xk = xq if kv_role else x
+        q = torch.einsum("btd,dhk->bthk", xq, params["wq"].to(dt))
+        k = torch.einsum("btd,dhk->bthk", xk, params["wk"].to(dt))
+        v = torch.einsum("btd,dhk->bthk", xk, params["wv"].to(dt))
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -199,6 +456,9 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig, positions):
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if split is not None and not split[2]:
+        idx = _local_kv_index(cfg, split, q.shape[2], x.device)
+        k, v = _SelectHeads.apply(k, idx), _SelectHeads.apply(v, idx)
     return q, k, v
 
 
@@ -211,10 +471,15 @@ def _expand_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
         b, t, hkv * groups, hd)
 
 
-def _masked_wo(params, cfg: ModelConfig, dt) -> torch.Tensor:
+def _masked_wo(params, cfg: ModelConfig, dt, split=None) -> torch.Tensor:
+    """wo with the padded heads' rows zeroed; with a head ``split``
+    (``_head_split``), this rank's heads of the mask."""
     wo = params["wo"].to(dt)
     mask = _live_head_mask(cfg, dt, wo.device)
     if mask is not None:
+        if split is not None:
+            hl = wo.shape[0]
+            mask = mask[split[1] * hl:(split[1] + 1) * hl]
         wo = wo * mask[:, None, None]
     return wo
 
@@ -288,27 +553,36 @@ def attention(params, x: torch.Tensor, cfg: ModelConfig,
 
     ``return_kv=True`` also returns the rotated K/V before GQA expansion.
     Scores are plain tensor products outside any kernel; the chunked path
-    runs above ATTN_CHUNK_THRESHOLD tokens (the reference's ``flash_attn``
-    perf option is not ported).
+    runs above ATTN_CHUNK_THRESHOLD tokens, and under the ``flash_attn``
+    perf option above 1024.  Under a model axis that shards the heads
+    (``_head_split``) the rank runs its own heads: the projections
+    column-parallel, the output projection row-parallel.
     """
     dt = x.dtype
     b, t, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    groups = q.shape[2] // cfg.num_kv_heads
+    split = _head_split(cfg)
+    q, k, v = _project_qkv(params, x, cfg, positions, split)
+    groups = q.shape[2] // k.shape[2]
     kx, vx = _expand_kv(k, groups), _expand_kv(v, groups)
     scale = cfg.head_dim ** -0.5
-    if t > ATTN_CHUNK_THRESHOLD:
+    # §Perf "flash_attn": online softmax from 1024 tokens on
+    if t > ATTN_CHUNK_THRESHOLD or (perf_opt("flash_attn") and t > 1024):
         out = _sdpa_chunked(q, kx, vx, causal, cfg.swa_window, scale)
     else:
         mask = _attn_mask(t, t, causal, cfg.swa_window, device=x.device)
         out = _sdpa_full(q, kx, vx, mask, scale)
-    wo = _masked_wo(params, cfg, dt)
+    wo = _masked_wo(params, cfg, dt, split)
     backend = kops.current_backend()
     if backend != "off":
         # the output projection on the kernel datapath
         h_, hd_, d_ = wo.shape
-        y = dense_unit(out.reshape(b, t, h_ * hd_), wo.reshape(h_ * hd_, d_),
-                       "identity", backend)
+        y = parallel_unit(out.reshape(b, t, h_ * hd_),
+                          wo.reshape(h_ * hd_, d_), "identity",
+                          None if split is None else "row", backend)
+    elif split is not None:
+        y = reduce_from_model(torch.einsum(
+            "bthk,hkd->btd", out.to(torch.float32),
+            wo.to(torch.float32))).to(dt)
     else:
         y = torch.einsum("bthk,hkd->btd", out, wo)
     if return_kv:
@@ -531,24 +805,40 @@ def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x, approximate="tanh")
 
 
+def _ff_split(cfg: ModelConfig, d_ff: int) -> bool:
+    """Does the ambient mesh's "model" axis shard the MLP's d_ff?"""
+    m = model_axis_size_ctx()
+    return m > 1 and _unit_role("w_up", (cfg.d_model, d_ff), 1,
+                                m) is not None
+
+
 def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP; under a model axis that divides its d_ff, on this rank's
+    columns: w_gate/w_up column-parallel, w_down row-parallel."""
     dt = x.dtype
     backend = kops.current_backend()
+    split = _ff_split(cfg, cfg.d_ff)
+    col, row = ("column", "row") if split else (None, None)
+    gated = cfg.mlp_kind in ("swiglu", "geglu")
     if backend != "off":
         # the MLP matmuls on the kernel datapath (fxp_matmul)
-        if cfg.mlp_kind in ("swiglu", "geglu"):
+        if gated:
             actk = "silu" if cfg.mlp_kind == "swiglu" else "gelu"
-            g = dense_unit(x, params["w_gate"], actk, backend)
-            u = dense_unit(x, params["w_up"], "identity", backend)
-            return dense_unit(g * u, params["w_down"], "identity", backend)
-        h = dense_unit(x, params["w_up"], "gelu", backend)
-        return dense_unit(h, params["w_down"], "identity", backend)
-    if cfg.mlp_kind in ("swiglu", "geglu"):
+            g = parallel_unit(x, params["w_gate"], actk, col, backend)
+            u = parallel_unit(x, params["w_up"], "identity", col, backend)
+            return parallel_unit(g * u, params["w_down"], "identity", row,
+                                 backend)
+        h = parallel_unit(x, params["w_up"], "gelu", col, backend)
+        return parallel_unit(h, params["w_down"], "identity", row, backend)
+    xc = copy_to_model(x) if split else x
+    if gated:
         act = silu if cfg.mlp_kind == "swiglu" else _gelu_tanh
-        g = act(x @ params["w_gate"].to(dt))
-        u = x @ params["w_up"].to(dt)
-        return (g * u) @ params["w_down"].to(dt)
-    h = _gelu_tanh(x @ params["w_up"].to(dt))
+        h = act(xc @ params["w_gate"].to(dt)) * (xc @ params["w_up"].to(dt))
+    else:
+        h = _gelu_tanh(xc @ params["w_up"].to(dt))
+    if split:
+        return reduce_from_model(h.to(torch.float32)
+                                 @ params["w_down"].to(torch.float32)).to(dt)
     return h @ params["w_down"].to(dt)
 
 
@@ -558,7 +848,7 @@ def mlp(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 #
 # The router and the experts are plain tensor products, as the JAX package
 # computes them outside any Pallas kernel.  Its ``_moe_experts_shardmap``
-# (the "moe_rowcombine" perf option) is multi-device and waits for A11.
+# (the "moe_rowcombine" perf option under a model axis) is ROADMAP A11.4.
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
     D, E, F = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
@@ -683,6 +973,11 @@ def moe_verbose(params, x: torch.Tensor, cfg: ModelConfig):
     dt = x.dtype
     b, t, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
+    if perf_opt("moe_rowcombine") and model_axis_size_ctx() > 1:
+        raise NotImplementedError(
+            "the moe_rowcombine perf option under a model axis of more "
+            "than one rank (the per-row expert combine over the model "
+            "group) is ROADMAP A11.4")
     r = moe_route(params, x, cfg)
     C, keep, slot = r["C"], r["keep"], r["slot"]
     nk = t * K

@@ -31,6 +31,10 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.dist.api import (constrain, model_axis_index_ctx,
+                                  model_axis_size_ctx, perf_opt)
+from repro_torch.dist.collectives import current_mesh, dense_pmax
+from repro_torch.dist.sharding import MODEL, _param_spec, model_dim
 from repro_torch.models import blocks as B
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -55,10 +59,15 @@ def _stacked_init(n: int, init_fn) -> dict:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random f32 master weights, drawn from a ``torch.Generator`` on
     ``device`` seeded with ``seed`` (CUDA unless the caller names another;
-    raises when CUDA is absent)."""
+    raises when CUDA is absent).  On the "meta" device, the leaves' shapes
+    only (what ``dist.sharding.param_pspecs`` places)."""
     B.require_ported(cfg)
-    gen = torch.Generator(device=resolve_device(device))
-    gen.manual_seed(int(seed))
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        gen = L.MetaDraws()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
     D, V = cfg.d_model, cfg.vocab_size
     params = {"embed": L._randn(gen, (V, D), D ** -0.5),
               "final_norm": L.init_norm(D, cfg, gen.device)}
@@ -157,13 +166,46 @@ def _sinusoid(t: int, d: int, offset=0, device=None) -> torch.Tensor:
     return pe
 
 
+def _vocab_shard(cfg: ModelConfig):
+    """This rank's coordinate on the ambient mesh's "model" axis where
+    that axis (m > 1) shards the vocabulary (``dist.sharding._param_spec``
+    of the [V, D] table; the [D, V] head follows the same rule), else
+    None."""
+    m = model_axis_size_ctx()
+    if m <= 1 or model_dim(_param_spec(
+            [], "embed", (cfg.vocab_size, cfg.d_model), m)) is None:
+        return None
+    return model_axis_index_ctx()
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor, cfg: ModelConfig,
+            dt) -> torch.Tensor:
+    """``table.to(dt)[tokens]``; with the vocabulary split over the model
+    axis, the local rows looked up, the rest zero, summed over the group
+    (one rank holds each token's row, so the sum is exact)."""
+    shard = _vocab_shard(cfg)
+    if shard is None:
+        return table.to(dt)[tokens]
+    rows = table.shape[0]
+    local = tokens - shard * rows
+    mine = (local >= 0) & (local < rows)
+    x = table.to(dt)[torch.clamp(local, 0, rows - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dt,
+                                                    device=x.device))
+    return L.reduce_from_model(x)
+
+
 def embed_input(params, cfg: ModelConfig, batch: dict):
     """Returns (x0 [B, T, D] in the compute dtype, positions [B, T]).  A
     vlm's T counts its ``patch_embeds`` (projected by ``mm_proj``) before
-    the text; an encdec's decoder input carries the sinusoid."""
+    the text; an encdec's decoder input carries the sinusoid.  Under a
+    model axis the table holds this rank's rows of the vocabulary
+    (``_lookup``)."""
     dt = compute_dtype(cfg)
     tokens = batch["tokens"].long()
-    x = params["embed"].to(dt)[tokens]
+    # cast BEFORE the gather: with a vocab-sharded table the lookup's sum
+    # then runs at compute precision, as in the JAX package
+    x = _lookup(params["embed"], tokens, cfg, dt)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     if cfg.family == "vlm":
@@ -173,7 +215,7 @@ def embed_input(params, cfg: ModelConfig, batch: dict):
         x = x + _sinusoid(x.shape[1], cfg.d_model, device=x.device).to(dt)
     b, t = x.shape[0], x.shape[1]
     positions = torch.arange(t, device=x.device).expand(b, t)
-    return x, positions
+    return constrain(x, "btd"), positions
 
 
 def block_fn(kind: str):
@@ -256,13 +298,45 @@ def ce_loss_head(params, cfg: ModelConfig, x: torch.Tensor,
     return ce_from_weight(head_weight(params, cfg), cfg, x, labels)
 
 
-def _ce_chunk(xch, lch, w):
-    """(sum of per-token CE, count of valid tokens) of one chunk."""
-    logits = (xch @ w.to(xch.dtype)).to(torch.float32)
+def _ce_chunk(xch, lch, w, ce_bf16=False):
+    """(sum of per-token CE, count of valid tokens) of one chunk.
+    ``ce_bf16`` (the §Perf option): the logits stay in the compute dtype,
+    max and exp in it too, the sum of exps accumulated in f32."""
+    raw = xch @ w.to(xch.dtype)
+    logits = constrain(raw if ce_bf16 else raw.to(torch.float32), "btv")
     m = torch.amax(logits, dim=-1, keepdim=True)
     sumexp = torch.sum(torch.exp(logits - m), dim=-1, dtype=torch.float32)
-    lse = torch.log(sumexp) + m[..., 0]
-    tgt = torch.gather(logits, -1, torch.clamp_min(lch, 0)[..., None])[..., 0]
+    lse = torch.log(sumexp) + m[..., 0].to(torch.float32)
+    tgt = torch.gather(logits, -1,
+                       torch.clamp_min(lch, 0)[..., None])[..., 0]
+    valid = (lch >= 0).to(torch.float32)
+    return (torch.sum((lse - tgt.to(torch.float32)) * valid),
+            torch.sum(valid))
+
+
+def _ce_chunk_tp(xch, lch, w, first, ce_bf16=False, mesh=None):
+    """``_ce_chunk`` with the vocabulary split over the model axis of
+    ``mesh``: ``w`` holds this rank's vocab columns from ``first`` on.
+    The local logits' max goes through a MAX over the group (held
+    constant, as the shift-invariant softmax allows), the local sum of
+    exps and the masked target pick through a SUM: the [B, C, V] logits
+    are never gathered.  The SUM reassociates the f32 sum of exps, so the
+    loss and its gradient sit a few ulps from the one-rank chunk's.  The
+    mesh is an argument: the backward recomputes the chunk on autograd's
+    own thread on CUDA, where the ambient mesh is not set."""
+    raw = xch @ w.to(xch.dtype)
+    logits = constrain(raw if ce_bf16 else raw.to(torch.float32), "btv")
+    m = dense_pmax(torch.amax(logits.detach(), dim=-1, keepdim=True)
+                   .to(torch.float32), MODEL, mesh=mesh).to(logits.dtype)
+    sumexp = L.reduce_from_model(
+        torch.sum(torch.exp(logits - m), dim=-1, dtype=torch.float32), mesh)
+    lse = torch.log(sumexp) + m[..., 0].to(torch.float32)
+    cols = torch.arange(logits.shape[-1], device=logits.device) + first
+    mask = cols == torch.clamp_min(lch, 0)[..., None]
+    tgt = L.reduce_from_model(torch.sum(
+        torch.where(mask, logits, torch.zeros((), dtype=logits.dtype,
+                                              device=logits.device))
+        .to(torch.float32), dim=-1), mesh)
     valid = (lch >= 0).to(torch.float32)
     return torch.sum((lse - tgt) * valid), torch.sum(valid)
 
@@ -273,8 +347,18 @@ def ce_from_weight(w: torch.Tensor, cfg: ModelConfig, x: torch.Tensor,
     differentiates the head on its own).  Chunked over T by
     ``cfg.logit_chunk``; each chunk runs under activation checkpointing, so
     its [B, C, V] logits exist only while that chunk runs, forward or
-    backward.  Returns (loss, metrics)."""
+    backward.  Under a model axis that splits the vocabulary ``w`` holds
+    this rank's columns and the head is vocab-parallel (``_ce_chunk_tp``;
+    x's gradient summed over the group).  Returns (loss, metrics)."""
     bsz, t, _ = x.shape
+    ce_bf16 = perf_opt("ce_bf16")
+    shard = _vocab_shard(cfg)
+    if shard is not None:
+        x = L.copy_to_model(x)
+        chunk = _ce_chunk_tp
+        extra = (shard * w.shape[1], ce_bf16, current_mesh())
+    else:
+        chunk, extra = _ce_chunk, (ce_bf16,)
     c = min(cfg.logit_chunk, t)
     n = (t + c - 1) // c
     pad = n * c - t
@@ -286,8 +370,8 @@ def ce_from_weight(w: torch.Tensor, cfg: ModelConfig, x: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
         s, k = torch.utils.checkpoint.checkpoint(
-            _ce_chunk, x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
-            w, use_reentrant=False)
+            chunk, x[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c],
+            w, *extra, use_reentrant=False)
         tot, cnt = tot + s, cnt + k
     loss = tot / torch.clamp_min(cnt, 1.0)
     return loss, {"loss": loss, "tokens": cnt}

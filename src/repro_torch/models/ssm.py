@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _randn, rmsnorm, silu
+from repro_torch.models.layers import _rand, _randn, rmsnorm, silu
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -44,7 +44,7 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> dict:
     D, di, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     K, dev = cfg.conv_kernel, gen.device
     s = D ** -0.5
-    u = torch.rand((H,), generator=gen, dtype=torch.float32, device=dev)
+    u = _rand(gen, (H,))
     lo, hi = math.log(1e-3), math.log(0.1)
     dt0 = torch.exp(u * (hi - lo) + lo)
     dt_bias = dt0 + torch.log(-torch.expm1(-dt0))  # inverse softplus

@@ -73,9 +73,14 @@ def fxp_int8_bounds(i_bits, f_bits) -> tuple[torch.Tensor, torch.Tensor]:
     return -mag, mag - 1.0
 
 
-def absmax_scale(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor dynamic scale absmax/127 (f32 scalar, zero-safe)."""
+def absmax_scale(x: torch.Tensor, reduce=None) -> torch.Tensor:
+    """Per-tensor dynamic scale absmax/127 (f32 scalar, zero-safe).
+    ``reduce`` maps the local absmax to the logical tensor's where ``x`` is
+    one rank's shard of it (the MAX over the shards' group), so that every
+    shard's payload is the logical payload's slice."""
     m = torch.amax(torch.abs(x.to(torch.float32)))
+    if reduce is not None:
+        m = reduce(m)
     return torch.where(m > 0, m / 127.0, torch.ones_like(m))
 
 
@@ -94,9 +99,11 @@ def quantize_int8_fxp(x: torch.Tensor, i_bits: int, f_bits: int
             torch.tensor(spec.scale, dtype=torch.float32, device=x.device))
 
 
-def quantize_int8_absmax(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantize with a per-tensor dynamic absmax scale -> (payload, scale)."""
-    scale = absmax_scale(x)
+def quantize_int8_absmax(x: torch.Tensor, reduce=None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize with a per-tensor dynamic absmax scale -> (payload, scale);
+    ``reduce`` as in ``absmax_scale``."""
+    scale = absmax_scale(x, reduce)
     return quantize_int8(x, scale), scale
 
 

@@ -62,6 +62,7 @@ import torch
 from typing import Optional
 
 from repro_torch import resolve_device
+from repro_torch.dist.api import constrain, model_axis_size_ctx
 from repro_torch.kernels import decode_prologue as DP
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.ops import kernel_backend_ctx
@@ -163,10 +164,21 @@ _DECODE = {"attn": B.transformer_block_decode,
            "mamba": B.mamba_block_decode, "dec": B.decoder_block_decode}
 
 
+def _require_unsharded() -> None:
+    """Serving runs on whole parameters: under a model axis of more than
+    one rank it raises rather than decode with shards."""
+    if model_axis_size_ctx() > 1:
+        raise NotImplementedError(
+            "serving under a model axis of more than one rank (the "
+            "\"lnshd\" pool over KV heads, decode_prologue and "
+            "paged_attention on local heads) is ROADMAP A11.3c")
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, state: dict, tokens):
     """One decode step. tokens: [B, 1] int32.  Returns (logits [B, V] f32,
     state), the caches written in place and ``pos`` advanced by one."""
+    _require_unsharded()
     dt = lm.compute_dtype(cfg)
     pos = int(state["pos"])
     caches = state["caches"]
@@ -177,7 +189,7 @@ def decode_step(params, cfg: ModelConfig, state: dict, tokens):
     for kind, p, at in lm.walk_stack(params, cfg):
         step = _DECODE[kind]
         x, _ = step(p, x, cfg, _cache_at(caches, at), pos)
-    logits = _logits(params, cfg, x)[:, 0, :]
+    logits = constrain(_logits(params, cfg, x)[:, 0, :], "bv")
     return logits, {"caches": caches,
                     "pos": torch.tensor(pos + 1, dtype=torch.int32)}
 
@@ -198,6 +210,7 @@ def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,
 def _prefill_impl(params, cfg: ModelConfig, batch: dict, max_len: int,
                   cache_dtype=torch.bfloat16):
     B.require_ported(cfg)
+    _require_unsharded()
     device = params["embed"].device
     batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
     enc_out = (lm.encode(params, cfg, batch["frames"])
@@ -216,7 +229,7 @@ def _prefill_impl(params, cfg: ModelConfig, batch: dict, max_len: int,
         else:
             x, c = B.mamba_block_prefill(p, x, cfg, positions, cache_dtype)
         _copy_into(_cache_at(caches, at), c)
-    logits = _logits(params, cfg, x)[:, -1, :]
+    logits = constrain(_logits(params, cfg, x)[:, -1, :], "bv")
     return logits, {"caches": caches,
                     "pos": torch.tensor(t, dtype=torch.int32)}
 
@@ -383,6 +396,16 @@ def _logits(params, cfg: ModelConfig, x):
     return (x @ w.to(x.dtype)).to(torch.float32)
 
 
+def constrain_pool(pool: dict) -> dict:
+    """The pool tagged for the ambient mesh as the JAX package tags it
+    (blocks over the data axes, KV heads over "model"; ``constrain``
+    moves nothing: the pool here is whole on every rank, and stays the
+    same dict, updated in place)."""
+    for k, x in pool.items():
+        pool[k] = constrain(x, "lnshd" if x.dim() == 5 else "lns")
+    return pool
+
+
 @torch.no_grad()
 def paged_decode_step(params, cfg: ModelConfig, pool: dict, tables, seq_lens,
                       tokens, attn_impl=None):
@@ -396,11 +419,14 @@ def paged_decode_step(params, cfg: ModelConfig, pool: dict, tables, seq_lens,
     """
     if not paged_supported(cfg):
         raise ValueError(f"paged decode unsupported for {cfg.family}")
+    _require_unsharded()
     dt = lm.compute_dtype(cfg)
+    pool = constrain_pool(pool)
     x = _embed_tokens(params, cfg, tokens, dt)
     qpos = seq_lens.to(torch.int32)[:, None]
     x = _layers(params, cfg, pool, x, tables, qpos, attn_impl, prologue=True)
-    return _logits(params, cfg, x)[:, 0, :], pool
+    logits = constrain(_logits(params, cfg, x)[:, 0, :], "bv")
+    return logits, constrain_pool(pool)
 
 
 @torch.no_grad()
@@ -414,10 +440,13 @@ def paged_prefill_chunk(params, cfg: ModelConfig, pool: dict, table, tokens,
     """
     if not paged_supported(cfg):
         raise ValueError(f"paged prefill unsupported for {cfg.family}")
+    _require_unsharded()
     dt = lm.compute_dtype(cfg)
+    pool = constrain_pool(pool)
     c = tokens.shape[1]
     qpos = (int(start) + torch.arange(c, dtype=torch.int32,
                                       device=tokens.device))[None, :]
     x = _embed_tokens(params, cfg, tokens, dt)
     x = _layers(params, cfg, pool, x, table, qpos, "ref", prologue=False)
-    return _logits(params, cfg, x)[:, -1, :], pool
+    logits = constrain(_logits(params, cfg, x)[:, -1, :], "bv")
+    return logits, constrain_pool(pool)

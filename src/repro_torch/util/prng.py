@@ -124,6 +124,26 @@ def random_bits(k: torch.Tensor, shape, device=None) -> torch.Tensor:
     return _bits(*_words(k), shape, device).reshape(shape)
 
 
+def uniform_block(k: torch.Tensor, shape, start, size,
+                  device=None) -> torch.Tensor:
+    """The block of ``uniform(k, shape)`` of ``size`` at ``start`` (one
+    index a dimension), drawn from its elements' flat indices in ``shape``
+    alone: what one rank's shard of a leaf gets of the logical leaf's
+    draws (the partitionable bits draw each element from its index)."""
+    k = as_key(k)
+    device = torch.device(device) if device is not None else k.device
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        ar = torch.arange(int(size[d]), dtype=torch.int64, device=device)
+        ar = (ar + int(start[d])) * stride
+        idx = idx + ar.reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= int(shape[d])
+    k0, k1 = _words(k)
+    y0, y1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
+    return _to_uniform(y0 ^ y1)
+
+
 def _to_uniform(bits: torch.Tensor) -> torch.Tensor:
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0

@@ -496,6 +496,36 @@ def test_unported_step_options_raise():
     assert step.backend == "off" and step.device.type == "cpu"
 
 
+@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "encdec",
+                                    "vlm"])
+def test_model_axis_refuses_other_families(family):
+    """Under a mesh whose "model" axis has more than one rank the step is
+    tensor-parallel for the dense family only; another family raises by
+    name (ROADMAP A11.3c) before any collective, rather than run every
+    rank's whole step replicated.  A model axis of one is no model axis."""
+    from types import SimpleNamespace
+
+    from repro_torch.dist import mesh_ctx
+    from test_models import make_batch, tiny
+    tc = ModelConfig(**dataclasses.asdict(tiny(family)))
+    ocfg = OptimizerConfig(kind="sgd")
+    step = make_train_step(tc, QuantPolicy(), ocfg, device="cpu")
+    p0 = TLM.init_params(tc, device="cpu")
+    batch = {k: np.array(v) for k, v in make_batch(tiny(family), b=2,
+                                                    t=8).items()}
+
+    def mesh(m):
+        return SimpleNamespace(mesh_dim_names=("data", "model"),
+                               shape=(1, m), get_local_rank=lambda a: 0)
+    with mesh_ctx(mesh(2)):
+        with pytest.raises(NotImplementedError,
+                           match=f"the {family} family.*ROADMAP A11.3c"):
+            _run(step, p0, ocfg, batch, default_bits(tc))
+    with mesh_ctx(mesh(1)):
+        _, _, m = _run(step, p0, ocfg, batch, default_bits(tc))
+    assert np.isfinite(float(m["loss"]))
+
+
 @pytest.mark.parametrize("seed,shards", [(0, 1), (3, 2)])
 def test_synthetic_lm_dataset_matches(seed, shards):
     for shard in range(shards):

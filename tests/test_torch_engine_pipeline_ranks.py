@@ -79,7 +79,7 @@ import contextlib
 from repro_torch.core import QuantPolicy, StepOptions, make_train_step
 from repro_torch.core.steps import default_bits, init_train_state
 from repro_torch.dist import get_schedule, mesh_ctx
-from repro_torch.launch.mesh import make_debug_mesh
+from repro_torch.launch.mesh import make_debug_mesh, make_mesh
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import Hyper, OptimizerConfig
@@ -130,8 +130,10 @@ try:
     out["uneven"] = np.array("no error")
 except ValueError as e:
     out["uneven"] = np.array(str(e))
-# the pipeline inside a data axis of two: ranks {0, 2} and {1, 3}
-grid = make_debug_mesh(2, 2)
+# the pipeline inside a data axis of two: ranks {0, 2} and {1, 3} (the
+# other axis a replica axis: under a "model" axis of two the step would be
+# tensor-parallel, which refuses the pipeline)
+grid = make_mesh((2, 2), ("data", "replica"))
 dcoord = RANK // 2
 cfg = ModelConfig(**CFGS["dense"])
 for compress, ov in DATA_CASES:

@@ -104,7 +104,7 @@ def test_quantized_training_converges():
 def test_flags_of_later_items_are_refused(flag, capsys, tmp_path,
                                          monkeypatch):
     """The multi-GPU flags of A11's later items (``--data``, ``--model``,
-    and ``--pipe`` above one rank, A11.3) are refused by name;
+    and ``--pipe`` above one rank, A11.3b) are refused by name;
     ``--pipeline-schedule``, ``--virtual-stages`` and ``--microbatches``
     (A11.2) train a step, stage-sharded or as the cost model only, and
     print the JAX driver's pipeline line;
@@ -177,7 +177,7 @@ def test_flags_of_later_items_are_refused(flag, capsys, tmp_path,
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"{flag[0]}: the port has the dW reduction" in err
-    assert "wait for the rest of ROADMAP A11 (A11.3" in err
+    assert "wait for the rest of ROADMAP A11 (A11.3b" in err
 
 
 def test_main_returns_the_losses(tmp_path, capsys, monkeypatch):
